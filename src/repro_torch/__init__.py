@@ -1,0 +1,22 @@
+"""repro_torch — EasyFL (Zhuang et al., 2021) in PyTorch for an NVIDIA H100.
+
+The PyTorch/CUDA port of the ``repro`` package: the same low-code API,
+config tree and history, with the fused batched FedAvg round
+(``resources.execution="batched"``) on hand-written CUDA kernels for
+FedAvg, STC and int8 compression.
+
+    import repro_torch as easyfl
+    easyfl.init({"model": "femnist_cnn", "dataset": "femnist",
+                 "resources": {"execution": "batched"}})
+    easyfl.run()
+
+Entry points run on CUDA.  ``set_device("cpu")`` runs them on the CPU; with
+no CUDA device and no such call they raise instead of falling back.
+"""
+from repro_torch.core.api import (  # noqa: F401
+    init, register_client, register_dataset, register_model, register_server,
+    reset, run, start_client, start_server, tracker,
+)
+from repro_torch.kernels.ops import get_device, set_device  # noqa: F401
+
+__version__ = "0.1.0"

@@ -1,0 +1,27 @@
+"""Carry weights between the reference package and the port as numpy.
+
+Shapes and layouts are kept exactly (conv weights stay HWIO), so a tree
+of numpy arrays taken from the reference loads unchanged.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.utils.tree import tree_map
+
+
+def params_from_jax(tree: Any, device: Optional[torch.device] = None) -> Any:
+    """Nested dict of numpy arrays -> the same tree of tensors on
+    ``device`` (default: :func:`repro_torch.get_device`)."""
+    if device is None:
+        from repro_torch.kernels.ops import get_device
+        device = get_device()
+    return tree_map(lambda a: torch.tensor(np.asarray(a), device=device), tree)
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """Tree of tensors -> the same tree of host numpy arrays."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)

@@ -1,0 +1,562 @@
+"""Batched client execution engine: the whole cohort in one round program.
+
+The selected clients' params, optimizer states and cyclic-batch indices are
+stacked along a leading client dimension and all E local epochs of the
+cohort run together: ``torch.func.vmap`` over clients of one ``grad`` step,
+inside a Python loop over the bucketed local steps — the PyTorch form of
+the reference's ``jax.vmap`` around ``jax.lax.scan``.
+
+:func:`make_round_program` fuses the rest of the round behind that
+training: per-leaf error-feedback (EF) correction, in-program STC or int8
+compression with the EF residual update (hand-written CUDA kernels,
+``repro_torch.kernels``), the flat (N_b, D) update matrix, FedAvg (the
+streaming CUDA kernel with ``resources.aggregation_kernel``, else
+``torch.einsum``) and the server apply ``p + server_lr * delta``.
+:meth:`BatchedExecutor.run_round_fused` dispatches it and performs the
+round's ONE device-to-host transfer (loss, accuracy and every per-leaf STC
+count, stacked together).  The program runs eagerly; CUDA-graph capture per
+bucket is ROADMAP M5.
+
+Shape discipline: cohort size N, per-client step count S and per-client
+sample count are each padded up to power-of-two buckets.  Padded clients
+run 0 active steps (their update is exactly 0, their weight 0); padded
+steps are masked with ``torch.where`` so params and optimizer state stay
+frozen once ``step >= n_steps[client]``.
+
+Per-client FedProx ``mu``, the grad-clip threshold and the optimizer
+hyperparameters ride along as (N_b,) vectors in one :class:`CohortVectors`
+struct, mapped to per-client scalars by ``vmap``.  Only mixed optimizer
+*families* cannot share one program and raise, naming the clients.
+
+The cohort's data comes from a device-resident per-client pool
+(:class:`repro_torch.core.tiered_store.TieredRowStore`, ``spill="drop"``);
+the EF residuals live in a second store (``spill="host"``) whose hot rows
+the round program reads and updates in place.
+"""
+from __future__ import annotations
+
+import time
+from functools import lru_cache
+from typing import Any, Dict, List, NamedTuple, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.local_train import cyclic_batches
+from repro_torch.models.small import FLModel
+from repro_torch.optim import (
+    Optimizer, TracedOptimizer, adamw_traced, apply_updates, global_norm,
+    hparams_from_config, sgd_traced,
+)
+from repro_torch.utils.tree import (
+    tree_flatten, tree_leaves, tree_map, tree_unflatten,
+)
+
+PyTree = Any
+
+
+class CohortVectors(NamedTuple):
+    """All per-client (N_bucket,) vectors of the cohort program: the
+    FedProx proximal coefficient, the grad-clip threshold, and the
+    optimizer hyperparameter struct (``SGDHParams`` / ``AdamWHParams`` of
+    (N_bucket,) vectors — or ``()`` when the cohort shares one hand-built
+    uniform :class:`Optimizer` instance)."""
+
+    mu: Any
+    max_norm: Any
+    hp: Any
+
+
+_round_builds = 0
+_dispatches = 0
+_host_syncs = 0
+
+
+def round_trace_count() -> int:
+    """How many round programs (:func:`make_round_program`) this process
+    has built — the eager analogue of the reference's trace count: one per
+    distinct (model, optimizer, bucket, method, ...) key, flat across
+    rounds at fixed bucket shapes."""
+    return _round_builds
+
+
+def dispatch_count() -> int:
+    """Executor-level program dispatches this process (1 per fused round)."""
+    return _dispatches
+
+
+def host_sync_count() -> int:
+    """Device->host synchronization points of the round pipeline this
+    process (1 per fused round: its single batched fetch)."""
+    return _host_syncs
+
+
+def _note_dispatch(n: int = 1) -> None:
+    global _dispatches
+    _dispatches += n
+
+
+def _note_host_sync(n: int = 1) -> None:
+    global _host_syncs
+    _host_syncs += n
+
+
+@lru_cache(maxsize=32)
+def _wrap_uniform(optimizer: Optimizer) -> TracedOptimizer:
+    """Adapt a hand-built, cohort-uniform closure :class:`Optimizer` to the
+    traced interface (hyperparam struct ignored — it is ``()``)."""
+    return TracedOptimizer(
+        init=lambda p, hp: optimizer.init(p),
+        update=lambda g, s, p, hp: optimizer.update(g, s, p),
+        name=f"uniform({optimizer.name})")
+
+
+def bucket_pow2(n: int, floor: int = 1) -> int:
+    """Smallest power of two >= max(n, floor)."""
+    b = max(1, floor)
+    while b < n:
+        b *= 2
+    return b
+
+
+def _per_client(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """View an (N_b,) vector so it broadcasts over ``like``'s trailing dims."""
+    return mask.view((-1,) + (1,) * (like.dim() - 1))
+
+
+def _one_client_fn(model: FLModel, optimizer: TracedOptimizer, steps: int,
+                   use_prox: bool, use_clip: bool):
+    """The cohort's local training: ``vmap`` over clients of one grad step,
+    a loop over ``steps`` bucketed steps, padded steps masked.
+
+    Returns ``cohort(params, x, y, idx, n_steps, vec, global_params) ->
+    (updates, loss_mean, acc_mean)``, every argument and result stacked
+    along the client dimension except ``global_params``.  The batch of
+    step ``s`` is gathered with the client dimension explicit
+    (``x[client, idx[client, s]]``) outside ``vmap``."""
+
+    def client_step(params, opt_state, xb, yb, vec, global_params):
+        def loss_fn(p):
+            loss, metrics = model.loss_and_metrics(p, {"x": xb, "y": yb})
+            if use_prox:
+                prox = sum(
+                    torch.sum(torch.square(a.to(torch.float32)
+                                           - g.to(torch.float32)))
+                    for a, g in zip(tree_leaves(p),
+                                    tree_leaves(global_params)))
+                loss = loss + 0.5 * vec.mu * prox
+            return loss, (loss, metrics["accuracy"])
+
+        grads, (loss, acc) = torch.func.grad(loss_fn, has_aux=True)(params)
+        if use_clip:
+            norm = global_norm(grads)
+            scale = torch.where(
+                vec.max_norm > 0.0,
+                torch.clamp_max(vec.max_norm / (norm + 1e-9), 1.0), 1.0)
+            grads = tree_map(lambda g: g * scale, grads)
+        updates, new_opt = optimizer.update(grads, opt_state, params, vec.hp)
+        return apply_updates(params, updates), new_opt, loss, acc
+
+    step_all = torch.func.vmap(client_step, in_dims=(0, 0, 0, 0, 0, None))
+    init_all = torch.func.vmap(optimizer.init)
+
+    def cohort(params, x, y, idx, n_steps, vec, global_params):
+        nb = x.shape[0]
+        rows = torch.arange(nb, device=x.device)[:, None]
+        opt_state = init_all(params, vec.hp)
+        loss_sum = torch.zeros((nb,), dtype=torch.float32, device=x.device)
+        acc_sum = torch.zeros_like(loss_sum)
+        for s in range(steps):
+            bidx = idx[:, s]                        # (N_b, B)
+            new_p, new_opt, loss, acc = step_all(
+                params, opt_state, x[rows, bidx], y[rows, bidx], vec,
+                global_params)
+            active = s < n_steps                    # padded steps: frozen
+            params = tree_map(
+                lambda nw, od: torch.where(_per_client(active, nw), nw, od),
+                new_p, params)
+            opt_state = tree_map(
+                lambda nw, od: torch.where(_per_client(active, nw), nw, od),
+                new_opt, opt_state)
+            af = active.to(torch.float32)
+            loss_sum = loss_sum + af * loss
+            acc_sum = acc_sum + af * acc
+        updates = tree_map(
+            lambda n, g: n.to(torch.float32) - g.to(torch.float32),
+            params, global_params)
+        denom = torch.clamp_min(n_steps.to(torch.float32), 1.0)
+        return updates, loss_sum / denom, acc_sum / denom
+
+    return cohort
+
+
+@lru_cache(maxsize=16)
+def make_round_program(model: FLModel, optimizer: TracedOptimizer,
+                       steps: int, use_prox: bool, use_clip: bool,
+                       method: str = "none", stc_sparsity: float = 0.01,
+                       use_kernel: bool = False, server_lr: float = 1.0):
+    """The whole round as one function (``resources.round_fusion="auto"``).
+
+    Signature of the returned function (N_b = bucketed cohort dim):
+
+        (global_params, x, y, idx, n_steps, vec, weights, ef_leaves,
+         ef_rows)
+            -> (new_global_params, loss, acc, nnz)
+
+    * ``weights`` — (N_b,) f32 normalized FedAvg weights (0 beyond N).
+    * ``ef_leaves`` / ``ef_rows`` — the EF store's hot-tier
+      ``(alloc, leaf_size)`` matrices, updated in place, and the (N,) rows
+      of the N real clients.  Padded clients are always the last N_b - N
+      rows of the cohort, so they read a zero residual and are never
+      written back — the reference reaches the same with an out-of-bounds
+      sentinel row.  ``()`` and unused under ``method="none"``.
+    * ``nnz`` — per-STC-leaf (N_b,) non-zero counts (empty otherwise).
+    """
+    global _round_builds
+    _round_builds += 1
+    cohort = _one_client_fn(model, optimizer, steps, use_prox, use_clip)
+
+    def round_fn(global_params, x, y, idx, n_steps, vec, weights, ef_leaves,
+                 ef_rows):
+        from repro_torch.core.compression import DENSE_MIN_ELEMS
+        from repro_torch.kernels import ops as kops
+
+        nb = x.shape[0]
+        stacked = tree_map(
+            lambda p: p.unsqueeze(0).expand((nb,) + tuple(p.shape)),
+            global_params)
+        updates, loss, acc = cohort(stacked, x, y, idx, n_steps, vec,
+                                    global_params)
+
+        leaves, treedef = tree_flatten(updates)
+        flat_leaves, nnz_list = [], []
+        for li, leaf in enumerate(leaves):
+            size = leaf[0].numel()
+            flat = leaf.reshape(nb, size).to(torch.float32)
+            if method != "none":
+                ef = ef_leaves[li]
+                # error-correct by the stored residual (0 for padded rows)
+                res = F.pad(ef.index_select(0, ef_rows),
+                            (0, 0, 0, nb - ef_rows.shape[0]))
+                corrected = (flat + res).contiguous()
+                if size < DENSE_MIN_ELEMS:   # tiny tensors stay dense
+                    sent = corrected
+                elif method == "stc":
+                    sent, nnz = kops.stc_compress_batched(corrected,
+                                                          stc_sparsity)
+                    nnz_list.append(nnz)
+                else:
+                    sent, _ = kops.int8_roundtrip_batched(corrected)
+                ef.index_copy_(0, ef_rows,
+                               (corrected - sent)[: ef_rows.shape[0]])
+                flat = sent
+            flat_leaves.append(flat)
+        flat = (flat_leaves[0] if len(flat_leaves) == 1
+                else torch.cat(flat_leaves, dim=1)).contiguous()
+
+        if use_kernel:
+            delta = kops.fedavg_aggregate(flat, weights)
+        else:
+            delta = torch.einsum("n,nd->d", weights, flat)
+
+        out, off = [], 0
+        for leaf in leaves:
+            size = leaf[0].numel()
+            out.append(delta[off: off + size].reshape(leaf.shape[1:]))
+            off += size
+        delta_tree = tree_unflatten(treedef, out)
+        # the server apply (aggregation.apply_delta), in-program
+        new_global = tree_map(
+            lambda p, d: (p.to(torch.float32) + server_lr * d).to(p.dtype),
+            global_params, delta_tree)
+        return new_global, loss, acc, tuple(nnz_list)
+
+    return round_fn
+
+
+class BatchedExecutor:
+    """Runs a cohort of :class:`repro_torch.core.client.Client` objects as
+    one round program on ``device``."""
+
+    #: bound on the *device-resident* tier of the per-client data pool
+    #: (rows); evicted rows are recomputed from ``c.data``
+    DATA_POOL_MAX_CLIENTS = 1024
+    #: bound on the device-resident tier of the error-feedback residual
+    #: store; evicted residuals spill to host numpy copies and reload
+    #: bit-identically
+    EF_MAX_CLIENTS = 1024
+
+    def __init__(self, model: FLModel, device: torch.device,
+                 distributed: str = "none"):
+        if distributed != "none":
+            raise NotImplementedError(
+                "resources.distributed='data' (the sharded cohort) is not "
+                "ported to repro_torch yet (ROADMAP M5)")
+        self.model = model
+        self.device = device
+        self.distributed = distributed
+        self._pool = None              # lazily-built TieredRowStore
+        self._pool_maxn = 0
+        self._pool_sig = None          # (x tail shape/dtype, y ditto)
+        self._ef = None                # lazily-built TieredRowStore
+
+    # ------------------------------------------------------------------
+    def _batch_indices(self, client, round_id: int) -> np.ndarray:
+        """Replicates the reference's per-client epoch/seed schedule."""
+        from repro_torch.core.client import _stable_hash
+        seed = round_id * 9973 + _stable_hash(client.client_id)
+        rows = [cyclic_batches(len(client.data), client._batch_size(), seed + e)
+                for e in range(client.cfg.local_epochs)]
+        return np.concatenate(rows).astype(np.int64)
+
+    # ------------------------------------------------------------------
+    def _stacked_data(self, clients: Sequence, n_bucket: int, maxn: int):
+        """Stacked (N_bucket, maxn, ...) cohort x/y from the tiered pool:
+        each client's padded rows upload once while hot, cohorts assemble
+        by one device-side row gather, padded clients get zero rows.  Client
+        datasets are assumed static (true for every built-in dataset)."""
+        from repro_torch.core.tiered_store import TieredRowStore
+
+        x0 = np.asarray(clients[0].data.x)
+        y0 = np.asarray(clients[0].data.y)
+        sig = (x0.shape[1:], x0.dtype, y0.shape[1:], y0.dtype)
+        if self._pool is not None and self._pool_sig != sig:
+            self._pool = None          # dataset/shape changed: reset
+        if self._pool is None:
+            self._pool = TieredRowStore(self.DATA_POOL_MAX_CLIENTS,
+                                        spill="drop", device=self.device,
+                                        name="data-pool")
+            self._pool_sig = sig
+            self._pool_maxn = maxn
+        if maxn > self._pool_maxn:
+            self._pool.pad_dim1(maxn)
+            self._pool_maxn = maxn
+        by_id = {c.client_id: c for c in clients}
+        width = self._pool_maxn
+
+        def make_row(cid):             # recompute path: re-pad from c.data
+            c = by_id[cid]
+            n = len(c.data)
+            nx = np.zeros((width,) + x0.shape[1:], x0.dtype)
+            ny = np.zeros((width,) + y0.shape[1:], y0.dtype)
+            nx[:n] = c.data.x
+            ny[:n] = c.data.y
+            return [nx, ny]
+
+        xd, yd = self._pool.gather([c.client_id for c in clients], make_row)
+        padn = n_bucket - len(clients)
+        if padn:                       # bucket padding: all-zero rows
+            xd = torch.cat([xd, xd.new_zeros((padn,) + tuple(xd.shape[1:]))])
+            yd = torch.cat([yd, yd.new_zeros((padn,) + tuple(yd.shape[1:]))])
+        return xd, yd
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _cohort_optimizer(clients: Sequence):
+        """Resolve the cohort's traced optimizer + per-client hp rows.
+
+        Every per-client hyperparameter within one family is vectorized.
+        Mixed optimizer *families*, and per-client hand-assigned optimizer
+        objects that differ from the client configs, raise ``ValueError``
+        naming the clients (a cohort-wide *uniform* hand-built instance is
+        honored via a traced wrapper)."""
+        from repro_torch.optim import get_optimizer
+
+        # name equality: the name encodes every hyperparameter
+        from_cfg = all(
+            c.optimizer.name == get_optimizer(
+                c.cfg.optimizer, c.cfg.lr, c.cfg.momentum,
+                c.cfg.weight_decay, c.cfg.nesterov, c.cfg.adam_b1,
+                c.cfg.adam_b2, c.cfg.adam_eps).name
+            for c in clients)
+        if not from_cfg:
+            if len({id(c.optimizer) for c in clients}) == 1:
+                return _wrap_uniform(clients[0].optimizer), [()] * len(clients)
+            raise ValueError(
+                "batched execution cannot vectorize hand-assigned "
+                "per-client optimizer objects "
+                f"({sorted({c.optimizer.name for c in clients})}); keep "
+                "optimizers in the client configs or use "
+                "resources.execution='sequential'")
+        families: Dict[str, List[str]] = {}
+        rows = []
+        for c in clients:
+            family, hp = hparams_from_config(c.cfg)
+            families.setdefault(family, []).append(c.client_id)
+            rows.append(hp)
+        if len(families) > 1:
+            detail = "; ".join(f"{fam}: {ids}"
+                               for fam, ids in sorted(families.items()))
+            raise ValueError(
+                "batched execution cannot mix optimizer families in one "
+                "cohort (per-client hyperparameters within one family are "
+                f"vectorized) — got {detail}; use "
+                "resources.execution='sequential' or partition the "
+                "federation by family")
+        if "sgd" in families:
+            opt = sgd_traced(
+                use_momentum=any(r.momentum != 0.0 for r in rows),
+                use_nesterov=any(r.nesterov for r in rows))
+        else:
+            opt = adamw_traced()
+        return opt, rows
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def cohort_vectors(clients: Sequence, n_bucket: int):
+        """Build the cohort's :class:`CohortVectors` (host numpy) + traced
+        optimizer.  Padded rows: mu and max_norm 0, hyperparams the first
+        client's row (inert: padded clients run 0 active steps)."""
+        opt, rows = BatchedExecutor._cohort_optimizer(clients)
+        n = len(clients)
+
+        def stack(values, pad):
+            a = np.full((n_bucket,), pad, np.float32)
+            a[:n] = values
+            return a
+
+        mu = stack([c.cfg.proximal_mu for c in clients], 0.0)
+        max_norm = stack([c.cfg.max_grad_norm for c in clients], 0.0)
+        if rows[0] == ():            # cohort-uniform hand-built optimizer
+            hp = ()
+        else:
+            hp_cls = type(rows[0])
+            hp = hp_cls(*(stack([getattr(r, f) for r in rows],
+                                getattr(rows[0], f))
+                          for f in hp_cls._fields))
+        return CohortVectors(mu=mu, max_norm=max_norm, hp=hp), opt
+
+    # ------------------------------------------------------------------
+    def _cohort_inputs(self, clients: Sequence, round_id: int):
+        """Host-side round prep: bucketed shapes, cohort vectors + traced
+        optimizer, pooled device data, batch indices, step counts."""
+        batch_sizes = {c._batch_size() for c in clients}
+        if len(batch_sizes) != 1:
+            raise ValueError(
+                f"batched execution needs a uniform batch size, got "
+                f"{sorted(batch_sizes)}")
+        B = batch_sizes.pop()
+
+        N = len(clients)
+        Nb = bucket_pow2(N)
+        vec, optimizer = self.cohort_vectors(clients, Nb)
+        idx_list = [self._batch_indices(c, round_id) for c in clients]
+        S = bucket_pow2(max(len(ix) for ix in idx_list))
+        maxn = bucket_pow2(max(len(c.data) for c in clients))
+
+        xd, yd = self._stacked_data(clients, Nb, maxn)
+        idx = np.zeros((Nb, S, B), dtype=np.int64)
+        n_steps = np.zeros((Nb,), dtype=np.int64)
+        for i, c in enumerate(clients):
+            idx[i, : len(idx_list[i])] = idx_list[i]
+            n_steps[i] = len(idx_list[i])
+        return Nb, S, vec, optimizer, xd, yd, idx, n_steps
+
+    # ------------------------------------------------------------------
+    def run_round_fused(self, clients: Sequence, global_params: PyTree,
+                        round_id: int, *, method: str = "none",
+                        stc_sparsity: float = 0.01, use_kernel: bool = False,
+                        server_lr: float = 1.0):
+        """Run the whole round as ONE dispatch (:func:`make_round_program`).
+
+        Returns ``(st, new_global_params)``.  ``st`` holds host numpy
+        ``loss`` / ``acc`` (N_b,), the per-leaf STC ``nnz`` layout,
+        ``n_steps``, ``num_samples`` and ``wall`` — the blocking round time
+        (the virtual clock's boundary), which ends with the round's single
+        batched device->host transfer.  The EF residual store is updated
+        in place."""
+        Nb, S, vec, optimizer, xd, yd, idx, n_steps = self._cohort_inputs(
+            clients, round_id)
+        from repro_torch.core.aggregation import fedavg_weights
+        from repro_torch.core.compression import DENSE_MIN_ELEMS
+
+        dev = self.device
+        N = len(clients)
+        num_samples = np.asarray([len(c.data) for c in clients],
+                                 dtype=np.int64)
+        w = np.zeros((Nb,), np.float32)
+        w[:N] = fedavg_weights(num_samples)
+
+        sizes = [int(leaf.numel()) for leaf in tree_leaves(global_params)]
+        if method != "none":
+            from repro_torch.core.tiered_store import TieredRowStore
+
+            if self._ef is None:
+                self._ef = TieredRowStore(self.EF_MAX_CLIENTS, spill="host",
+                                          device=dev, name="ef-store")
+            if self._ef.leaves and \
+                    [m.shape[1] for m in self._ef.leaves] != sizes:
+                raise ValueError(
+                    "error-feedback store leaf sizes "
+                    f"{[m.shape[1] for m in self._ef.leaves]} do not match "
+                    f"the update structure {sizes}; one executor serves one "
+                    f"model")
+            rows = self._ef.ensure(
+                [c.client_id for c in clients],
+                lambda cid: [np.zeros((s,), np.float32) for s in sizes])
+            ef_leaves = tuple(self._ef.leaves)
+        else:
+            ef_leaves, rows = (), np.zeros((0,), np.int64)
+
+        program = make_round_program(
+            self.model, optimizer, S,
+            use_prox=bool((vec.mu > 0).any()),
+            use_clip=bool((vec.max_norm > 0).any()),
+            method=method, stc_sparsity=float(stc_sparsity),
+            use_kernel=use_kernel, server_lr=float(server_lr))
+
+        def put(a):
+            return torch.as_tensor(a, device=dev)
+
+        t0 = time.perf_counter()
+        new_global, loss, acc, nnz = program(
+            global_params, xd, yd, put(idx), put(n_steps),
+            CohortVectors(put(vec.mu), put(vec.max_norm),
+                          tree_map(put, vec.hp)),
+            put(w), ef_leaves, put(rows))
+        _note_dispatch()
+        # the round's ONE batched device->host transfer (it also blocks on
+        # the whole round: the timing boundary)
+        fetched = torch.stack([loss, acc, *nnz]).cpu().numpy()
+        _note_host_sync()
+        wall = time.perf_counter() - t0
+
+        counts = iter(fetched[2:])
+        st: Dict[str, Any] = {
+            "n_steps": n_steps,
+            "num_samples": num_samples,
+            "compression": method,
+            "comp_sizes": sizes,
+            "loss": fetched[0],
+            "acc": fetched[1],
+            # one entry per leaf, None for leaves without an STC count
+            "nnz": [next(counts) if method == "stc" and s >= DENSE_MIN_ELEMS
+                    else None for s in sizes],
+            "wall": wall,
+        }
+        return st, new_global
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def per_client_payload_bytes(st: Dict[str, Any]) -> List[int]:
+        """Wire sizes of a compressed round, from the pre-fetched counts:
+        STC leaves from the per-client nnz, int8 leaves 1 byte/element +
+        scale, tiny dense leaves (< ``DENSE_MIN_ELEMS``) raw f32 bytes."""
+        from repro_torch.core.compression import (
+            DENSE_MIN_ELEMS, stc_leaf_bytes,
+        )
+
+        method = st["compression"]
+        n = len(st["num_samples"])
+        base = 0
+        for size in st["comp_sizes"]:
+            if size < DENSE_MIN_ELEMS:
+                base += size * 4                      # dense f32 leaf
+            elif method == "int8":
+                base += size + 4                      # int8 + scale
+        totals = np.full((n,), base, np.int64)
+        for counts in st["nnz"]:
+            if counts is not None:
+                totals += stc_leaf_bytes(np.asarray(counts)[:n].astype(np.int64))
+        return totals.tolist()

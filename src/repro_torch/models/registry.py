@@ -1,0 +1,63 @@
+"""Model registry backing the ``register_model`` API (paper Table II).
+
+Ported models: ``femnist_cnn`` and ``linear``.  The reference's other
+built-in names raise ``NotImplementedError`` naming the ROADMAP item that
+ports them, instead of resolving to something else.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+from repro_torch.models.small import FLModel, femnist_cnn, linear_model
+
+_FACTORIES: Dict[str, Callable[[], FLModel]] = {
+    "femnist_cnn": femnist_cnn,
+    "linear": linear_model,
+}
+
+#: built-in reference models that are not ported yet -> ROADMAP item
+UNPORTED = {
+    "shakespeare_lstm": "M3",
+    "cifar_resnet18": "M3",
+    "resnet18": "M3",
+    "tiny_lm": "M8",
+}
+
+# sensible default model per built-in dataset (init({"model": ...}) optional)
+DATASET_DEFAULT_MODEL = {
+    "femnist": "femnist_cnn",
+    "shakespeare": "shakespeare_lstm",
+    "cifar10": "cifar_resnet18",
+    "synthetic": "linear",
+    "tiny_lm": "tiny_lm",
+}
+
+
+def register_model(name_or_model, model=None) -> None:
+    """``register_model(model)`` or ``register_model(name, model)``.
+
+    Accepts an :class:`FLModel` instance or a zero-arg factory.
+    """
+    if model is None:
+        model = name_or_model
+        name = getattr(model, "name", None) or model().name
+    else:
+        name = name_or_model
+    if isinstance(model, FLModel):
+        _FACTORIES[name] = lambda m=model: m
+    else:
+        _FACTORIES[name] = model
+
+
+def get_model(name: str) -> FLModel:
+    if name not in _FACTORIES:
+        if name in UNPORTED:
+            raise NotImplementedError(
+                f"model {name!r} is not ported to repro_torch yet (ROADMAP "
+                f"{UNPORTED[name]}); ported: {sorted(_FACTORIES)}")
+        raise KeyError(f"unknown model {name!r}; registered: {sorted(_FACTORIES)}")
+    return _FACTORIES[name]()
+
+
+def list_models():
+    return sorted(_FACTORIES)

@@ -24,6 +24,9 @@ except ImportError:
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: subprocess-heavy tests (compile or multi-device)")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (skips without one); run on the "
+        "card with `pytest -m cuda tests/test_torch_cuda.py`")
 
 
 @pytest.fixture()

@@ -1,0 +1,103 @@
+"""Card-only checks of the port: each CUDA kernel against its plain
+PyTorch version at the main path's shapes, and the fused round on the card
+against the same round on the CPU.  Run on a CUDA machine with
+``pytest -m cuda tests/test_torch_cuda.py``; every test skips without a
+card.  Imports no jax, so it runs where only PyTorch is installed."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro_torch  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.core.config import Config  # noqa: E402
+from repro_torch.core.rounds import Trainer  # noqa: E402
+from repro_torch.data.fed_data import build_federated_data  # noqa: E402
+from repro_torch.kernels import fedavg_agg, ops, quant, stc_topk  # noqa: E402
+from repro_torch.models.registry import get_model  # noqa: E402
+from repro_torch.utils.tree import tree_leaves  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture()
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = tf32
+    repro_torch.set_device(None)
+
+
+def _updates(n, d, device):
+    rs = np.random.RandomState(n + d)
+    x = (rs.standard_normal((n, d))
+         * rs.uniform(1e-3, 2.0, (n, 1))).astype(np.float32)
+    if n > 9:
+        x[-1] = 0.0                # an all-zero (padded) client row
+    return torch.from_numpy(x).to(device)
+
+
+# (16, 6603710): the whole femnist_cnn update matrix (D % 4 != 0); then
+# its fc1/w leaf (D % 4 == 0, the float4 FedAvg path) and ragged widths
+@pytest.mark.parametrize("n,d", [(16, 6603710), (16, 6422528),
+                                 (16, 51200), (7, 20001), (1, 63)])
+def test_cuda_kernels_match_plain_versions(cuda_device, n, d):
+    x = _updates(n, d, cuda_device)
+    w = torch.rand((n,), device=cuda_device)
+    w /= w.sum()
+    k, p = fedavg_agg.fedavg_aggregate(x, w), fedavg_agg.fedavg_plain(x, w)
+    assert ((k - p).abs().max() <= 1e-6 * p.abs().max()).item()
+    ko, kn = stc_topk.stc_compress_batched(x, 0.01)
+    po, pn = stc_topk.stc_plain(x, 0.01)
+    assert torch.equal(ko != 0, po != 0) and torch.equal(kn, pn)
+    a, b = ko.cpu().numpy(), po.cpu().numpy()
+    ulp = np.spacing(np.maximum(np.abs(a), np.abs(b)).astype(np.float32))
+    assert (np.abs(a.astype(np.float64) - b) <= ulp).all()
+    s = quant.int8_scale(quant.rowmax_plain(x))
+    assert torch.equal(quant.rowmax(x), quant.rowmax_plain(x))
+    assert torch.equal(quant.qdq(x, s).view(torch.int32),
+                       quant.qdq_plain(x, s).view(torch.int32))
+
+
+def test_wrappers_count_only_kernel_launches(cuda_device):
+    x = _updates(4, 1000, cuda_device)
+    ops.reset_launch_counts()
+    ops.fedavg_aggregate(x, torch.full((4,), 0.25, device=cuda_device))
+    ops.stc_compress_batched(x, 0.01)
+    ops.int8_roundtrip_batched(x)
+    ops.fedavg_aggregate(x.cpu(), torch.full((4,), 0.25))   # plain: no count
+    assert ops.launch_counts() == {"fedavg_agg": 1, "stc_batched": 1,
+                                   "int8_rowmax": 1, "int8_qdq": 1}
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.stc_compress_batched(x.t(), 0.01)
+
+
+@pytest.mark.parametrize("compression", ["none", "stc", "int8"])
+def test_fused_round_on_card_matches_cpu(cuda_device, compression):
+    cfg = Config.make({
+        "model": "linear",
+        "data": {"dataset": "synthetic", "num_clients": 10, "batch_size": 32},
+        "server": {"rounds": 3, "clients_per_round": 5},
+        "client": {"local_epochs": 2, "lr": 0.1, "compression": compression},
+        "resources": {"execution": "batched", "aggregation_kernel": True}})
+    p0 = convert.params_to_numpy(
+        get_model("linear").init(torch.Generator().manual_seed(0)))
+    out = {}
+    for device in ("cuda", "cpu"):
+        repro_torch.set_device(device)
+        trainer = Trainer(cfg, get_model("linear"),
+                          build_federated_data(cfg.data))
+        trainer.server.params = convert.params_from_jax(p0)
+        out[device] = trainer.run()
+    for a, b in zip(tree_leaves(out["cuda"]["params"]),
+                    tree_leaves(out["cpu"]["params"])):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+    assert [h["comm_up_bytes"] for h in out["cuda"]["history"]] == \
+        [h["comm_up_bytes"] for h in out["cpu"]["history"]]
