@@ -3,7 +3,9 @@
 The PyTorch/CUDA port of the ``repro`` package: the same low-code API,
 config tree and history, with the fused batched FedAvg round
 (``resources.execution="batched"``) on hand-written CUDA kernels for
-FedAvg, STC and int8 compression.
+FedAvg, STC and int8 compression, and federated LoRA fine-tuning of decoder
+LMs (``client.finetune="lora"``) with hand-written flash-attention kernels
+behind ``REPRO_FLASH_ATTN=1``.
 
     import repro_torch as easyfl
     easyfl.init({"model": "femnist_cnn", "dataset": "femnist",

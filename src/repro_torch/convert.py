@@ -1,7 +1,9 @@
 """Carry weights between the reference package and the port as numpy.
 
 Shapes and layouts are kept exactly (conv weights stay HWIO), so a tree
-of numpy arrays taken from the reference loads unchanged.
+of numpy arrays taken from the reference loads unchanged — including a
+transformer's (``"segments"``: a list of dicts of layer-stacked leaves) and
+a LoRA adapter tree (``{"segments/0/attn/wq": {"a": ..., "b": ...}}``).
 """
 from __future__ import annotations
 

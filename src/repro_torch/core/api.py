@@ -250,5 +250,9 @@ def tracker() -> Tracker:
 
 
 def reset() -> None:
-    """Clear global state (tests)."""
+    """Clear global state: the context and the cached round programs (a
+    program closes over its model, and a LoRA model over its frozen base —
+    gigabytes on the card for a large LM)."""
+    from repro_torch.core.batched import make_round_program
     _ctx.reset()
+    make_round_program.cache_clear()

@@ -17,6 +17,15 @@ round's ONE device-to-host transfer (loss, accuracy and every per-leaf STC
 count, stacked together).  The program runs eagerly; CUDA-graph capture per
 bucket is ROADMAP M5.
 
+Under ``client.finetune = "lora"`` the model is the LoRA wrapper
+(``repro_torch.models.lora``): the stacked leaves are the adapter factors
+only, and the frozen base is closed over by the wrapper's ``apply`` — one
+set of tensors on the device, read by every vmapped client and never
+copied per client.  Nothing below knows about LoRA.  Sequence models feed
+int32 token rows through the same data pool; with the flash flag on, the
+attention of the whole cohort goes to the flash kernels in one launch per
+layer and pass (their vmap rule folds the client dimension into BH).
+
 Shape discipline: cohort size N, per-client step count S and per-client
 sample count are each padded up to power-of-two buckets.  Padded clients
 run 0 active steps (their update is exactly 0, their weight 0); padded

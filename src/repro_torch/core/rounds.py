@@ -13,9 +13,9 @@ duration is the makespan of the device groups, Eq. 1:
 
 The ported slice is the fused batched round: ``resources.execution=
 "batched"`` with ``round_fusion="auto"``, flat FedAvg, no faults or
-deadlines, synchronous rounds and full fine-tuning.  Every configuration
-outside it raises ``NotImplementedError`` naming the ROADMAP item that
-ports it — at construction, never as a silent detour.
+deadlines, synchronous rounds, and full or LoRA fine-tuning.  Every
+configuration outside it raises ``NotImplementedError`` naming the ROADMAP
+item that ports it — at construction, never as a silent detour.
 """
 from __future__ import annotations
 
@@ -68,8 +68,6 @@ def unported_config(cfg: Config) -> List[str]:
         out.append("checkpointing, checkpoint.every > 0 (ROADMAP M6)")
     if not cfg.tracking.round_sync:
         out.append("tracking.round_sync=False (ROADMAP M5)")
-    if cfg.client.finetune != "full":
-        out.append(f"client.finetune={cfg.client.finetune!r} (ROADMAP M8)")
     if cfg.server.compression != "none":
         out.append(f"server.compression={cfg.server.compression!r} "
                    f"(ROADMAP M4)")
@@ -108,6 +106,31 @@ class Trainer:
                     f"gathering path (ROADMAP M4); the fused batched round "
                     f"vectorizes training and compresses in-program")
         self.device = get_device()
+        if config.client.finetune == "lora":
+            # Freeze the base model and train low-rank adapters only: the
+            # wrapper is an FLModel whose param tree holds just the A/B
+            # factors, so the round program, compression and byte
+            # accounting below see adapters only.  The base is initialized
+            # once from cfg.seed and closed over — one copy on the device,
+            # shared by every client of the cohort.
+            from repro_torch.models.lora import lora_wrap
+            wrapped = lora_wrap(
+                model, model.init(torch.Generator().manual_seed(config.seed),
+                                  self.device),
+                config.client.lora_rank, config.client.lora_alpha,
+                config.client.lora_targets)
+            if not wrapped.defs:
+                raise ValueError(
+                    f"client.finetune='lora' with lora_targets="
+                    f"{config.client.lora_targets!r} matched no eligible "
+                    f"matrix leaves of model {model.name!r} (eligible: "
+                    f">= 2 dims beyond a stacked 'layers' axis) — nothing "
+                    f"to train")
+            model = wrapped
+            if server is not None:
+                # a caller-built server was constructed around the base
+                # model; evaluation must see the adapter model
+                server.model = model
         self.model = model
         self.fed_data = fed_data
         self.tracker = tracker or Tracker(

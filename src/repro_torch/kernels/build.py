@@ -11,7 +11,8 @@ one ``nvcc`` process each, all started together.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3`` and never
 ``--use_fast_math`` — the int8 round trip relies on an IEEE-rounded
-division and the STC bisection on exactly rounded f32 arithmetic.
+division, the STC bisection on exactly rounded f32 arithmetic, and flash
+attention on accurate ``expf`` / ``logf``.
 """
 from __future__ import annotations
 
@@ -25,12 +26,14 @@ from pathlib import Path
 from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("fedavg_agg", "stc_topk", "quant")
+SOURCES = ("fedavg_agg", "stc_topk", "quant", "flash_attn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
+_F = ctypes.c_float
+_C = ctypes.c_int
 #: C entry points of each library: name -> argtypes (all return an int,
 #: the launch's ``cudaGetLastError()``)
 SIGNATURES = {
@@ -39,6 +42,10 @@ SIGNATURES = {
                                         ctypes.c_float, _P)},
     "quant": {"int8_rowmax_launch": (_P, _P, _I64, _I64, _P),
               "int8_qdq_launch": (_P, _P, _P, _I64, _I64, _P)},
+    "flash_attn": {
+        "flash_fwd_launch": (_P,) * 5 + (_I64,) * 3 + (_F, _C, _P),
+        "flash_dq_launch": (_P,) * 7 + (_I64,) * 3 + (_F, _C, _P),
+        "flash_dkv_launch": (_P,) * 8 + (_I64,) * 3 + (_F, _C, _P)},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -95,7 +95,7 @@ stc_batched_kernel(const float* __restrict__ x, float* __restrict__ out,
   }
   const int cnt = block_reduce(c, SumI(), iscratch);
   const double sum = block_reduce(s, SumD(), dscratch);
-  const float mu = __fdiv_rn(__double2float_rn(sum), fmaxf((float)cnt, 1.0f));
+  const float mu = __double2float_rn(sum / fmax((double)cnt, 1.0));
 
   for (int i = threadIdx.x; i < real; i += THREADS) {
     const float v = seg[i];

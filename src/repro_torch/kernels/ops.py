@@ -7,9 +7,10 @@ CUDA device, :func:`get_device` raises instead of falling back quietly to
 the CPU.
 
 The kernel entry points re-exported here (``fedavg_aggregate``,
-``stc_compress_batched``, ``int8_roundtrip_batched``) take the device from
-their input tensors: a CUDA tensor launches the hand-written kernel, a CPU
-tensor takes the plain PyTorch version beside it, anything else raises.
+``stc_compress_batched``, ``int8_roundtrip_batched``, ``flash_attention``)
+take the device from their input tensors: a CUDA tensor launches the
+hand-written kernel, a CPU tensor takes the plain PyTorch version beside
+it, anything else raises.
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.kernels import fedavg_agg, quant, stc_topk
+from repro_torch.kernels import attention, fedavg_agg, quant, stc_topk
+from repro_torch.kernels.attention import flash_attention  # noqa: F401
 from repro_torch.kernels.fedavg_agg import fedavg_aggregate  # noqa: F401
 from repro_torch.kernels.quant import int8_roundtrip_batched  # noqa: F401
 from repro_torch.kernels.stc_topk import stc_compress_batched  # noqa: F401
@@ -53,7 +55,10 @@ def launch_counts() -> Dict[str, int]:
     return {"fedavg_agg": fedavg_agg.launches,
             "stc_batched": stc_topk.launches,
             "int8_rowmax": quant.rowmax_launches,
-            "int8_qdq": quant.qdq_launches}
+            "int8_qdq": quant.qdq_launches,
+            "flash_fwd": attention.fwd_launches,
+            "flash_dq": attention.dq_launches,
+            "flash_dkv": attention.dkv_launches}
 
 
 def reset_launch_counts() -> None:
@@ -61,3 +66,6 @@ def reset_launch_counts() -> None:
     stc_topk.launches = 0
     quant.rowmax_launches = 0
     quant.qdq_launches = 0
+    attention.fwd_launches = 0
+    attention.dq_launches = 0
+    attention.dkv_launches = 0

@@ -12,7 +12,8 @@ per-row count of kept elements.  This is the CUDA port of the reference's
 :func:`stc_compress_batched` launches the kernel for a CUDA tensor and uses
 :func:`stc_plain` for a CPU tensor.  Thresholds, masks and counts are the
 same f32/integer operations in both, so they agree bit for bit; ``mu`` is
-summed in float64 in both, then rounded once.
+summed and divided in float64 in both, then rounded once to float32 — the
+correctly rounded mean of the kept magnitudes.
 """
 from __future__ import annotations
 
@@ -62,7 +63,7 @@ def stc_plain(x: torch.Tensor, keep_frac: float = 0.01
     cnt = mask.sum(dim=-1, keepdim=True)
     total = torch.where(mask, ax, 0.0).sum(dim=-1, keepdim=True,
                                            dtype=torch.float64)
-    mu = total.to(torch.float32) / torch.clamp_min(cnt.to(torch.float32), 1.0)
+    mu = (total / torch.clamp_min(cnt.to(torch.float64), 1.0)).to(torch.float32)
     out = torch.where(mask, torch.sign(xp) * mu, 0.0)
     out = out.view(n, t * SEG)[:, :d].contiguous()
     return out, cnt.sum(dim=(1, 2)).to(torch.float32)

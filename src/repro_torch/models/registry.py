@@ -1,18 +1,20 @@
 """Model registry backing the ``register_model`` API (paper Table II).
 
-Ported models: ``femnist_cnn`` and ``linear``.  The reference's other
-built-in names raise ``NotImplementedError`` naming the ROADMAP item that
-ports them, instead of resolving to something else.
+Ported models: ``femnist_cnn``, ``linear`` and ``tiny_lm``.  The
+reference's other built-in names raise ``NotImplementedError`` naming the
+ROADMAP item that ports them, instead of resolving to something else.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict
 
+from repro_torch.models.llm import tiny_lm
 from repro_torch.models.small import FLModel, femnist_cnn, linear_model
 
 _FACTORIES: Dict[str, Callable[[], FLModel]] = {
     "femnist_cnn": femnist_cnn,
     "linear": linear_model,
+    "tiny_lm": tiny_lm,
 }
 
 #: built-in reference models that are not ported yet -> ROADMAP item
@@ -20,7 +22,6 @@ UNPORTED = {
     "shakespeare_lstm": "M3",
     "cifar_resnet18": "M3",
     "resnet18": "M3",
-    "tiny_lm": "M8",
 }
 
 # sensible default model per built-in dataset (init({"model": ...}) optional)

@@ -15,7 +15,8 @@ that feeds ``fc1`` (the reference flattens (h, w, c); an NCHW flatten would
 silently scramble ``fc1``).
 
 ``shakespeare_lstm`` and ``cifar_resnet18`` are not ported yet
-(ROADMAP M3).
+(ROADMAP M3).  Transformer LMs (``is_sequence=True``: next-token loss) live
+in ``models/llm``.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ class FLModel:
     apply: Callable  # (params, x) -> logits
     num_classes: int
     input_shape: Tuple[int, ...]
+    is_sequence: bool = False
 
     def init(self, gen: torch.Generator,
              device: Optional[torch.device] = None):
@@ -43,6 +45,10 @@ class FLModel:
     def loss_and_metrics(self, params, batch) -> Tuple[torch.Tensor, Dict]:
         x, y = batch["x"], batch["y"]
         logits = self.apply(params, x)
+        if self.is_sequence:
+            # language model: predict the next token at every position
+            logits = logits[:, :-1]
+            y = x[:, 1:]
         logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
         nll = -torch.gather(logp, -1, y.long()[..., None])[..., 0]
         acc = (logits.argmax(dim=-1) == y).to(torch.float32).mean()

@@ -13,7 +13,9 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.core.config import Config  # noqa: E402
 from repro_torch.core.rounds import Trainer  # noqa: E402
 from repro_torch.data.fed_data import build_federated_data  # noqa: E402
-from repro_torch.kernels import fedavg_agg, ops, quant, stc_topk  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    attention, fedavg_agg, ops, quant, stc_topk,
+)
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.utils.tree import tree_leaves  # noqa: E402
 
@@ -72,8 +74,12 @@ def test_wrappers_count_only_kernel_launches(cuda_device):
     ops.stc_compress_batched(x, 0.01)
     ops.int8_roundtrip_batched(x)
     ops.fedavg_aggregate(x.cpu(), torch.full((4,), 0.25))   # plain: no count
+    q = x[:, :64].reshape(1, 4, 1, 64).contiguous().requires_grad_()
+    ops.flash_attention(q, q, q).sum().backward()
     assert ops.launch_counts() == {"fedavg_agg": 1, "stc_batched": 1,
-                                   "int8_rowmax": 1, "int8_qdq": 1}
+                                   "int8_rowmax": 1, "int8_qdq": 1,
+                                   "flash_fwd": 1, "flash_dq": 1,
+                                   "flash_dkv": 1}
     with pytest.raises(ValueError, match="contiguous"):
         ops.stc_compress_batched(x.t(), 0.01)
 
@@ -101,3 +107,55 @@ def test_fused_round_on_card_matches_cpu(cuda_device, compression):
                                    atol=1e-5)
     assert [h["comm_up_bytes"] for h in out["cuda"]["history"]] == \
         [h["comm_up_bytes"] for h in out["cpu"]["history"]]
+
+
+# the LoRA path's shape (4 clients x 4 sequences x 32 heads, S 512, D 128)
+# and ragged sequence lengths and head dims
+@pytest.mark.parametrize("bh,s,d,causal", [
+    (512, 512, 128, True), (3, 1, 20, True), (3, 63, 64, False),
+    (3, 200, 20, True), (3, 200, 64, False), (2, 130, 16, True)])
+def test_flash_kernels_match_plain_versions(cuda_device, bh, s, d, causal):
+    gen = torch.Generator(device=cuda_device).manual_seed(s * d)
+    q, k, v, do = (torch.randn((bh, s, d), generator=gen, device=cuda_device)
+                   for _ in range(4))
+    o, lse = attention.flash_fwd(q, k, v, causal)
+    po, plse = attention.flash_fwd_plain(q, k, v, causal)
+    assert (o - po).abs().max().item() <= 1e-5
+    assert (lse - plse).abs().max().item() <= 1e-5
+    delta = (do * o).sum(dim=-1)
+    dq = attention.flash_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = attention.flash_dkv(q, k, v, do, lse, delta, causal)
+    want = (attention.flash_dq_plain(q, k, v, do, lse, delta, causal),
+            *attention.flash_dkv_plain(q, k, v, do, lse, delta, causal))
+    for got, exp in zip((dq, dk, dv), want):
+        assert (got - exp).abs().max().item() <= 1e-4
+
+
+def test_flash_lora_round_on_card_matches_cpu(cuda_device):
+    from repro_torch.models import attention as mattn
+
+    cfg = Config.make({
+        "model": "tiny_lm",
+        "data": {"dataset": "tiny_lm", "num_clients": 8, "batch_size": 32},
+        "server": {"rounds": 2, "clients_per_round": 4},
+        "client": {"local_epochs": 1, "lr": 0.1, "finetune": "lora",
+                   "lora_rank": 4, "lora_alpha": 8.0,
+                   "lora_targets": ("attn",)},
+        "resources": {"execution": "batched"}})
+    out = {}
+    mattn.set_flash_attention(True)
+    try:
+        for device in ("cuda", "cpu"):
+            repro_torch.set_device(device)
+            ops.reset_launch_counts()
+            out[device] = Trainer(cfg, get_model("tiny_lm"),
+                                  build_federated_data(cfg.data)).run()
+            launched = ops.launch_counts()
+            assert all((launched[k] > 0) == (device == "cuda")
+                       for k in ("flash_fwd", "flash_dq", "flash_dkv"))
+    finally:
+        mattn.set_flash_attention(None)
+    for a, b in zip(tree_leaves(out["cuda"]["params"]),
+                    tree_leaves(out["cpu"]["params"])):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-4)

@@ -169,7 +169,8 @@ UNPORTED = [
     ({"resources": {"round_deadline": 1.0}}, "M6"),
     ({"checkpoint": {"every": 1}}, "M6"),
     ({"tracking": {"round_sync": False}}, "M5"),
-    ({"client": {"finetune": "lora"}}, "M8"),
+    ({"client": {"finetune": "lora"}, "resources": {"execution": "async"}},
+     "M7"),
     ({"server": {"compression": "int8"}}, "M4"),
     ({"server": {"aggregation": "fedbuff"}}, "M4"),
 ]
@@ -194,7 +195,7 @@ def test_unknown_compression_raises_the_reference_error(section):
 
 @pytest.mark.parametrize("model,item", [("shakespeare_lstm", "M3"),
                                         ("cifar_resnet18", "M3"),
-                                        ("tiny_lm", "M8")])
+                                        ("resnet18", "M3")])
 def test_unported_models_raise_at_init(model, item):
     repro_torch.reset()
     with pytest.raises(NotImplementedError, match=item):
