@@ -2,9 +2,10 @@
 
 ``get_arch(name)`` resolves an id (dashes or underscores) to its
 ``ArchConfig``; ``get_arch(name, reduced=True)`` returns the smoke-test
-variant (<= 2 layers, d_model <= 256).  Ported: ``glm4-9b``.  The
-reference's other ids resolve but raise ``NotImplementedError`` naming
-ROADMAP M9, the item that ports their model families.
+variant (<= 2 layers, d_model <= 256).  Ported: ``glm4-9b`` and
+``rwkv6-1.6b``.  The reference's other ids resolve but raise
+``NotImplementedError`` naming ROADMAP M9, the item that ports their model
+families.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ ARCH_IDS = [
     "recurrentgemma_9b",
     "deepseek_v2_lite_16b",
 ]
-PORTED = ("glm4_9b",)
+PORTED = ("glm4_9b", "rwkv6_1p6b")
 
 # public ids use dashes
 _ALIASES = {

@@ -12,7 +12,7 @@ one ``nvcc`` process each, all started together.
 Flags: ``-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3`` and never
 ``--use_fast_math`` — the int8 round trip relies on an IEEE-rounded
 division, the STC bisection on exactly rounded f32 arithmetic, and flash
-attention on accurate ``expf`` / ``logf``.
+attention and WKV6 on accurate ``expf`` / ``logf``.
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ from pathlib import Path
 from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("fedavg_agg", "stc_topk", "quant", "flash_attn")
+SOURCES = ("fedavg_agg", "stc_topk", "quant", "flash_attn", "wkv6")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -41,11 +41,14 @@ SIGNATURES = {
     "stc_topk": {"stc_batched_launch": (_P, _P, _P, _I64, _I64,
                                         ctypes.c_float, _P)},
     "quant": {"int8_rowmax_launch": (_P, _P, _I64, _I64, _P),
-              "int8_qdq_launch": (_P, _P, _P, _I64, _I64, _P)},
+              "int8_qdq_launch": (_P, _P, _P, _I64, _I64, _P),
+              "int8_quantize_launch": (_P, _P, _P, _I64, _P),
+              "int8_dequantize_launch": (_P, _P, _P, _I64, _P)},
     "flash_attn": {
         "flash_fwd_launch": (_P,) * 5 + (_I64,) * 3 + (_F, _C, _P),
         "flash_dq_launch": (_P,) * 7 + (_I64,) * 3 + (_F, _C, _P),
         "flash_dkv_launch": (_P,) * 8 + (_I64,) * 3 + (_F, _C, _P)},
+    "wkv6": {"wkv6_launch": (_P,) * 8 + (_I64,) * 4 + (_P,)},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -7,8 +7,8 @@ CUDA device, :func:`get_device` raises instead of falling back quietly to
 the CPU.
 
 The kernel entry points re-exported here (``fedavg_aggregate``,
-``stc_compress_batched``, ``int8_roundtrip_batched``, ``flash_attention``)
-take the device from their input tensors: a CUDA tensor launches the
+``stc_compress_batched``, ``int8_roundtrip_batched``, ``stc_compress``,
+``quantize``, ``dequantize``, ``flash_attention``, ``wkv6``) take the device from their input tensors: a CUDA tensor launches the
 hand-written kernel, a CPU tensor takes the plain PyTorch version beside
 it, anything else raises.
 """
@@ -18,11 +18,18 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.kernels import attention, fedavg_agg, quant, stc_topk
+from repro_torch.kernels import (
+    attention, fedavg_agg, quant, rwkv6_scan, stc_topk,
+)
 from repro_torch.kernels.attention import flash_attention  # noqa: F401
 from repro_torch.kernels.fedavg_agg import fedavg_aggregate  # noqa: F401
-from repro_torch.kernels.quant import int8_roundtrip_batched  # noqa: F401
-from repro_torch.kernels.stc_topk import stc_compress_batched  # noqa: F401
+from repro_torch.kernels.quant import (  # noqa: F401
+    dequantize, int8_roundtrip_batched, quantize,
+)
+from repro_torch.kernels.rwkv6_scan import wkv6  # noqa: F401
+from repro_torch.kernels.stc_topk import (  # noqa: F401
+    stc_compress, stc_compress_batched,
+)
 
 _DEVICE: Optional[torch.device] = None
 
@@ -58,7 +65,11 @@ def launch_counts() -> Dict[str, int]:
             "int8_qdq": quant.qdq_launches,
             "flash_fwd": attention.fwd_launches,
             "flash_dq": attention.dq_launches,
-            "flash_dkv": attention.dkv_launches}
+            "flash_dkv": attention.dkv_launches,
+            "stc_dense": stc_topk.dense_launches,
+            "int8_quantize": quant.quantize_launches,
+            "int8_dequantize": quant.dequantize_launches,
+            "wkv6": rwkv6_scan.launches}
 
 
 def reset_launch_counts() -> None:
@@ -69,3 +80,7 @@ def reset_launch_counts() -> None:
     attention.fwd_launches = 0
     attention.dq_launches = 0
     attention.dkv_launches = 0
+    stc_topk.dense_launches = 0
+    quant.quantize_launches = 0
+    quant.dequantize_launches = 0
+    rwkv6_scan.launches = 0

@@ -1,0 +1,70 @@
+"""KV caches and recurrent decode states.
+
+Two attention-cache layouts:
+
+* **linear** — pre-allocated (B, L, KV, D); token at position p writes slot p.
+  Used for ``decode_32k`` (full context kept).
+* **ring** — (B, W, KV, D) ring buffer; token at position p writes slot
+  p mod W.  Used for ``long_500k`` sliding-window decode: O(W) memory at
+  524k positions.  RoPE is applied at *write* time with absolute positions,
+  so slot order never matters.
+
+A cache spec is a meta tensor (shape and dtype, no storage);
+:func:`zeros_like_specs` materializes a tree of them on a device.  Unlike
+the reference's functional update, :func:`write_slot` writes the new entry
+into the cache tensor in place — copying a whole cache per token would
+cost O(L) memory traffic per step.  MLA's latent cache is not ported
+(ROADMAP M9).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.config import ArchConfig
+from repro_torch.utils.tree import tree_map
+
+
+def spec(shape, dtype) -> torch.Tensor:
+    """A shape-and-dtype stand-in (the reference's ``ShapeDtypeStruct``)."""
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def attn_cache_defs(cfg: ArchConfig, batch: int, length: int, dtype):
+    hd = cfg.resolved_head_dim
+    return {
+        "k": spec((batch, length, cfg.n_kv_heads, hd), dtype),
+        "v": spec((batch, length, cfg.n_kv_heads, hd), dtype),
+    }
+
+
+def mla_cache_defs(cfg: ArchConfig, batch: int, length: int, dtype):
+    raise NotImplementedError(
+        "the MLA latent cache is not ported to repro_torch yet (ROADMAP M9)")
+
+
+def zeros_like_specs(specs, device=None):
+    """Materialize a tree of specs as zeros on ``device``."""
+    return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
+                                          device=device), specs)
+
+
+def write_slot(cache_arr, new, slot: int):
+    """Write new (B, 1, ...) into cache (B, L, ...) at ``slot``, in place;
+    returns the cache."""
+    cache_arr[:, slot:slot + 1] = new.to(cache_arr.dtype)
+    return cache_arr
+
+
+def cache_slot(pos: int, length: int, ring: bool) -> int:
+    return pos % length if ring else pos
+
+
+def cache_mask(batch: int, pos: int, length: int, ring: bool, device=None):
+    """(B, L) bool — valid cache slots after writing position ``pos``.
+
+    For a ring buffer every slot is valid once pos+1 >= W; earlier, only the
+    first pos+1 slots.  For linear layout, slots <= pos.
+    """
+    idx = torch.arange(length, device=device)
+    valid = idx <= pos if not ring else idx < min(pos + 1, length)
+    return valid[None, :].expand(batch, length)

@@ -57,6 +57,11 @@ def ones_init(gen, shape, dtype):
     return torch.ones(shape, dtype=dtype)
 
 
+def uniform_init(lo: float, hi: float):
+    return lambda gen, shape, dtype: (
+        torch.rand(shape, generator=gen) * (hi - lo) + lo).to(dtype)
+
+
 def init_params(defs, gen: torch.Generator,
                 device: Optional[torch.device] = None) -> Params:
     """Materialize a ParamDef tree: leaves drawn in flatten order from the

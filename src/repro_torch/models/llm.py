@@ -45,7 +45,7 @@ def transformer_lm(arch: ArchConfig, name: str = None) -> FLModel:
     defs = transformer.model_defs(arch)
 
     def apply(p, x):
-        return transformer.forward(arch, p, x)
+        return transformer.forward(arch, p, x)[0]
 
     return FLModel(name or arch.name, defs, apply, arch.vocab,
                    (arch.max_seq_len,), is_sequence=True)

@@ -191,7 +191,7 @@ def test_chunked_attention_matches_reference_beyond_one_chunk():
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("name", ["internlm2-20b", "rwkv6-1.6b",
+@pytest.mark.parametrize("name", ["internlm2-20b", "qwen3-moe-30b-a3b",
                                   "deepseek-v2-lite-16b"])
 def test_unported_archs_raise_naming_m9(name):
     from repro_torch.configs import get_arch

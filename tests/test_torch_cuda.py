@@ -14,7 +14,7 @@ from repro_torch.core.config import Config  # noqa: E402
 from repro_torch.core.rounds import Trainer  # noqa: E402
 from repro_torch.data.fed_data import build_federated_data  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
-    attention, fedavg_agg, ops, quant, stc_topk,
+    attention, fedavg_agg, ops, quant, rwkv6_scan, stc_topk,
 )
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.utils.tree import tree_leaves  # noqa: E402
@@ -76,10 +76,17 @@ def test_wrappers_count_only_kernel_launches(cuda_device):
     ops.fedavg_aggregate(x.cpu(), torch.full((4,), 0.25))   # plain: no count
     q = x[:, :64].reshape(1, 4, 1, 64).contiguous().requires_grad_()
     ops.flash_attention(q, q, q).sum().backward()
+    ops.stc_compress(x, 0.01)
+    ops.dequantize(*ops.quantize(x), x.shape)
+    r = x[:, :64].reshape(1, 64, 1, 4).contiguous()
+    ops.wkv6(r, r, r, -r.abs(), x[0, :4].reshape(1, 4),
+             torch.zeros((1, 1, 4, 4), device=cuda_device))
     assert ops.launch_counts() == {"fedavg_agg": 1, "stc_batched": 1,
                                    "int8_rowmax": 1, "int8_qdq": 1,
                                    "flash_fwd": 1, "flash_dq": 1,
-                                   "flash_dkv": 1}
+                                   "flash_dkv": 1, "stc_dense": 1,
+                                   "int8_quantize": 1, "int8_dequantize": 1,
+                                   "wkv6": 1}
     with pytest.raises(ValueError, match="contiguous"):
         ops.stc_compress_batched(x.t(), 0.01)
 
@@ -158,4 +165,87 @@ def test_flash_lora_round_on_card_matches_cpu(cuda_device):
     for a, b in zip(tree_leaves(out["cuda"]["params"]),
                     tree_leaves(out["cpu"]["params"])):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def _wkv_inputs(B, T, H, hd, device, seed):
+    """Unit-normal r, k, v, the model's decay around w0 = -0.6, u at the
+    model's init scale and a nonzero starting state."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    r, k, v = randn(B, T, H, hd), randn(B, T, H, hd), randn(B, T, H, hd)
+    logw = -torch.exp(torch.clamp(randn(B, T, H, hd) - 0.6, -8.0, 6.0))
+    return r, k, v, logw, 0.3 * randn(H, hd), randn(B, H, hd, hd)
+
+
+# the rwkv6-1.6b prefill shape (16 x 512 tokens, 32 heads of 64), then
+# other head dims and lengths
+@pytest.mark.parametrize("B,T,H,hd", [(16, 512, 32, 64), (2, 192, 3, 16),
+                                      (1, 64, 2, 32), (3, 128, 1, 64)])
+def test_wkv6_kernel_matches_plain_version(cuda_device, B, T, H, hd):
+    """Within 1e-4 of each output's scale (max(1, max |plain|)): f32
+    summation-order differences grow with |y|, which reaches ~100 here."""
+    args = _wkv_inputs(B, T, H, hd, cuda_device, seed=T + hd)
+    y, s = rwkv6_scan.wkv6(*args)
+    py, ps = rwkv6_scan.wkv6_plain(*args)
+    for got, want in ((y, py), (s, ps)):
+        scale = max(1.0, want.abs().max().item())
+        assert (got - want).abs().max().item() <= 1e-4 * scale
+
+
+# the bench_compression.py size, a ragged size, a small ragged size
+@pytest.mark.parametrize("n", [2 ** 20, 1000003, 10007])
+def test_dense_stc_and_quant_kernels_match_plain_versions(cuda_device, n):
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    x = torch.randn((n,), generator=gen, device=cuda_device) * 0.37
+    out, plain = stc_topk.stc_compress(x, 0.01), stc_topk.stc_dense_plain(x)
+    assert torch.equal(out != 0, plain != 0)
+    assert torch.equal(torch.sign(out), torch.sign(plain))
+    a, b = out.cpu().numpy(), plain.cpu().numpy()
+    ulp = np.spacing(np.maximum(np.abs(a), np.abs(b)).astype(np.float32))
+    assert (np.abs(a.astype(np.float64) - b) <= ulp).all()
+    q, s = quant.quantize(x)
+    pq, ps = quant.quantize_plain(x)
+    assert torch.equal(q, pq)
+    assert torch.equal(s.view(torch.int32), ps.view(torch.int32))
+    back = quant.dequantize(q, s, x.shape)
+    assert torch.equal(back.view(torch.int32),
+                       quant.dequantize_plain(q, s, x.shape).view(torch.int32))
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "glm4-9b"])
+def test_prefill_and_decode_on_card_match_cpu(cuda_device, arch):
+    """Reduced configs: 12 decode steps, and for rwkv6 the no-grad forward
+    (K8), on the card against the same on the CPU, from one init.  (GLM-4's
+    70-token prefill at the repo's default init sits on near-tied attention
+    scores: a 1e-7 relative perturbation of its embedding moves the logits
+    by ~1e-4, as far as the card and the CPU differ.)"""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import (
+        Model, make_prefill_step, make_serve_step,
+    )
+
+    model = Model(get_arch(arch, reduced=True))
+    p_cpu = model.init(torch.Generator().manual_seed(0), "cpu")
+    p_gpu = convert.params_from_jax(convert.params_to_numpy(p_cpu),
+                                    cuda_device)
+    toks = torch.from_numpy(np.random.RandomState(1).randint(
+        0, model.cfg.vocab, (2, 70)))
+    ops.reset_launch_counts()
+    got = make_prefill_step(model)(p_gpu, {"tokens": toks.to(cuda_device)})
+    assert ops.launch_counts()["wkv6"] == (
+        model.cfg.n_layers if arch == "rwkv6-1.6b" else 0)
+    if arch == "rwkv6-1.6b":
+        want = make_prefill_step(model)(p_cpu, {"tokens": toks})
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=1e-4, atol=1e-4)
+    step = make_serve_step(model)
+    c_gpu = model.init_cache(2, 16, device=cuda_device)
+    c_cpu = model.init_cache(2, 16, device="cpu")
+    for t in range(12):
+        lg, c_gpu = step(p_gpu, c_gpu, toks[:, t:t + 1].to(cuda_device), t)
+        lc, c_cpu = step(p_cpu, c_cpu, toks[:, t:t + 1], t)
+        np.testing.assert_allclose(lg.cpu().numpy(), lc.numpy(), rtol=1e-4,
                                    atol=1e-4)

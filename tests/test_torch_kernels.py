@@ -8,7 +8,12 @@ Bars: FedAvg within 1e-6; STC masks and counts bit for bit, values within
 ulp from the exact mean, while the port's mean — a float64 sum rounded
 once, then one f32 division — stays within 1 ulp of it:
 ``test_stc_mean_gap_is_the_reference_f32_sum``); int8 round trip and
-scales bit for bit.
+scales bit for bit.  Dense STC (K4) as the batched one; dense quantize and
+dequantize (K5): q, scales and the dequantized values bit for bit against
+the reference's oracle (``ref.quantize_ref``: a true division by 127) and
+against its Pallas kernel in interpret mode, whose scale XLA compiles to a
+multiply by f32(1/127) — one ulp off on some tiles
+(``test_quantize_scale_gap_is_the_xla_reciprocal_rewrite``).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +23,7 @@ torch = pytest.importorskip("torch")
 
 import repro_torch  # noqa: E402
 from repro.kernels import ops as ref_ops  # noqa: E402
+from repro.kernels import ref as ref_oracles  # noqa: E402
 from repro_torch.kernels import build, fedavg_agg, ops, quant, stc_topk  # noqa: E402
 
 repro_torch.set_device("cpu")
@@ -124,6 +130,12 @@ def test_stc_targets_count_real_segment_elements():
     lambda x: stc_topk.stc_compress_batched(x, 0.01),
     lambda x: quant.rowmax(x),
     lambda x: quant.qdq(x, torch.ones(2, device=x.device)),
+    lambda x: stc_topk.stc_compress(x, 0.01),
+    lambda x: quant.quantize(x),
+    lambda x: quant.dequantize(x.to(torch.int8),
+                               torch.ones((1, 1), device=x.device), (2, 8)),
+    lambda x: ops.wkv6(*(x.new_zeros((1, 64, 1, 1)),) * 4,
+                       x.new_zeros((1, 1)), x.new_zeros((1, 1, 1, 1))),
 ])
 def test_wrappers_never_fall_back_on_other_devices(fn):
     x = torch.zeros((2, 8), device="meta")
@@ -139,10 +151,104 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     ops.int8_roundtrip_batched(x)
     q = x[:6, :64].reshape(1, 2, 3, 64).requires_grad_()
     ops.flash_attention(q, q, q).sum().backward()
+    ops.stc_compress(x, 0.01)
+    ops.dequantize(*ops.quantize(x), x.shape)
+    r = x[:4, :64].reshape(1, 64, 1, 4)
+    ops.wkv6(r, r, r, -r.abs(), x[0, :4].reshape(1, 4), torch.zeros(1, 1, 4, 4))
     assert ops.launch_counts() == {"fedavg_agg": 0, "stc_batched": 0,
                                    "int8_rowmax": 0, "int8_qdq": 0,
                                    "flash_fwd": 0, "flash_dq": 0,
-                                   "flash_dkv": 0}
+                                   "flash_dkv": 0, "stc_dense": 0,
+                                   "int8_quantize": 0, "int8_dequantize": 0,
+                                   "wkv6": 0}
+
+
+# ---------------------------------------------------------------------------
+# Dense STC (K4) and dense quantize / dequantize (K5)
+# ---------------------------------------------------------------------------
+
+DENSE_SHAPES = [(2 ** 14,), (10007,), (128, 128)]
+
+
+def _dense(shape, seed=0):
+    rs = np.random.RandomState(seed + int(np.prod(shape)))
+    return (rs.standard_normal(shape)
+            * rs.uniform(1e-3, 2.0)).astype(np.float32)
+
+
+@pytest.mark.parametrize("shape", DENSE_SHAPES, ids=str)
+def test_stc_dense_plain_matches_reference_kernel(shape):
+    x = _dense(shape)
+    ref = np.asarray(ref_ops.stc_compress(jnp.asarray(x), 0.01,
+                                          interpret=True))
+    out = ops.stc_compress(torch.from_numpy(x), 0.01).numpy()
+    assert out.shape == ref.shape == x.shape
+    np.testing.assert_array_equal(out != 0, ref != 0)               # mask
+    np.testing.assert_array_equal(np.sign(out), np.sign(ref))       # sign
+    assert np.count_nonzero(out) == np.count_nonzero(ref)           # nnz
+    assert _ulps(ref, out) <= 2.0                                   # mu
+    # the same tiles as one row of the batched kernel
+    row, _ = stc_topk.stc_plain(torch.from_numpy(x.reshape(1, -1)), 0.01)
+    np.testing.assert_array_equal(row.numpy().reshape(shape), out)
+
+
+def _tile_scales(x):
+    m = np.abs(np.pad(x.reshape(-1), (0, (-x.size) % quant.TILE))
+               .reshape(-1, quant.TILE)).max(axis=1)
+    m = np.maximum(m, np.float32(1e-12))
+    return m / np.float32(127.0), m * np.float32(1.0 / 127.0)
+
+
+@pytest.mark.parametrize("shape", DENSE_SHAPES, ids=str)
+def test_quantize_plain_matches_reference_bitwise(shape):
+    x = _dense(shape, seed=1)
+    q, s = ops.quantize(torch.from_numpy(x))
+    oq, os_ = ref_oracles.quantize_ref(jnp.asarray(x))
+    kq, ks = ref_ops.quantize(jnp.asarray(x), interpret=True)
+    tiles = -(-x.size // quant.TILE)
+    assert q.shape == (tiles * 8, 1024) and q.dtype == torch.int8
+    assert s.shape == (tiles, 1) and s.dtype == torch.float32
+    np.testing.assert_array_equal(q.numpy().reshape(-1),
+                                  np.asarray(oq).reshape(-1))
+    np.testing.assert_array_equal(s.numpy().reshape(-1).view(np.int32),
+                                  np.asarray(os_).reshape(-1).view(np.int32))
+    # the interpret-mode kernel: equal wherever its scale is the division
+    div, mul = _tile_scales(x)
+    ks = np.asarray(ks).reshape(-1)
+    same = ks == s.numpy().reshape(-1)
+    assert (same | ((ks == mul) & (s.numpy().reshape(-1) == div))).all()
+    rows = np.repeat(same, 8)
+    np.testing.assert_array_equal(q.numpy()[rows], np.asarray(kq)[rows])
+
+
+def test_quantize_scale_gap_is_the_xla_reciprocal_rewrite():
+    """The reference kernel's scale is max|x| * f32(1/127) on every tile
+    (XLA rewrites the division by a constant), one ulp from the true
+    quotient on some tiles; the port's — and the reference oracle's — is
+    the quotient on every tile."""
+    x = _dense((64 * quant.TILE,), seed=2)
+    div, mul = _tile_scales(x)
+    _, ks = ref_ops.quantize(jnp.asarray(x), interpret=True)
+    _, s = ops.quantize(torch.from_numpy(x))
+    np.testing.assert_array_equal(np.asarray(ks).reshape(-1), mul)
+    np.testing.assert_array_equal(s.numpy().reshape(-1), div)
+    assert (div != mul).any()
+    assert _ulps(div, mul) <= 1.0
+
+
+@pytest.mark.parametrize("shape", DENSE_SHAPES, ids=str)
+def test_dequantize_plain_matches_reference_bitwise(shape):
+    x = _dense(shape, seed=3)
+    kq, ks = ref_ops.quantize(jnp.asarray(x), interpret=True)
+    ref = np.asarray(ref_ops.dequantize(kq, ks, shape, interpret=True))
+    out = ops.dequantize(torch.from_numpy(np.array(kq)),
+                         torch.from_numpy(np.array(ks)), shape).numpy()
+    assert out.shape == shape
+    np.testing.assert_array_equal(out.view(np.int32), ref.view(np.int32))
+    # the round trip of the port's own q, s stays within half a tile scale
+    q, s = ops.quantize(torch.from_numpy(x))
+    back = ops.dequantize(q, s, shape).numpy()
+    assert np.abs(back - x).max() <= 0.5 * float(s.max()) * 1.0001
 
 
 def test_build_names_libraries_by_source_hash(monkeypatch, tmp_path):
