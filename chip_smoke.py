@@ -17,14 +17,21 @@ Phases, in order; any failed check raises, so the script exits non-zero:
    and ragged widths), and time kernel, plain version and — where one
    PyTorch call computes the same function — that call (median of CUDA
    events over 20 runs);
-3b. hold the three flash-attention kernels (forward, dQ, dK/dV) against
-   their plain versions at the LoRA path's shape (BH = 4 clients x 4
-   sequences x 32 heads = 512, S = 512, D = 128, causal) and at ragged
-   S in {1, 63, 200} x D in {20, 64}, causal and not; forward within 1e-5,
-   gradients within 1e-4 at unit-scale inputs; time each next to its plain
-   version and fp32 ``scaled_dot_product_attention`` (its forward for the
-   forward kernel, its backward — forward + backward minus forward — for
-   the two backward kernels);
+3b. print the three flash-attention kernels' resources at D = 128 as the
+   runtime reads them (``cudaFuncGetAttributes``: registers, local memory
+   = spills and stack, dynamic shared memory; CTAs per SM) and the count of
+   TF32 tensor-core instructions (``HMMA``) in each one's SASS, from
+   ``cuobjdump`` where the toolkit has it (each must have some); hold the
+   kernels (forward, dQ, dK/dV) against their plain versions at the LoRA
+   path's shape (BH = 4 clients x 4 sequences x 32 heads = 512, S = 512,
+   D = 128, causal), at (3, 200, 72, causal) and (2, 130, 128, not
+   causal), and at ragged S in {1, 63, 200} x D in {20, 64}, causal and
+   not; forward within 1e-5, gradients within 1e-4 at unit-scale inputs;
+   time each next to its plain version and fp32
+   ``scaled_dot_product_attention`` (its forward for the forward kernel,
+   its backward — forward + backward minus forward — for the two backward
+   kernels); bound each on the tensor cores in 3xTF32 (the units the
+   kernels run on) and, beside it, on the fp32 CUDA cores;
 3c. hold the WKV6 kernel (K8) against its plain version at the
    ``rwkv6-1.6b`` prefill shape (16 x 512 tokens, 32 heads of 64) and two
    small shapes, within 1e-4 of each output's scale, and through
@@ -95,6 +102,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+TF32_OPS_PER_S = 495e12        # H100 SXM TF32 tensor cores, dense
 N_BUCKET = 16                  # 10 selected clients -> power-of-two bucket
 REPS = 20
 
@@ -120,10 +128,32 @@ def cuda_ms(fn, reps=REPS, warmup=3):
     return float(np.median(times))
 
 
-def bound(nbytes, ops):
+def sdpa_ms(q, k, v, do):
+    """The flash kernels' library yardstick: fp32 SDPA, causal, on
+    (16 sequences, 32 heads, S, D) views of (512, S, D) q, k, v, dO ->
+    (forward ms, backward ms = forward + backward minus forward)."""
+    import torch.nn.functional as F
+
+    s, d = q.shape[1:]
+    sq, sk, sv = (t.detach().view(16, 32, s, d).clone().requires_grad_()
+                  for t in (q, k, v))
+    sdo = do.view(16, 32, s, d)
+
+    def fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
+        torch.autograd.grad(out, (sq, sk, sv), sdo)
+    f = cuda_ms(fwd)
+    return f, cuda_ms(fwd_bwd) - f
+
+
+def bound(nbytes, ops, ops_per_s=FP32_OPS_PER_S):
     """Least time the card could take: (ms, "bytes" | "operations")."""
     t_mem = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
@@ -173,7 +203,7 @@ def main():
     kernels = check_kernels(dev, fedavg_agg, stc_topk, quant)
 
     phase("3b. flash-attention kernels against their plain versions")
-    flash_rows = check_flash(dev, attention)
+    flash_rows = check_flash(dev, attention, build)
 
     phase("3c. WKV6, dense STC and dense int8 kernels against their plain "
           "versions")
@@ -244,7 +274,9 @@ def max_param_diff(a, b):
 def flash_bound(bh, s, d, causal, kernel):
     """Least time of one flash kernel: operations for the (query, key)
     pairs this causal mask keeps, bytes for each input read once and each
-    output written once."""
+    output written once.  -> ((ms, by) on the tensor cores in 3xTF32, the
+    units the kernels run on: three TF32 products per fp32-accurate one;
+    (ms, by) on the fp32 CUDA cores)."""
     pairs = bh * (s * (s + 1) // 2 if causal else s * s)
     mat, row = 4 * bh * s * d, 4 * bh * s
     ops_per_pair, nbytes = {
@@ -252,14 +284,54 @@ def flash_bound(bh, s, d, causal, kernel):
         "flash_dq": (6 * d, 5 * mat + 2 * row),        # q k v dO lse delta -> dq
         "flash_dkv": (8 * d, 6 * mat + 2 * row),       # ... -> dk, dv
     }[kernel]
-    return bound(nbytes, ops_per_pair * pairs)
+    return (bound(nbytes, ops_per_pair * pairs, TF32_OPS_PER_S / 3),
+            bound(nbytes, ops_per_pair * pairs))
 
 
-def check_flash(dev, attention):
-    """K6/K7a/K7b against their plain versions, then timed at the LoRA
-    path's shape."""
-    import torch.nn.functional as F
+def flash_build_report(attention, build):
+    """Print the three flash kernels' resources at D = 128 and the TF32
+    tensor-core instructions (``HMMA``) in each one's SASS;
+    -> {kernel: resources and HMMA count}."""
+    import re
+    import shutil
 
+    info = attention.kernel_info(128)
+    for name, r in info.items():
+        print(f"{name} at D 128: {r['registers']} registers, "
+              f"{r['spill_bytes']} bytes of local memory (spills), "
+              f"{r['smem_bytes']} bytes of dynamic shared memory, "
+              f"{r['ctas_per_sm']} CTAs per SM")
+    cuobjdump = next((c for c in (
+        os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump"),
+        shutil.which("cuobjdump") or "") if c and os.path.isfile(c)), None)
+    if cuobjdump is None:
+        print("HMMA count: not available (no cuobjdump in the toolkit)")
+        return info
+    sass = subprocess.run(
+        [cuobjdump, "--dump-sass", str(build.library_path("flash_attn"))],
+        capture_output=True, text=True, check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(
+            r"Function : \S*?(flash_(?:fwd|dq|dkv)_kernel)ILi(\d+)E", line)
+        if m:
+            cur = f"{m.group(1)}<{m.group(2)}>"
+            counts[cur] = 0
+        elif cur and "HMMA" in line:
+            counts[cur] += 1
+    print("HMMA instructions in the SASS (HMMA.1688.F32.TF32): "
+          + json.dumps(counts, sort_keys=True))
+    for name in info:
+        n = counts.get(f"{name}_kernel<128>", 0)
+        require(n > 0, f"{name}: no tensor-core instruction in its SASS")
+        info[name]["hmma"] = n
+    return info
+
+
+def check_flash(dev, attention, build):
+    """K6/K7a/K7b: their resources, then held against their plain
+    versions, then timed at the LoRA path's shape."""
+    resources = flash_build_report(attention, build)
     gen = torch.Generator(device=dev).manual_seed(4321)
 
     def qkv(bh, s, d):
@@ -267,8 +339,9 @@ def check_flash(dev, attention):
                 for _ in range(4)]
 
     main = (512, 512, 128, True)
-    cases = [main] + [(3, s, d, c) for s in (1, 63, 200) for d in (20, 64)
-                      for c in (True, False)]
+    cases = [main, (3, 200, 72, True), (2, 130, 128, False)] + [
+        (3, s, d, c) for s in (1, 63, 200) for d in (20, 64)
+        for c in (True, False)]
     errs = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
     for bh, s, d, causal in cases:
         q, k, v, do = qkv(bh, s, d)
@@ -297,20 +370,7 @@ def check_flash(dev, attention):
     q, k, v, do = qkv(bh, s, d)
     o, lse = attention.flash_fwd(q, k, v, causal)
     delta = (do * o).sum(dim=-1)
-    # the library yardstick: fp32 SDPA on (16 sequences, 32 heads, S, D)
-    sq, sk, sv = (t.detach().view(16, 32, s, d).clone().requires_grad_()
-                  for t in (q, k, v))
-    sdo = do.view(16, 32, s, d)
-
-    def sdpa_fwd():
-        with torch.no_grad():
-            F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
-
-    def sdpa_fwd_bwd():
-        out = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
-        torch.autograd.grad(out, (sq, sk, sv), sdo)
-    sdpa_f = cuda_ms(sdpa_fwd)
-    sdpa_b = cuda_ms(sdpa_fwd_bwd) - sdpa_f
+    sdpa_f, sdpa_b = sdpa_ms(q, k, v, do)
     timed = {
         "flash_fwd": (lambda: attention.flash_fwd(q, k, v, causal),
                       lambda: attention.flash_fwd_plain(q, k, v, causal),
@@ -327,18 +387,19 @@ def check_flash(dev, attention):
     }
     rows = []
     for name, (kern, plain, lib_ms, replaces) in timed.items():
-        b, by = flash_bound(bh, s, d, causal, name)
+        (b, by), (b_cc, by_cc) = flash_bound(bh, s, d, causal, name)
         rows.append(dict(
             name=name, counter=name, route="cuda",
             source="src/repro_torch/kernels/csrc/flash_attn.cu",
             replaces=replaces, shape=[bh, s, d], max_abs_err=errs[name],
             ms=cuda_ms(kern), plain_ms=cuda_ms(plain), bound_ms=b,
-            bound_by=by, library_ms=lib_ms))
-    for r in rows:
-        print(f"{r['name']:12s} {r['shape']} causal: kernel {r['ms']:.4f} ms, "
-              f"plain {r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms "
-              f"({'forward' if r['name'] == 'flash_fwd' else 'backward, dq+dk+dv'}"
-              f"), bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+            bound_by=by, library_ms=lib_ms, **resources[name]))
+        r = rows[-1]
+        print(f"{name:12s} {r['shape']} causal: kernel {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, sdpa {lib_ms:.4f} ms "
+              f"({'forward' if name == 'flash_fwd' else 'backward, dq+dk+dv'}"
+              f"), bound {b:.4f} ms ({by}, 3xTF32 tensor cores; {b_cc:.4f} "
+              f"ms ({by_cc}) on the fp32 CUDA cores)")
     return rows
 
 
@@ -1233,6 +1294,13 @@ def profile_window(fn, tag):
     for e in sorted(on_dev, key=dev_us, reverse=True)[:15]:
         print(f"    {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} "
               f"{e.key[:90]}")
+    flash = [e for e in on_dev if "flash_" in e.key]
+    if flash:
+        ms = sum(dev_us(e) for e in flash) / 1e3
+        print(f"    flash kernels: {ms:.3f} ms in "
+              f"{sum(e.count for e in flash)} launches "
+              f"({100 * ms / busy:.1f}% of the device busy time, "
+              f"{100 * ms / (wall * 1e3):.1f}% of the wall)")
     cpu = sorted(rows, key=lambda e: e.self_cpu_time_total,
                  reverse=True)[:8]
     print(f"[{tag}: top host self time:")

@@ -16,6 +16,16 @@ reference.  The semantics are the reference's: scale ``1/sqrt(D)`` of the
 real head dim, validity from global indices, masked scores ``-1e30``,
 denominator floor ``1e-30``.  The kernels take any S and D <= 128.
 
+They run every product on the H100's tensor cores (``mma.sync`` m16n8k8
+TF32) in 3xTF32 — each fp32 operand split into a TF32 ``big`` and the
+remainder ``small``, three TF32 products a fp32-accurate one — so they keep
+fp32 accuracy ("TF32 off": within 1e-5 of the plain versions on O and LSE,
+1e-4 on the gradients at unit-scale inputs).  FA2-style tiles: 4 warps of
+16 rows a CTA, the score tile's C fragment reused as the next product's A
+fragment, K/V (or Q/dO) streamed with ``cp.async``; the design and its
+bound are in the source's header.  :func:`kernel_info` reports each
+kernel's registers, spills, shared memory and CTAs per SM.
+
 Two ``torch.library`` custom ops carry them through ``torch.func``:
 ``repro_torch::flash_fwd`` -> (O, LSE) and ``repro_torch::flash_bwd`` ->
 (dQ, dK, dV).  Each has a CPU implementation, the plain version
@@ -31,6 +41,7 @@ implementation under them differs.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Tuple
 
@@ -181,6 +192,19 @@ def flash_dkv(q, k, v, do, lse, delta, causal: bool
         torch.cuda.current_stream(q.device).cuda_stream), "flash_dkv")
     dkv_launches += 1
     return dk, dv
+
+
+def kernel_info(d: int = MAX_HEAD_DIM) -> dict:
+    """{kernel: {"registers", "spill_bytes", "smem_bytes", "ctas_per_sm"}}
+    of the three CUDA kernels built for head dim ``d`` (needs a card)."""
+    lib = build.load("flash_attn")
+    out = {}
+    for which, name in enumerate(("flash_fwd", "flash_dq", "flash_dkv")):
+        vals = (ctypes.c_int * 4)()
+        build.check(lib.flash_kernel_info(which, d, vals), "flash_kernel_info")
+        out[name] = dict(zip(("registers", "spill_bytes", "smem_bytes",
+                              "ctas_per_sm"), vals))
+    return out
 
 
 def _bwd_cuda(q, k, v, o, lse, do, causal):

@@ -47,7 +47,8 @@ SIGNATURES = {
     "flash_attn": {
         "flash_fwd_launch": (_P,) * 5 + (_I64,) * 3 + (_F, _C, _P),
         "flash_dq_launch": (_P,) * 7 + (_I64,) * 3 + (_F, _C, _P),
-        "flash_dkv_launch": (_P,) * 8 + (_I64,) * 3 + (_F, _C, _P)},
+        "flash_dkv_launch": (_P,) * 8 + (_I64,) * 3 + (_F, _C, _P),
+        "flash_kernel_info": (_C, _I64, _P)},
     "wkv6": {"wkv6_launch": (_P,) * 8 + (_I64,) * 4 + (_P,)},
 }
 

@@ -1,431 +1,621 @@
-// Flash attention for Hopper in fp32: the online-softmax forward and the
-// two recompute-from-LSE backward kernels, over (BH, S, D) MHA-layout
-// tensors (row-major, contiguous), causal or not, any S, D <= 128.
+// Flash attention for Hopper in fp32 accuracy on the tensor cores: the
+// online-softmax forward and the two recompute-from-LSE backward kernels,
+// over (BH, S, D) MHA-layout tensors (row-major, contiguous), causal or not,
+// any S, D <= 128.
 //
 // Replaces the three TPU kernels of src/repro/kernels/attention.py:
-//   * _fwd_kernel (pallas_call in _fwd_padded)  -> flash_fwd_kernel
-//   * _dq_kernel  (pallas_call in _bwd_padded)  -> flash_dq_kernel
-//   * _dkv_kernel (pallas_call in _bwd_padded)  -> flash_dkv_kernel
+//   * _fwd_kernel (pallas_call in _fwd_padded)  -> flash_fwd_kernel  (K6)
+//   * _dq_kernel  (pallas_call in _bwd_padded)  -> flash_dq_kernel   (K7a)
+//   * _dkv_kernel (pallas_call in _bwd_padded)  -> flash_dkv_kernel  (K7b)
 // with the reference's semantics: scores = (q . k) * scale with scale =
 // 1/sqrt(real D) passed in by the caller, validity from *global* indices
 // against the real S (key j visible to query i iff j < S and, causal, j <=
 // i), masked scores = NEG_INF = -1e30 (not -inf), the denominator floored at
 // 1e-30, LSE = m + log(l), and in the backward P = exp(s - LSE),
 // dS = P * (dP - delta) * scale with delta = rowsum(dO * O) computed by the
-// caller.
+// caller.  Every output element has one writer: no atomics, deterministic.
 //
-// Bound on the H100: operations.  Each (query, key) pair costs 4D flops in
-// the forward, 6D in dq and 8D in dk/dv, against 4-5 bytes per element of
-// input and output per tile row: at D = 128 and S = 512 that is far above
-// the card's fp32 ridge (67 TFLOP/s over 3.35 TB/s = 20 flop/byte).  These
-// kernels use plain fp32 FMAs on the CUDA cores (no TF32, no tensor cores),
-// so the fp32 peak is their roofline.
+// Bound on the H100: operations.  Each visible (query, key) pair costs 4D
+// flops in the forward, 6D in dQ and 8D in dK/dV, against 4-5 bytes per
+// element of input and output: at D = 128, S = 512 that is far above the
+// ridge.  The products run on the tensor cores in 3xTF32, three TF32 MMAs
+// per fp32-accurate product, so the roofline is 495 / 3 = 165 TFLOP/s
+// (0.2086 / 0.3130 / 0.4173 ms at BH 512, S 512, D 128, causal).
 //
-// Design.  On the TPU the key-tile axis is a sequential grid dimension that
-// revisits one VMEM output block; here that axis becomes a loop inside one
-// CTA, and CTAs run in parallel over (bh, tile):
-//   * one CTA of 256 threads per (bh, 64-row tile); the thread (ty, tx) of
-//     the 16 x 16 layout owns rows ty + 16 i and columns tx + 16 j (i, j < 4)
-//     of every 64 x 64 score tile — interleaved, so a warp's shared-memory
-//     reads of K / V rows hit distinct banks (row stride D_pad + 1) — and
-//     columns tx + 16 jd of the 64 x D_pad output tile in registers;
-//   * tiles are staged in dynamic shared memory (above 48 KB, hence
-//     cudaFuncSetAttribute), zero-filled beyond S and D, so a ragged tail
-//     needs no padded copy in device memory;
-//   * row statistics (max, sum) reduce over the 16 lanes of a half-warp
-//     with shuffles; the probability or dS tile goes through shared memory
-//     for the second product;
-//   * causal CTAs stop (forward, dq) or start (dk/dv) at the diagonal tile;
-//   * dk/dv loop over query tiles inside one CTA per key tile, so every
-//     output element has one writer: no atomics, deterministic results.
-// A simple, correct first version: no wgmma, no TMA, no pipelining.
+// Precision ("TF32 off" semantics).  Every operand x of a product is split in
+// registers into big = x rounded to TF32 (to nearest, ties away) and small =
+// x - big (exact in fp32), which the MMA truncates to TF32, and a.b is taken
+// as small_a.big_b + big_a.small_b + big_a.big_b — the 3xTF32 scheme of
+// CUTLASS's OpMultiplyAddFastF32 (which rounds big toward zero and small to
+// nearest instead; both cost three instructions, and this way round the
+// dropped small.small term is <= 2^-22 of |a.b|).  The tensor core's fp32
+// accumulation does not round to nearest, and its error grows with the
+// number of MMAs into one accumulator, so the two small terms go to an
+// accumulator of their own, and in the backward each tile's products over
+// keys or queries to a zeroed register block, added in fp32; on the H100
+// that cuts the largest error against the plain fp32 versions, most in
+// dK/dV.
+//
+// Design (FA2-style tiles on mma.sync.aligned.m16n8k8 tf32):
+//   * a CTA is 4 warps, each owning 16 rows: query rows of a 64-row query
+//     tile for the forward and dQ, key rows of a 64-row key tile for dK/dV;
+//     the other index streams through shared memory in steps of 32 keys
+//     (forward, dQ) or 32 queries (dK/dV).  The forward takes 67,584 bytes
+//     of shared memory and at most 170 registers a thread, so three CTAs
+//     share an SM; dQ and dK/dV (~100 KB, up to 255 registers) two;
+//   * row statistics (max, sum, LSE, delta) live in registers and reduce
+//     over the 4 lanes of a quad (shuffles with offsets 1 and 2);
+//   * every product is register-A, shared-B.  Products over the head dim
+//     (S = Q K^T, dP = dO V^T, and for dK/dV the transposed S^T = K Q^T,
+//     dP^T = V dO^T) read A and B fragments from the staged tiles.  Products
+//     over keys or queries (P V, dS K, P^T dO, dS^T Q) take the score tile's
+//     C fragment as their A fragment without shared memory: C holds columns
+//     (2t, 2t+1) of a thread's rows, A wants (t, t+4), and since the product
+//     sums over that index it is relabelled — A = (c0, c2, c1, c3) and B's
+//     rows are read at 2t and 2t+1 instead of t and t+4;
+//   * tiles are copied with cp.async (16 bytes where D % 4 == 0 and the
+//     pointers are 16-byte aligned, else 4 bytes), zero-filled beyond S and
+//     D, into rows of D_pad + 4 floats: 16-byte aligned, and the 8 rows of a
+//     fragment load fall on distinct banks.  The two streamed tiles each have
+//     one slot, refilled in turn, so the next tile of one loads while the
+//     other is in use (forward: K(j+1) during P V(j), V(j+1) during
+//     Q K(j+1)^T; dQ: V then K; dK/dV: Q then dO);
+//   * D is padded to a power of two >= 16 in the template, and the MMA loops
+//     are fully unrolled with no bound known only at run time (such guards
+//     split them into blocks the scheduler cannot interleave, which costs
+//     more than the padding), so the zero-filled columns go through the
+//     MMAs.  A warp skips a streamed tile only when it has no visible pair
+//     there (causal, or rows beyond S), and masks only tiles not wholly
+//     visible;
+//   * the heaviest query tiles launch first (the forward and dQ reverse
+//     blockIdx.y; dK/dV's key tile 0, first already, has the longest loop).
+// Not done here: wgmma and TMA (TF32 wgmma takes B only K-major from shared
+// memory, and 3xTF32 on it needs split big/small copies of every B tile).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int TILE = 64;      // query and key tile rows (reference TILE_Q/K)
-constexpr int THREADS = 256;  // 16 x 16
-constexpr int PT = TILE + 1;  // row stride of a 64 x 64 tile in shared memory
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int TILE = 64;    // rows a CTA owns: 16 a warp
+constexpr int FWD_KEYS = 32;  // keys per forward step
+constexpr int DQ_KEYS = 32;   // keys per dQ step
+constexpr int DKV_QUERIES = 32;  // queries per dK/dV step
 constexpr float NEG_INF = -1e30f;
 constexpr float TINY = 1e-30f;
+constexpr unsigned FULL = 0xffffffffu;
 
-// rows [row0, row0 + 64) and columns [0, 16 NDV) of one (S, D) matrix into
-// shared memory (row stride 16 NDV + 1), zeros beyond S and D
-template <int NDV>
+// ---------------------------------------------------------------------------
+// cp.async
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ unsigned smem_addr(const float* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// rows [row0, row0 + ROWS) of one (S, D) matrix into shared memory (row
+// stride DP + 4), zeros beyond S and D
+template <int DP, int ROWS>
 __device__ __forceinline__ void load_tile(float* dst,
                                           const float* __restrict__ src,
-                                          int row0, int S, int D) {
-  constexpr int DP = 16 * NDV, LD = DP + 1;
-  for (int idx = threadIdx.x; idx < TILE * DP; idx += THREADS) {
-    const int r = idx / DP, d = idx - r * DP;
-    const int g = row0 + r;
-    dst[r * LD + d] = (g < S && d < D) ? __ldg(src + (int64_t)g * D + d)
-                                       : 0.0f;
+                                          int row0, int S, int D, bool vec) {
+  constexpr int LD = DP + 4;
+  if (vec) {
+    constexpr int C = DP / 4;
+    for (int i = threadIdx.x; i < ROWS * C; i += THREADS) {
+      const int r = i / C, d = 4 * (i % C), g = row0 + r;
+      const bool ok = g < S && d < D;
+      cp_async16(dst + r * LD + d, ok ? src + (int64_t)g * D + d : src, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * DP; i += THREADS) {
+      const int r = i / DP, d = i % DP, g = row0 + r;
+      const bool ok = g < S && d < D;
+      cp_async4(dst + r * LD + d, ok ? src + (int64_t)g * D + d : src, ok);
+    }
   }
 }
 
-__device__ __forceinline__ float half_warp_max(float v) {
+// ---------------------------------------------------------------------------
+// 3xTF32 on mma.sync.m16n8k8
+//   A (16 x 8): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+//   B (8 x 8):  b0 (t, g), b1 (t + 4, g)
+//   C (16 x 8): c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1)
+// with g = lane / 4, t = lane % 4.
+// ---------------------------------------------------------------------------
+// x = big + small for a 3xTF32 product.  big rounds x to TF32 to nearest
+// (ties away) by adding half a TF32 ulp to the bit pattern: the MMA reads
+// only the 19 high bits of an operand, so the sum is the operand, and its
+// value with the 13 low bits cleared is subtracted from x, exactly; small,
+// that remainder, is truncated to TF32 by the MMA.  Three instructions and
+// no branch (cvt.rna.tf32.f32 takes three or four, with a predicated branch
+// for non-finite x, on each of the two parts); a NaN x leaves small NaN, so
+// NaNs propagate.
+template <int N>
+__device__ __forceinline__ void split(const float (&x)[N], uint32_t (&big)[N],
+                                      uint32_t (&small)[N]) {
 #pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+  for (int i = 0; i < N; ++i) {
+    big[i] = __float_as_uint(x[i]) + 0x1000u;
+    small[i] = __float_as_uint(x[i] - __uint_as_float(big[i] & 0xffffe000u));
+  }
 }
 
-__device__ __forceinline__ float half_warp_sum(float v) {
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc[nb] += A . B^T over the head dim, nb < NB: A is the warp's 16 rows of
+// As from row ra, B the rows 8 nb .. 8 nb + 7 of Bs; both are (rows, DP)
+// tiles with stride DP + 4.  Each k-step issues the three passes over all
+// n-blocks in turn, so NB independent MMAs separate two on one accumulator.
+// The two small terms sum into their own accumulator, added to acc once at
+// the end, so acc takes one tensor-core accumulation a k-step, not three.
+template <int DP, int NB>
+__device__ __forceinline__ void mma_dim(float (&acc)[NB][4],
+                                        const float* As, int ra,
+                                        const float* Bs, int g, int t) {
+  constexpr int LD = DP + 4;
+  const float* a_lo = As + (ra + g) * LD + t;
+  const float* a_hi = a_lo + 8 * LD;
+  const float* b_row = Bs + g * LD + t;
+  float lo[NB][4];
 #pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) lo[nb][e] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < DP / 8; ++kk) {
+    const float a[4] = {a_lo[8 * kk], a_hi[8 * kk], a_lo[8 * kk + 4],
+                        a_hi[8 * kk + 4]};
+    uint32_t ab[4], as[4], bb[NB][2], bs[NB][2];
+    split(a, ab, as);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      const float b[2] = {b_row[8 * nb * LD + 8 * kk],
+                          b_row[8 * nb * LD + 8 * kk + 4]};
+      split(b, bb[nb], bs[nb]);
+    }
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) mma(lo[nb], as, bb[nb]);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) mma(lo[nb], ab, bs[nb]);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) mma(acc[nb], ab, bb[nb]);
+  }
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nb][e] += lo[nb][e];
+}
+
+// acc[nd] += C . B over the score tile's columns: C is the warp's 16 x 8 NB
+// score tile in C-fragment form, taken as the A fragment (c0, c2, c1, c3)
+// with the summed index relabelled (logical t <-> column 2t, t + 4 <->
+// 2t + 1), so B reads rows 8 kb + 2t and 8 kb + 2t + 1 of the (rows, DP)
+// tile Bs.  Head-dim blocks go in groups of G, three passes over each group.
+// FRESH: a group sums this tile's products in a zeroed register block and
+// adds it to acc in fp32, so no tensor-core accumulation chain spans more
+// than one tile (the backward, whose sums run over up to S / 32 tiles);
+// else the MMAs accumulate into acc itself (the forward, where the
+// registers for the block would cost a CTA per SM).
+template <int DP, int NB, int G, bool FRESH>
+__device__ __forceinline__ void mma_cols(float (&acc)[DP / 8][4],
+                                         const float (&c)[NB][4],
+                                         const float* Bs, int g, int t) {
+  constexpr int LD = DP + 4, ND = DP / 8, GN = ND < G ? ND : G;
+#pragma unroll
+  for (int n0 = 0; n0 < ND; n0 += GN) {
+    float sum[GN][4];
+#pragma unroll
+    for (int j = 0; j < GN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sum[j][e] = FRESH ? 0.0f : acc[n0 + j][e];
+#pragma unroll
+    for (int kb = 0; kb < NB; ++kb) {
+      const float a[4] = {c[kb][0], c[kb][2], c[kb][1], c[kb][3]};
+      uint32_t ab[4], as[4];
+      split(a, ab, as);
+      const float* b0 = Bs + (8 * kb + 2 * t) * LD + g;
+      uint32_t bb[GN][2], bs[GN][2];
+#pragma unroll
+      for (int j = 0; j < GN; ++j) {
+        const float b[2] = {b0[8 * (n0 + j)], b0[LD + 8 * (n0 + j)]};
+        split(b, bb[j], bs[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < GN; ++j) mma(sum[j], as, bb[j]);
+#pragma unroll
+      for (int j = 0; j < GN; ++j) mma(sum[j], ab, bs[j]);
+#pragma unroll
+      for (int j = 0; j < GN; ++j) mma(sum[j], ab, bb[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < GN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[n0 + j][e] = FRESH ? acc[n0 + j][e] + sum[j][e] : sum[j][e];
+  }
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(FULL, v, 1));
+  return fmaxf(v, __shfl_xor_sync(FULL, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(FULL, v, 1);
+  return v + __shfl_xor_sync(FULL, v, 2);
 }
 
 __device__ __forceinline__ bool visible(int qi, int kj, int S, int causal) {
   return qi < S && kj < S && (!causal || kj <= qi);
 }
 
+// rows r0 and r0 + 8, columns 2t, 2t + 1 of each 8-column block of acc
+// into a (S, D) matrix
+template <int DP>
+__device__ __forceinline__ void store_rows(float* __restrict__ out,
+                                           const float (&acc)[DP / 8][4],
+                                           int r0, int S, int D, int t) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    if (r >= S) continue;
+#pragma unroll
+    for (int nd = 0; nd < DP / 8; ++nd) {
+      const int d = 8 * nd + 2 * t;
+      if (d < D) out[(int64_t)r * D + d] = acc[nd][2 * h];
+      if (d + 1 < D) out[(int64_t)r * D + d + 1] = acc[nd][2 * h + 1];
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // K6: forward.  grid (BH, ceil(S / 64)); O (BH, S, D), LSE (BH, S)
 // ---------------------------------------------------------------------------
-template <int NDV>
-__global__ void __launch_bounds__(THREADS)
+template <int DP>
+__global__ void __launch_bounds__(THREADS, 3)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int S, int D, float scale,
-                 int causal) {
-  constexpr int DP = 16 * NDV, LD = DP + 1;
-  extern __shared__ float smem[];
+                 int causal, int vec) {
+  constexpr int LD = DP + 4, NB = FWD_KEYS / 8;
+  extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* Ks = Qs + TILE * LD;
-  float* Vs = Ks + TILE * LD;
-  float* Ps = Vs + TILE * LD;  // TILE x PT probabilities
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float* Vs = Ks + FWD_KEYS * LD;
+  const int w = threadIdx.x >> 5, g = (threadIdx.x >> 2) & 7,
+            t = threadIdx.x & 3;
   const int64_t bh = blockIdx.x;
-  const int qt = blockIdx.y, q0 = qt * TILE;
+  const int qt = gridDim.y - 1 - blockIdx.y, q0 = qt * TILE, ra = 16 * w;
   const int64_t off = bh * (int64_t)S * D;
-  load_tile<NDV>(Qs, q + off, q0, S, D);
+  load_tile<DP, TILE>(Qs, q + off, q0, S, D, vec);
+  load_tile<DP, FWD_KEYS>(Ks, k + off, 0, S, D, vec);
+  cp_commit();
+  load_tile<DP, FWD_KEYS>(Vs, v + off, 0, S, D, vec);
+  cp_commit();
 
-  float m[4], l[4], acc[4][NDV];
+  const int row[2] = {q0 + ra + g, q0 + ra + g + 8};
+  const bool live = q0 + ra < S;  // the warp holds a real query row
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
+  float acc[DP / 8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.0f;
+  for (int nd = 0; nd < DP / 8; ++nd)
 #pragma unroll
-    for (int jd = 0; jd < NDV; ++jd) acc[i][jd] = 0.0f;
-  }
-  const int nk = (S + TILE - 1) / TILE;
-  const int kend = causal ? min(qt + 1, nk) : nk;
+    for (int c = 0; c < 4; ++c) acc[nd][c] = 0.0f;
+  const int nk = (S + FWD_KEYS - 1) / FWD_KEYS;
+  const int kend = causal ? min((q0 + TILE - 1) / FWD_KEYS + 1, nk) : nk;
   for (int kt = 0; kt < kend; ++kt) {
-    __syncthreads();  // every reader of the previous K / V / P tile is done
-    load_tile<NDV>(Ks, k + off, kt * TILE, S, D);
-    load_tile<NDV>(Vs, v + off, kt * TILE, S, D);
-    __syncthreads();
-    float s[4][4];
+    const int k0 = kt * FWD_KEYS;
+    // every pair of the warp's tile visible: no mask to apply
+    const bool full = k0 + FWD_KEYS <= S &&
+                      (!causal || k0 + FWD_KEYS - 1 <= q0 + ra);
+    float s[NB][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < DP; ++d) {
-      float a[4], b[4];
+      for (int c = 0; c < 4; ++c) s[nb][c] = 0.0f;
+    cp_wait<1>();
+    __syncthreads();  // K(kt) has landed
+    if (live) mma_dim<DP, NB>(s, Qs, ra, Ks, g, t);
+    __syncthreads();  // every warp is done with K(kt)
+    if (kt + 1 < kend)
+      load_tile<DP, FWD_KEYS>(Ks, k + off, k0 + FWD_KEYS, S, D, vec);
+    cp_commit();
+
+    float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[(ty + 16 * i) * LD + d];
+    for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Ks[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty + 16 * i;
-      bool ok[4];
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        ok[j] = visible(qi, kt * TILE + tx + 16 * j, S, causal);
-        s[i][j] *= scale;
-        if (ok[j]) mx = fmaxf(mx, s[i][j]);
+      for (int c = 0; c < 4; ++c) {
+        s[nb][c] *= scale;
+        if (full ||
+            visible(row[c >> 1], k0 + 8 * nb + 2 * t + (c & 1), S, causal))
+          mx[c >> 1] = fmaxf(mx[c >> 1], s[nb][c]);
       }
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
-      float rs = 0.0f;
+    float m_new[2], rs[2] = {0.0f, 0.0f}, alpha[2];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.0f;
-        Ps[(ty + 16 * i) * PT + tx + 16 * j] = p;
-        rs += p;
+    for (int h = 0; h < 2; ++h) {
+      m_new[h] = fmaxf(m[h], quad_max(mx[h]));
+      alpha[h] = expf(m[h] - m_new[h]);
+    }
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int h = c >> 1;
+        const float p =
+            full || visible(row[h], k0 + 8 * nb + 2 * t + (c & 1), S, causal)
+                ? expf(s[nb][c] - m_new[h]) : 0.0f;
+        s[nb][c] = p;
+        rs[h] += p;
       }
-      const float alpha = expf(m[i] - m_new);
-      l[i] = alpha * l[i] + half_warp_sum(rs);
-      m[i] = m_new;
 #pragma unroll
-      for (int jd = 0; jd < NDV; ++jd) acc[i][jd] *= alpha;
+    for (int h = 0; h < 2; ++h) {
+      l[h] = alpha[h] * l[h] + quad_sum(rs[h]);
+      m[h] = m_new[h];
     }
-    __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < TILE; ++c) {
-      float p[4], vv[NDV];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[(ty + 16 * i) * PT + c];
+    for (int nd = 0; nd < DP / 8; ++nd)
 #pragma unroll
-      for (int jd = 0; jd < NDV; ++jd) vv[jd] = Vs[c * LD + tx + 16 * jd];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jd = 0; jd < NDV; ++jd)
-          acc[i][jd] = fmaf(p[i], vv[jd], acc[i][jd]);
-    }
+      for (int c = 0; c < 4; ++c) acc[nd][c] *= alpha[c >> 1];
+
+    cp_wait<1>();
+    __syncthreads();  // V(kt) has landed
+    if (live) mma_cols<DP, NB, 8, false>(acc, s, Vs, g, t);
+    __syncthreads();  // every warp is done with V(kt)
+    if (kt + 1 < kend)
+      load_tile<DP, FWD_KEYS>(Vs, v + off, k0 + FWD_KEYS, S, D, vec);
+    cp_commit();
   }
+  const float li[2] = {fmaxf(l[0], TINY), fmaxf(l[1], TINY)};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty + 16 * i;
-    if (qi >= S) continue;
-    const float li = fmaxf(l[i], TINY);
+  for (int nd = 0; nd < DP / 8; ++nd)
 #pragma unroll
-    for (int jd = 0; jd < NDV; ++jd) {
-      const int d = tx + 16 * jd;
-      if (d < D) o[off + (int64_t)qi * D + d] = acc[i][jd] / li;
-    }
-    if (tx == 0) lse[bh * S + qi] = m[i] + logf(li);
+    for (int c = 0; c < 4; ++c) acc[nd][c] /= li[c >> 1];
+  store_rows<DP>(o + off, acc, q0 + ra + g, S, D, t);
+  if (t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (row[h] < S) lse[bh * S + row[h]] = m[h] + logf(li[h]);
   }
 }
 
 // ---------------------------------------------------------------------------
 // K7a: dQ.  grid (BH, ceil(S / 64)), one CTA per query tile over key tiles
 // ---------------------------------------------------------------------------
-template <int NDV>
-__global__ void __launch_bounds__(THREADS)
+template <int DP>
+__global__ void __launch_bounds__(THREADS, 2)
 flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, float* __restrict__ dq,
-                int S, int D, float scale, int causal) {
-  constexpr int DP = 16 * NDV, LD = DP + 1;
-  extern __shared__ float smem[];
+                int S, int D, float scale, int causal, int vec) {
+  constexpr int LD = DP + 4, NB = DQ_KEYS / 8;
+  extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* Gs = Qs + TILE * LD;  // dO
   float* Ks = Gs + TILE * LD;
-  float* Vs = Ks + TILE * LD;
-  float* Ss = Vs + TILE * LD;  // TILE x PT dS
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float* Vs = Ks + DQ_KEYS * LD;
+  const int w = threadIdx.x >> 5, g = (threadIdx.x >> 2) & 7,
+            t = threadIdx.x & 3;
   const int64_t bh = blockIdx.x;
-  const int qt = blockIdx.y, q0 = qt * TILE;
+  const int qt = gridDim.y - 1 - blockIdx.y, q0 = qt * TILE, ra = 16 * w;
   const int64_t off = bh * (int64_t)S * D;
-  load_tile<NDV>(Qs, q + off, q0, S, D);
-  load_tile<NDV>(Gs, dout + off, q0, S, D);
+  load_tile<DP, TILE>(Qs, q + off, q0, S, D, vec);
+  load_tile<DP, TILE>(Gs, dout + off, q0, S, D, vec);
+  load_tile<DP, DQ_KEYS>(Vs, v + off, 0, S, D, vec);
+  cp_commit();
+  load_tile<DP, DQ_KEYS>(Ks, k + off, 0, S, D, vec);
+  cp_commit();
 
-  float lr[4], dr[4], acc[4][NDV];
+  const int row[2] = {q0 + ra + g, q0 + ra + g + 8};
+  float lr[2], dr[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty + 16 * i;
-    lr[i] = qi < S ? __ldg(lse + bh * S + qi) : 0.0f;
-    dr[i] = qi < S ? __ldg(delta + bh * S + qi) : 0.0f;
-#pragma unroll
-    for (int jd = 0; jd < NDV; ++jd) acc[i][jd] = 0.0f;
+  for (int h = 0; h < 2; ++h) {
+    lr[h] = row[h] < S ? __ldg(lse + bh * S + row[h]) : 0.0f;
+    dr[h] = row[h] < S ? __ldg(delta + bh * S + row[h]) : 0.0f;
   }
-  const int nk = (S + TILE - 1) / TILE;
-  const int kend = causal ? min(qt + 1, nk) : nk;
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < DP / 8; ++nd)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[nd][c] = 0.0f;
+  const int nk = (S + DQ_KEYS - 1) / DQ_KEYS;
+  const int kend = causal ? min((q0 + TILE - 1) / DQ_KEYS + 1, nk) : nk;
   for (int kt = 0; kt < kend; ++kt) {
-    __syncthreads();
-    load_tile<NDV>(Ks, k + off, kt * TILE, S, D);
-    load_tile<NDV>(Vs, v + off, kt * TILE, S, D);
-    __syncthreads();
-    float s[4][4], dp[4][4];
+    const int k0 = kt * DQ_KEYS;
+    // the warp has a visible pair in this key tile
+    const bool work = q0 + ra < S && (!causal || k0 <= q0 + ra + 15);
+    const bool full = k0 + DQ_KEYS <= S &&
+                      (!causal || k0 + DQ_KEYS - 1 <= q0 + ra);
+    float s[NB][4], dp[NB][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.0f;
-#pragma unroll 2
-    for (int d = 0; d < DP; ++d) {
-      float a[4], g[4], b[4], e[4];
+      for (int c = 0; c < 4; ++c) s[nb][c] = dp[nb][c] = 0.0f;
+    cp_wait<1>();
+    __syncthreads();  // V(kt) has landed
+    if (work) mma_dim<DP, NB>(dp, Gs, ra, Vs, g, t);
+    __syncthreads();  // every warp is done with V(kt)
+    if (kt + 1 < kend)
+      load_tile<DP, DQ_KEYS>(Vs, v + off, k0 + DQ_KEYS, S, D, vec);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();  // K(kt) has landed
+    if (work) {
+      mma_dim<DP, NB>(s, Qs, ra, Ks, g, t);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = Qs[(ty + 16 * i) * LD + d];
-        g[i] = Gs[(ty + 16 * i) * LD + d];
-      }
+      for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        b[j] = Ks[(tx + 16 * j) * LD + d];
-        e[j] = Vs[(tx + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i], b[j], s[i][j]);
-          dp[i][j] = fmaf(g[i], e[j], dp[i][j]);
+        for (int c = 0; c < 4; ++c) {
+          const int h = c >> 1;
+          const bool ok = full || visible(row[h], k0 + 8 * nb + 2 * t + (c & 1),
+                                          S, causal);
+          const float p = ok ? expf(s[nb][c] * scale - lr[h]) : 0.0f;
+          s[nb][c] = p * (dp[nb][c] - dr[h]) * scale;
         }
+      mma_cols<DP, NB, 8, true>(acc, s, Ks, g, t);
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool ok = visible(qi, kt * TILE + tx + 16 * j, S, causal);
-        const float p = ok ? expf(s[i][j] * scale - lr[i]) : 0.0f;
-        Ss[(ty + 16 * i) * PT + tx + 16 * j] = p * (dp[i][j] - dr[i]) * scale;
-      }
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < TILE; ++c) {
-      float ds[4], kv[NDV];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = Ss[(ty + 16 * i) * PT + c];
-#pragma unroll
-      for (int jd = 0; jd < NDV; ++jd) kv[jd] = Ks[c * LD + tx + 16 * jd];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jd = 0; jd < NDV; ++jd)
-          acc[i][jd] = fmaf(ds[i], kv[jd], acc[i][jd]);
-    }
+    __syncthreads();  // every warp is done with K(kt)
+    if (kt + 1 < kend)
+      load_tile<DP, DQ_KEYS>(Ks, k + off, k0 + DQ_KEYS, S, D, vec);
+    cp_commit();
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty + 16 * i;
-    if (qi >= S) continue;
-#pragma unroll
-    for (int jd = 0; jd < NDV; ++jd) {
-      const int d = tx + 16 * jd;
-      if (d < D) dq[off + (int64_t)qi * D + d] = acc[i][jd];
-    }
-  }
+  store_rows<DP>(dq + off, acc, q0 + ra + g, S, D, t);
 }
 
 // ---------------------------------------------------------------------------
 // K7b: dK, dV.  grid (BH, ceil(S / 64)), one CTA per key tile over query
-// tiles from the diagonal
+// tiles from the diagonal; the transposed tiles S^T = K Q^T and
+// dP^T = V dO^T keep the warp's keys as rows
 // ---------------------------------------------------------------------------
-template <int NDV>
-__global__ void __launch_bounds__(THREADS)
+template <int DP>
+__global__ void __launch_bounds__(THREADS, 2)
 flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, float* __restrict__ dk,
                  float* __restrict__ dv, int S, int D, float scale,
-                 int causal) {
-  constexpr int DP = 16 * NDV, LD = DP + 1;
-  extern __shared__ float smem[];
+                 int causal, int vec) {
+  constexpr int LD = DP + 4, NB = DKV_QUERIES / 8;
+  extern __shared__ __align__(16) float smem[];
   float* Ks = smem;
   float* Vs = Ks + TILE * LD;
   float* Qs = Vs + TILE * LD;
-  float* Gs = Qs + TILE * LD;  // dO
-  float* Ps = Gs + TILE * LD;  // TILE x PT, [query][key]
-  float* Ss = Ps + TILE * PT;  // TILE x PT dS, [query][key]
-  float* Ls = Ss + TILE * PT;  // LSE of the query tile
-  float* Ds = Ls + TILE;       // delta of the query tile
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float* Gs = Qs + DKV_QUERIES * LD;  // dO
+  float* Ls = Gs + DKV_QUERIES * LD;  // LSE of the query tile
+  float* Ds = Ls + DKV_QUERIES;       // delta of the query tile
+  const int w = threadIdx.x >> 5, g = (threadIdx.x >> 2) & 7,
+            t = threadIdx.x & 3;
   const int64_t bh = blockIdx.x;
-  const int kt = blockIdx.y, k0 = kt * TILE;
+  const int k0 = blockIdx.y * TILE, ra = 16 * w;
   const int64_t off = bh * (int64_t)S * D;
-  load_tile<NDV>(Ks, k + off, k0, S, D);
-  load_tile<NDV>(Vs, v + off, k0, S, D);
+  const int nq = (S + DKV_QUERIES - 1) / DKV_QUERIES;
+  const int qbeg = causal ? k0 / DKV_QUERIES : 0;
 
-  float gk[4][NDV], gv[4][NDV];  // rows: keys ty + 16 i; cols tx + 16 jd
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int jd = 0; jd < NDV; ++jd) gk[i][jd] = gv[i][jd] = 0.0f;
-  const int nq = (S + TILE - 1) / TILE;
-  for (int qt = causal ? kt : 0; qt < nq; ++qt) {
-    const int q0 = qt * TILE;
-    __syncthreads();
-    load_tile<NDV>(Qs, q + off, q0, S, D);
-    load_tile<NDV>(Gs, dout + off, q0, S, D);
-    if (threadIdx.x < TILE) {
-      const int g = q0 + threadIdx.x;
-      Ls[threadIdx.x] = g < S ? __ldg(lse + bh * S + g) : 0.0f;
-      Ds[threadIdx.x] = g < S ? __ldg(delta + bh * S + g) : 0.0f;
+  auto load_q = [&](int q0) {
+    load_tile<DP, DKV_QUERIES>(Qs, q + off, q0, S, D, vec);
+    if (threadIdx.x < 2 * DKV_QUERIES) {
+      const int i = threadIdx.x % DKV_QUERIES, gq = q0 + i;
+      const float* src = threadIdx.x < DKV_QUERIES ? lse : delta;
+      float* dst = threadIdx.x < DKV_QUERIES ? Ls : Ds;
+      cp_async4(dst + i, gq < S ? src + bh * S + gq : src, gq < S);
     }
-    __syncthreads();
-    // score block: queries ty + 16 i, keys tx + 16 j
-    float s[4][4], dp[4][4];
+  };
+  load_tile<DP, TILE>(Ks, k + off, k0, S, D, vec);
+  load_tile<DP, TILE>(Vs, v + off, k0, S, D, vec);
+  load_q(qbeg * DKV_QUERIES);
+  cp_commit();
+  load_tile<DP, DKV_QUERIES>(Gs, dout + off, qbeg * DKV_QUERIES, S, D, vec);
+  cp_commit();
+
+  const int key[2] = {k0 + ra + g, k0 + ra + g + 8};
+  float gk[DP / 8][4], gv[DP / 8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int nd = 0; nd < DP / 8; ++nd)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.0f;
-#pragma unroll 2
-    for (int d = 0; d < DP; ++d) {
-      float a[4], g[4], b[4], e[4];
+    for (int c = 0; c < 4; ++c) gk[nd][c] = gv[nd][c] = 0.0f;
+  for (int qt = qbeg; qt < nq; ++qt) {
+    const int q0 = qt * DKV_QUERIES;
+    // the warp's keys have a visible pair in this query tile
+    const bool work = k0 + ra < S &&
+                      (!causal || k0 + ra <= q0 + DKV_QUERIES - 1);
+    const bool full = q0 + DKV_QUERIES <= S && k0 + ra + 15 < S &&
+                      (!causal || k0 + ra + 15 <= q0);
+    float st[NB][4], dpt[NB][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = Qs[(ty + 16 * i) * LD + d];
-        g[i] = Gs[(ty + 16 * i) * LD + d];
-      }
+    for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        b[j] = Ks[(tx + 16 * j) * LD + d];
-        e[j] = Vs[(tx + 16 * j) * LD + d];
-      }
+      for (int c = 0; c < 4; ++c) st[nb][c] = dpt[nb][c] = 0.0f;
+    cp_wait<1>();
+    __syncthreads();  // K, V, Q(qt), LSE, delta have landed
+    if (work) mma_dim<DP, NB>(st, Ks, ra, Qs, g, t);
+    cp_wait<0>();
+    __syncthreads();  // dO(qt) has landed
+    if (work) {
+      mma_dim<DP, NB>(dpt, Vs, ra, Gs, g, t);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i], b[j], s[i][j]);
-          dp[i][j] = fmaf(g[i], e[j], dp[i][j]);
+        for (int c = 0; c < 4; ++c) {
+          const int col = 8 * nb + 2 * t + (c & 1);
+          const bool ok = full || visible(q0 + col, key[c >> 1], S, causal);
+          const float p = ok ? expf(st[nb][c] * scale - Ls[col]) : 0.0f;
+          st[nb][c] = p;
+          dpt[nb][c] = p * (dpt[nb][c] - Ds[col]) * scale;
         }
+      mma_cols<DP, NB, 4, true>(gk, dpt, Qs, g, t);  // dK += dS^T Q
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const bool ok = visible(q0 + r, k0 + c, S, causal);
-        const float p = ok ? expf(s[i][j] * scale - Ls[r]) : 0.0f;
-        Ps[r * PT + c] = p;
-        Ss[r * PT + c] = p * (dp[i][j] - Ds[r]) * scale;
-      }
-    }
-    __syncthreads();
-    // dV += P^T dO and dK += dS^T Q over the tile's 64 queries
-#pragma unroll 2
-    for (int r = 0; r < TILE; ++r) {
-      float pk[4], sk[4], gg[NDV], qq[NDV];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pk[i] = Ps[r * PT + ty + 16 * i];
-        sk[i] = Ss[r * PT + ty + 16 * i];
-      }
-#pragma unroll
-      for (int jd = 0; jd < NDV; ++jd) {
-        gg[jd] = Gs[r * LD + tx + 16 * jd];
-        qq[jd] = Qs[r * LD + tx + 16 * jd];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jd = 0; jd < NDV; ++jd) {
-          gv[i][jd] = fmaf(pk[i], gg[jd], gv[i][jd]);
-          gk[i][jd] = fmaf(sk[i], qq[jd], gk[i][jd]);
-        }
-    }
+    __syncthreads();  // every warp is done with Q(qt), LSE, delta
+    if (qt + 1 < nq) load_q(q0 + DKV_QUERIES);
+    cp_commit();
+    if (work) mma_cols<DP, NB, 4, true>(gv, st, Gs, g, t);  // dV += P^T dO
+    __syncthreads();  // every warp is done with dO(qt)
+    if (qt + 1 < nq)
+      load_tile<DP, DKV_QUERIES>(Gs, dout + off, q0 + DKV_QUERIES, S, D,
+                                 vec);
+    cp_commit();
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kj = k0 + ty + 16 * i;
-    if (kj >= S) continue;
-#pragma unroll
-    for (int jd = 0; jd < NDV; ++jd) {
-      const int d = tx + 16 * jd;
-      if (d < D) {
-        dk[off + (int64_t)kj * D + d] = gk[i][jd];
-        dv[off + (int64_t)kj * D + d] = gv[i][jd];
-      }
-    }
-  }
+  store_rows<DP>(dk + off, gk, k0 + ra + g, S, D, t);
+  store_rows<DP>(dv + off, gv, k0 + ra + g, S, D, t);
 }
 
 // ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
-template <int NDV>
-constexpr size_t tile_floats() { return (size_t)TILE * (16 * NDV + 1); }
+template <int DP>
+constexpr size_t fwd_smem() {
+  return sizeof(float) * (TILE + 2 * FWD_KEYS) * (DP + 4);
+}
 
-template <typename K>
-cudaError_t prepare(K kernel, size_t smem) {
+template <int DP>
+constexpr size_t dq_smem() {
+  return sizeof(float) * (2 * TILE + 2 * DQ_KEYS) * (DP + 4);
+}
+
+template <int DP>
+constexpr size_t dkv_smem() {
+  return sizeof(float) *
+         ((2 * TILE + 2 * DKV_QUERIES) * (DP + 4) + 2 * DKV_QUERIES);
+}
+
+cudaError_t prepare(const void* kernel, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
   return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
 }
 
 bool bad_shape(int64_t BH, int64_t S, int64_t D) {
@@ -437,46 +627,80 @@ dim3 grid_for(int64_t BH, int64_t S) {
   return dim3((unsigned)BH, (unsigned)((S + TILE - 1) / TILE));
 }
 
-template <int NDV>
+// 16-byte copies need D % 4 == 0 and 16-byte aligned tensors
+bool aligned16(const float* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <int DP>
 int fwd(const float* q, const float* k, const float* v, float* o, float* lse,
         int64_t BH, int64_t S, int64_t D, float scale, int causal,
         cudaStream_t st) {
-  const size_t smem = sizeof(float) * (3 * tile_floats<NDV>() + TILE * PT);
-  cudaError_t err = prepare(flash_fwd_kernel<NDV>, smem);
+  const void* fn = (const void*)flash_fwd_kernel<DP>;
+  cudaError_t err = prepare(fn, fwd_smem<DP>());
   if (err != cudaSuccess) return (int)err;
-  flash_fwd_kernel<NDV><<<grid_for(BH, S), THREADS, smem, st>>>(
-      q, k, v, o, lse, (int)S, (int)D, scale, causal);
+  flash_fwd_kernel<DP><<<grid_for(BH, S), THREADS, fwd_smem<DP>(), st>>>(
+      q, k, v, o, lse, (int)S, (int)D, scale, causal, D % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v));
   return (int)cudaGetLastError();
 }
 
-template <int NDV>
+template <int DP>
 int dq(const float* q, const float* k, const float* v, const float* dout,
        const float* lse, const float* delta, float* dq_, int64_t BH,
        int64_t S, int64_t D, float scale, int causal, cudaStream_t st) {
-  const size_t smem = sizeof(float) * (4 * tile_floats<NDV>() + TILE * PT);
-  cudaError_t err = prepare(flash_dq_kernel<NDV>, smem);
+  const void* fn = (const void*)flash_dq_kernel<DP>;
+  cudaError_t err = prepare(fn, dq_smem<DP>());
   if (err != cudaSuccess) return (int)err;
-  flash_dq_kernel<NDV><<<grid_for(BH, S), THREADS, smem, st>>>(
-      q, k, v, dout, lse, delta, dq_, (int)S, (int)D, scale, causal);
+  flash_dq_kernel<DP><<<grid_for(BH, S), THREADS, dq_smem<DP>(), st>>>(
+      q, k, v, dout, lse, delta, dq_, (int)S, (int)D, scale, causal,
+      D % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
+          aligned16(dout));
   return (int)cudaGetLastError();
 }
 
-template <int NDV>
+template <int DP>
 int dkv(const float* q, const float* k, const float* v, const float* dout,
         const float* lse, const float* delta, float* dk, float* dv,
         int64_t BH, int64_t S, int64_t D, float scale, int causal,
         cudaStream_t st) {
-  const size_t smem = sizeof(float) *
-                      (4 * tile_floats<NDV>() + 2 * TILE * PT + 2 * TILE);
-  cudaError_t err = prepare(flash_dkv_kernel<NDV>, smem);
+  const void* fn = (const void*)flash_dkv_kernel<DP>;
+  cudaError_t err = prepare(fn, dkv_smem<DP>());
   if (err != cudaSuccess) return (int)err;
-  flash_dkv_kernel<NDV><<<grid_for(BH, S), THREADS, smem, st>>>(
-      q, k, v, dout, lse, delta, dk, dv, (int)S, (int)D, scale, causal);
+  flash_dkv_kernel<DP><<<grid_for(BH, S), THREADS, dkv_smem<DP>(), st>>>(
+      q, k, v, dout, lse, delta, dk, dv, (int)S, (int)D, scale, causal,
+      D % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
+          aligned16(dout));
   return (int)cudaGetLastError();
 }
 
-int ndv_for(int64_t D) {
-  return D <= 16 ? 1 : D <= 32 ? 2 : D <= 64 ? 4 : 8;
+// registers, local (spill) bytes, dynamic shared memory bytes and resident
+// CTAs per SM of kernel `which` (0 forward, 1 dQ, 2 dK/dV)
+template <int DP>
+int info(int which, int* out) {
+  const void* fn = which == 0   ? (const void*)flash_fwd_kernel<DP>
+                   : which == 1 ? (const void*)flash_dq_kernel<DP>
+                                : (const void*)flash_dkv_kernel<DP>;
+  const size_t smem = which == 0   ? fwd_smem<DP>()
+                      : which == 1 ? dq_smem<DP>()
+                                   : dkv_smem<DP>();
+  cudaError_t err = prepare(fn, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return (int)err;
+  int ctas = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, fn, THREADS,
+                                                      smem);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = attr.maxDynamicSharedSizeBytes;
+  out[3] = ctas;
+  return 0;
+}
+
+int dp_for(int64_t D) {
+  return D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : 128;
 }
 
 }  // namespace
@@ -487,11 +711,11 @@ extern "C" int flash_fwd_launch(const float* q, const float* k,
                                 int causal, void* stream) {
   if (bad_shape(BH, S, D)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (ndv_for(D)) {
-    case 1: return fwd<1>(q, k, v, o, lse, BH, S, D, scale, causal, st);
-    case 2: return fwd<2>(q, k, v, o, lse, BH, S, D, scale, causal, st);
-    case 4: return fwd<4>(q, k, v, o, lse, BH, S, D, scale, causal, st);
-    default: return fwd<8>(q, k, v, o, lse, BH, S, D, scale, causal, st);
+  switch (dp_for(D)) {
+    case 16: return fwd<16>(q, k, v, o, lse, BH, S, D, scale, causal, st);
+    case 32: return fwd<32>(q, k, v, o, lse, BH, S, D, scale, causal, st);
+    case 64: return fwd<64>(q, k, v, o, lse, BH, S, D, scale, causal, st);
+    default: return fwd<128>(q, k, v, o, lse, BH, S, D, scale, causal, st);
   }
 }
 
@@ -502,11 +726,11 @@ extern "C" int flash_dq_launch(const float* q, const float* k, const float* v,
                                void* stream) {
   if (bad_shape(BH, S, D)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (ndv_for(D)) {
-    case 1: return dq<1>(q, k, v, dout, lse, delta, dq_, BH, S, D, scale, causal, st);
-    case 2: return dq<2>(q, k, v, dout, lse, delta, dq_, BH, S, D, scale, causal, st);
-    case 4: return dq<4>(q, k, v, dout, lse, delta, dq_, BH, S, D, scale, causal, st);
-    default: return dq<8>(q, k, v, dout, lse, delta, dq_, BH, S, D, scale, causal, st);
+  switch (dp_for(D)) {
+    case 16: return dq<16>(q, k, v, dout, lse, delta, dq_, BH, S, D, scale, causal, st);
+    case 32: return dq<32>(q, k, v, dout, lse, delta, dq_, BH, S, D, scale, causal, st);
+    case 64: return dq<64>(q, k, v, dout, lse, delta, dq_, BH, S, D, scale, causal, st);
+    default: return dq<128>(q, k, v, dout, lse, delta, dq_, BH, S, D, scale, causal, st);
   }
 }
 
@@ -518,10 +742,23 @@ extern "C" int flash_dkv_launch(const float* q, const float* k,
                                 void* stream) {
   if (bad_shape(BH, S, D)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (ndv_for(D)) {
-    case 1: return dkv<1>(q, k, v, dout, lse, delta, dk, dv, BH, S, D, scale, causal, st);
-    case 2: return dkv<2>(q, k, v, dout, lse, delta, dk, dv, BH, S, D, scale, causal, st);
-    case 4: return dkv<4>(q, k, v, dout, lse, delta, dk, dv, BH, S, D, scale, causal, st);
-    default: return dkv<8>(q, k, v, dout, lse, delta, dk, dv, BH, S, D, scale, causal, st);
+  switch (dp_for(D)) {
+    case 16: return dkv<16>(q, k, v, dout, lse, delta, dk, dv, BH, S, D, scale, causal, st);
+    case 32: return dkv<32>(q, k, v, dout, lse, delta, dk, dv, BH, S, D, scale, causal, st);
+    case 64: return dkv<64>(q, k, v, dout, lse, delta, dk, dv, BH, S, D, scale, causal, st);
+    default: return dkv<128>(q, k, v, dout, lse, delta, dk, dv, BH, S, D, scale, causal, st);
+  }
+}
+
+// out[4] = registers, spill (local) bytes, dynamic shared memory bytes and
+// resident CTAs per SM of kernel `which` (0 forward, 1 dQ, 2 dK/dV) at D
+extern "C" int flash_kernel_info(int which, int64_t D, int* out) {
+  if (D <= 0 || D > 128 || which < 0 || which > 2)
+    return (int)cudaErrorInvalidValue;
+  switch (dp_for(D)) {
+    case 16: return info<16>(which, out);
+    case 32: return info<32>(which, out);
+    case 64: return info<64>(which, out);
+    default: return info<128>(which, out);
   }
 }

@@ -112,6 +112,109 @@ def test_flash_op_fake_shapes_and_lse_is_not_differentiable():
 
 
 # ---------------------------------------------------------------------------
+# the CUDA kernels' 3xTF32 precision scheme, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+
+def _tf32_nearest(x):
+    """x rounded to TF32 to nearest, ties away from zero: add half a TF32
+    ulp (1 << 12) to the fp32 bit pattern and clear the 13 low bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + (1 << 12)) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_truncated(x):
+    """x truncated to TF32, as an MMA reads an fp32 operand."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(eq, a, b):
+    """einsum with each operand split as the kernels split it: big = x
+    rounded to TF32, small = x - big (exact) truncated to TF32 by the MMA;
+    small.big + big.small, then big.big (small.small is dropped).  Products
+    of TF32 values are exact in fp32."""
+    a_big, b_big = _tf32_nearest(a), _tf32_nearest(b)
+    a_small, b_small = _tf32_truncated(a - a_big), _tf32_truncated(b - b_big)
+    return ((torch.einsum(eq, a_small, b_big)
+             + torch.einsum(eq, a_big, b_small))
+            + torch.einsum(eq, a_big, b_big))
+
+
+def _mm_1xtf32(eq, a, b):
+    """One TF32 product: what the tensor cores give without the split."""
+    return torch.einsum(eq, _tf32_nearest(a), _tf32_nearest(b))
+
+
+def _flash_fwd_emulated(q, k, v, causal, mm, tile=64):
+    """The forward kernel's algebra: an online softmax over key tiles
+    (``tile`` keys each), the running max and denominator, every product
+    through ``mm``."""
+    bh, s, d = q.shape
+    scale = 1.0 / np.sqrt(d)
+    visible = flash._mask(s, causal, q.device)
+    m = torch.full((bh, s), flash.NEG_INF)
+    l = torch.zeros((bh, s))
+    acc = torch.zeros((bh, s, d))
+    for k0 in range(0, s, tile):
+        kk, vv = k[:, k0:k0 + tile], v[:, k0:k0 + tile]
+        ok = visible[:, k0:k0 + tile]
+        sc = mm("bqd,bkd->bqk", q, kk) * scale
+        m_new = torch.maximum(m, torch.where(ok, sc, flash.NEG_INF)
+                              .amax(dim=-1))
+        p = torch.where(ok, torch.exp(sc - m_new[..., None]), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + mm("bqk,bkd->bqd", p, vv)
+        m = m_new
+    li = torch.clamp_min(l, flash._TINY)
+    return acc / li[..., None], m + torch.log(li)
+
+
+def _flash_bwd_emulated(q, k, v, do, lse, delta, causal, mm):
+    """The backward kernels' algebra: P = exp(s - LSE), dS = P (dP - delta)
+    scale, dQ = dS K, dK = dS^T Q, dV = P^T dO, every product through
+    ``mm``."""
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    visible = flash._mask(q.shape[1], causal, q.device)
+    p = torch.where(visible, torch.exp(
+        mm("bqd,bkd->bqk", q, k) * scale - lse[..., None]), 0.0)
+    ds = p * (mm("bqd,bkd->bqk", do, v) - delta[..., None]) * scale
+    return (mm("bqk,bkd->bqd", ds, k), mm("bqk,bqd->bkd", ds, q),
+            mm("bqk,bqd->bkd", p, do))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [20, 128])
+@pytest.mark.parametrize("s", [70, 200])
+def test_3xtf32_products_keep_the_flash_kernels_within_their_bars(s, d,
+                                                                  causal):
+    """The 3xTF32 scheme — operands split as the kernels split them, bit
+    for bit — stays within chip_smoke phase 3b's bars of the plain fp32
+    versions (1e-5 on O and LSE, 1e-4 on dQ, dK, dV); one TF32 product
+    alone misses the forward bar at D 128, which is why the operands are
+    split.  The three products are summed by fp32 einsum: this checks the
+    scheme, not the kernels' accumulation (their separate small-term and
+    per-tile accumulators, the tensor core's own rounding), which the card
+    tests and chip_smoke phase 3b hold."""
+    rs = np.random.RandomState(s + d + causal)
+    q, k, v, do = (torch.from_numpy(rs.standard_normal((2, s, d))
+                                    .astype(np.float32)) for _ in range(4))
+    o, lse = _flash_fwd_emulated(q, k, v, causal, _mm_3xtf32)
+    po, plse = flash.flash_fwd_plain(q, k, v, causal)
+    assert (o - po).abs().max().item() <= 1e-5
+    assert (lse - plse).abs().max().item() <= 1e-5
+    delta = (do * po).sum(dim=-1)
+    grads = _flash_bwd_emulated(q, k, v, do, plse, delta, causal, _mm_3xtf32)
+    want = (flash.flash_dq_plain(q, k, v, do, plse, delta, causal),
+            *flash.flash_dkv_plain(q, k, v, do, plse, delta, causal))
+    for got, exp in zip(grads, want):
+        assert (got - exp).abs().max().item() <= 1e-4
+    if d == 128:
+        o1, _ = _flash_fwd_emulated(q, k, v, causal, _mm_1xtf32)
+        assert (o1 - po).abs().max().item() > 1e-5
+
+
+# ---------------------------------------------------------------------------
 # transformer forward and gradients against the reference
 # ---------------------------------------------------------------------------
 

@@ -116,11 +116,13 @@ def test_fused_round_on_card_matches_cpu(cuda_device, compression):
         [h["comm_up_bytes"] for h in out["cpu"]["history"]]
 
 
-# the LoRA path's shape (4 clients x 4 sequences x 32 heads, S 512, D 128)
-# and ragged sequence lengths and head dims
+# the LoRA path's shape (4 clients x 4 sequences x 32 heads, S 512, D 128),
+# ragged sequence lengths and head dims, a head dim that is not a power of
+# two, and the full head dim without the causal mask
 @pytest.mark.parametrize("bh,s,d,causal", [
     (512, 512, 128, True), (3, 1, 20, True), (3, 63, 64, False),
-    (3, 200, 20, True), (3, 200, 64, False), (2, 130, 16, True)])
+    (3, 200, 20, True), (3, 200, 64, False), (2, 130, 16, True),
+    (3, 200, 72, True), (2, 130, 128, False)])
 def test_flash_kernels_match_plain_versions(cuda_device, bh, s, d, causal):
     gen = torch.Generator(device=cuda_device).manual_seed(s * d)
     q, k, v, do = (torch.randn((bh, s, d), generator=gen, device=cuda_device)
