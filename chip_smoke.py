@@ -32,15 +32,20 @@ Phases, in order; any failed check raises, so the script exits non-zero:
    its backward — forward + backward minus forward — for the two backward
    kernels); bound each on the tensor cores in 3xTF32 (the units the
    kernels run on) and, beside it, on the fp32 CUDA cores;
-3c. hold the WKV6 kernel (K8) against its plain version at the
+3c. print the WKV6 kernel's (K8) resources at hd 64 and its ``HMMA``
+   count, as phase 3b; hold it against its plain version at the
    ``rwkv6-1.6b`` prefill shape (16 x 512 tokens, 32 heads of 64) and two
-   small shapes, within 1e-4 of each output's scale, and through
-   ``time_mix``'s padding at a ragged length (200 tokens, full width)
-   against the model's own ``wkv6_chunked``; the dense STC (K4) and the
-   dense int8 quantize / dequantize (K5) against theirs at the
-   ``bench_compression`` size 2^20 and a ragged 1,000,003 (STC masks,
-   signs and counts bitwise, values within 1 ulp; q, scales and
-   dequantized values bitwise); time each as in phase 3;
+   small shapes, within 1e-4 of each output's scale, under extreme decay
+   (log w = -e^6, every third step -e^-8: finite, within 3e-2), and
+   through ``time_mix``'s padding at a ragged length (200 tokens, full
+   width) against the model's own ``wkv6_chunked``; bound it with its
+   products on the 3xTF32 tensor cores and, beside that, all on the fp32
+   CUDA cores; the dense STC (K4) and the dense int8 quantize / dequantize
+   (K5) against theirs at the ``bench_compression`` size 2^20 and a ragged
+   1,000,003 (STC masks, signs and counts bitwise, values within 1 ulp; q,
+   scales and dequantized values bitwise); time each as in phase 3, and
+   K4/K5 and ``torch.mul(q, s)`` also by device time (``torch.profiler``,
+   20 calls), the host's launch path left out;
 4. drive the main path through the public entry points: ``init`` + ``run``
    on ``femnist_cnn`` / ``femnist`` at full width, 3 rounds of 10 clients,
    ``execution="batched"``, ``aggregation_kernel=True``, once per
@@ -207,7 +212,8 @@ def main():
 
     phase("3c. WKV6, dense STC and dense int8 kernels against their plain "
           "versions")
-    new_rows = check_new_kernels(dev, rwkv6_scan, stc_topk, quant)
+    new_rows = check_new_kernels(dev, rwkv6_scan, stc_topk, quant,
+                                 build)
 
     phase("4. the main path: femnist_cnn through init/run")
     repro_torch.set_device(None)          # the default: CUDA
@@ -288,39 +294,53 @@ def flash_bound(bh, s, d, causal, kernel):
             bound(nbytes, ops_per_pair * pairs))
 
 
-def flash_build_report(attention, build):
-    """Print the three flash kernels' resources at D = 128 and the TF32
-    tensor-core instructions (``HMMA``) in each one's SASS;
-    -> {kernel: resources and HMMA count}."""
+def hmma_counts(build, lib, kernels):
+    """{"<kernel><DP>": count} of TF32 tensor-core instructions (``HMMA``)
+    in the SASS of each template instance of ``kernels`` (a regex
+    alternation of kernel names) in library ``lib``; None without
+    ``cuobjdump``."""
     import re
     import shutil
 
-    info = attention.kernel_info(128)
-    for name, r in info.items():
-        print(f"{name} at D 128: {r['registers']} registers, "
-              f"{r['spill_bytes']} bytes of local memory (spills), "
-              f"{r['smem_bytes']} bytes of dynamic shared memory, "
-              f"{r['ctas_per_sm']} CTAs per SM")
     cuobjdump = next((c for c in (
         os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump"),
         shutil.which("cuobjdump") or "") if c and os.path.isfile(c)), None)
     if cuobjdump is None:
-        print("HMMA count: not available (no cuobjdump in the toolkit)")
-        return info
+        return None
     sass = subprocess.run(
-        [cuobjdump, "--dump-sass", str(build.library_path("flash_attn"))],
+        [cuobjdump, "--dump-sass", str(build.library_path(lib))],
         capture_output=True, text=True, check=True).stdout
     counts, cur = {}, None
     for line in sass.splitlines():
-        m = re.search(
-            r"Function : \S*?(flash_(?:fwd|dq|dkv)_kernel)ILi(\d+)E", line)
+        m = re.search(rf"Function : \S*?({kernels})ILi(\d+)E", line)
         if m:
             cur = f"{m.group(1)}<{m.group(2)}>"
             counts[cur] = 0
         elif cur and "HMMA" in line:
             counts[cur] += 1
-    print("HMMA instructions in the SASS (HMMA.1688.F32.TF32): "
+    print(f"HMMA instructions in the SASS of {lib} (HMMA.1688.F32.TF32): "
           + json.dumps(counts, sort_keys=True))
+    return counts
+
+
+def print_resources(name, r, what):
+    print(f"{name} at {what}: {r['registers']} registers, "
+          f"{r['spill_bytes']} bytes of local memory (spills), "
+          f"{r['smem_bytes']} bytes of dynamic shared memory, "
+          f"{r['ctas_per_sm']} CTAs per SM")
+
+
+def flash_build_report(attention, build):
+    """Print the three flash kernels' resources at D = 128 and the TF32
+    tensor-core instructions (``HMMA``) in each one's SASS;
+    -> {kernel: resources and HMMA count}."""
+    info = attention.kernel_info(128)
+    for name, r in info.items():
+        print_resources(name, r, "D 128")
+    counts = hmma_counts(build, "flash_attn", "flash_(?:fwd|dq|dkv)_kernel")
+    if counts is None:
+        print("HMMA count: not available (no cuobjdump in the toolkit)")
+        return info
     for name in info:
         n = counts.get(f"{name}_kernel<128>", 0)
         require(n > 0, f"{name}: no tensor-core instruction in its SASS")
@@ -393,7 +413,8 @@ def check_flash(dev, attention, build):
             source="src/repro_torch/kernels/csrc/flash_attn.cu",
             replaces=replaces, shape=[bh, s, d], max_abs_err=errs[name],
             ms=cuda_ms(kern), plain_ms=cuda_ms(plain), bound_ms=b,
-            bound_by=by, library_ms=lib_ms, **resources[name]))
+            bound_by=by, library_ms=lib_ms,
+            **resources[name]))
         r = rows[-1]
         print(f"{name:12s} {r['shape']} causal: kernel {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, sdpa {lib_ms:.4f} ms "
@@ -407,47 +428,87 @@ def check_flash(dev, attention, build):
 def wkv6_bound(B, T, H, hd):
     """Least time of one WKV6 call: bytes for r, k, v, log w, y (B, T, H,
     hd), u and both states; operations per (sequence, head, 64-step chunk)
-    as the algorithm needs them, an exponential counted as one."""
+    as the exact form needs them (the TPU kernel's work, whatever
+    implements it), an exponential counted as one.  -> ((ms, by) with the
+    three products on the tensor cores in 3xTF32 — the units the kernel
+    runs them on — and the rest on the fp32 CUDA cores; (ms, by) all on
+    the fp32 CUDA cores)."""
     L = 64
     pairs = L * (L - 1) // 2
+    products = (2 * L * hd * hd           # (r exp(cwx)) @ S
+                + L * (L + 1) * hd        # scores @ v, diagonal included
+                + 2 * L * hd * hd)        # k_dec^T @ v
     per_chunk = (2 * L * hd               # cumsum, cw - log w
                  + 5 * pairs * hd         # gates: sub, exp, 2 mul, add
                  + 3 * L * hd             # bonus r u k
                  + 5 * L * hd             # r exp(cwx), k exp(cw_L - cw)
-                 + 2 * L * hd * hd        # (r exp(cwx)) @ S
-                 + L * (L + 1) * hd       # scores @ v, diagonal included
                  + L * hd                 # inter + intra
-                 + 2 * L * hd * hd + 3 * hd * hd)   # state update
+                 + 3 * hd * hd            # state decay
+                 + products)
+    n = B * H * (T // L)
     nbytes = 4 * (5 * B * T * H * hd + 2 * B * H * hd * hd + H * hd)
-    return bound(nbytes, B * H * (T // L) * per_chunk)
+    seconds = n * (products / (TF32_OPS_PER_S / 3)
+                   + (per_chunk - products) / FP32_OPS_PER_S)
+    return bound(nbytes, seconds, 1.0), bound(nbytes, n * per_chunk)
 
 
-def check_new_kernels(dev, rwkv6_scan, stc_topk, quant):
+WKV_SEED = 5678
+WKV_MAIN = (16, 512, 32, 64)    # B, T, H, hd of one rwkv6-1.6b prefill layer
+
+
+def wkv_inputs(gen, B, T, H, hd):
+    """K8's inputs in phase 3c (and ``scripts/bench_kernels.py``): unit
+    normal r, k, v and state, 0.3 u, and the model's decays, log w =
+    -exp(clamp(N(0, 1) - 0.6, -8, 6)), drawn on ``gen``'s device."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=gen.device)
+    r, k, v = randn(B, T, H, hd), randn(B, T, H, hd), randn(B, T, H, hd)
+    logw = -torch.exp(torch.clamp(randn(B, T, H, hd) - 0.6, -8.0, 6.0))
+    return r, k, v, logw, 0.3 * randn(H, hd), randn(B, H, hd, hd)
+
+
+def scaled_err(got, want):
+    """(max |got - want|, that over max(1, max |want|))."""
+    e = (got.double() - want.double()).abs().max().item()
+    return e, e / max(1.0, want.abs().max().item())
+
+
+def device_ms(fn, n=REPS):
+    """Device time of one call of ``fn``: the CUDA kernels' time summed by
+    ``torch.profiler`` over ``n`` calls (after a warm-up), divided by n —
+    the launch path on the host left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    require(us > 0, "device_ms: the profiler saw no device time")
+    return us / 1e3 / n
+
+
+def check_new_kernels(dev, rwkv6_scan, stc_topk, quant, build):
     """K8 (WKV6), K4 (dense STC), K5a/K5b (dense quantize / dequantize)
     against their plain versions, then timed at the main path's shapes."""
     from repro_torch.configs import get_arch
     from repro_torch.models import rwkv6 as rwkv_mod
     from repro_torch.models.layers import init_params
 
-    gen = torch.Generator(device=dev).manual_seed(5678)
+    gen = torch.Generator(device=dev).manual_seed(WKV_SEED)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
-    def wkv_inputs(B, T, H, hd):
-        r, k, v = randn(B, T, H, hd), randn(B, T, H, hd), randn(B, T, H, hd)
-        logw = -torch.exp(torch.clamp(randn(B, T, H, hd) - 0.6, -8.0, 6.0))
-        return r, k, v, logw, 0.3 * randn(H, hd), randn(B, H, hd, hd)
-
-    def scaled_err(got, want):
-        return ((got - want).abs().max().item(),
-                (got - want).abs().max().item()
-                / max(1.0, want.abs().max().item()))
-
-    main = (16, 512, 32, 64)
+    main = WKV_MAIN
     k8_err = 0.0
     for shape in (main, (2, 192, 3, 16), (3, 128, 1, 64)):
-        args = wkv_inputs(*shape)
+        args = wkv_inputs(gen, *shape)
         y, st = rwkv6_scan.wkv6(*args)
         py, ps = rwkv6_scan.wkv6_plain(*args)
         torch.cuda.synchronize()
@@ -458,6 +519,23 @@ def check_new_kernels(dev, rwkv6_scan, stc_topk, quant):
         require(max(ry, rs) <= 1e-4, f"wkv6 {shape}: scaled err "
                 f"{max(ry, rs)}")
         k8_err = max(k8_err, ey, es)
+    # extreme decay: log w at the clip, every third step near 0.  f32 cw
+    # loses the small steps' digits (both add it serially, so they round
+    # it alike); the bar is ROADMAP's WKV6 caveat, 3e-2
+    for shape in ((4, 256, 4, 64), (2, 192, 3, 16)):
+        r, k, v, logw, u, s0 = wkv_inputs(gen, *shape)
+        logw = torch.full_like(logw, -float(np.exp(6.0)))
+        logw[:, ::3] = -float(np.exp(-8.0))
+        y, st = rwkv6_scan.wkv6(r, k, v, logw, u, s0)
+        py, ps = rwkv6_scan.wkv6_plain(r, k, v, logw, u, s0)
+        torch.cuda.synchronize()
+        (ey, ry), (es, rs) = scaled_err(y, py), scaled_err(st, ps)
+        fin = bool(torch.isfinite(y).all() and torch.isfinite(st).all())
+        print(f"wkv6 {shape}, log w -e^6 / -e^-8: finite {fin}; max abs err "
+              f"y {ey:.3g}, sT {es:.3g}; scaled {max(ry, rs):.3g} (bar 3e-2)")
+        require(fin and max(ry, rs) <= 3e-2,
+                f"wkv6 extreme decay {shape}: finite {fin}, scaled err "
+                f"{max(ry, rs)}")
     # a ragged length through time_mix's padding (200 -> 256 steps) at
     # full width, f32: K8 against the model's own wkv6_chunked
     cfg = get_arch("rwkv6-1.6b")
@@ -508,9 +586,18 @@ def check_new_kernels(dev, rwkv6_scan, stc_topk, quant):
               f"ulp (nnz {int(torch.count_nonzero(o))}); quantize q+scales "
               f"and dequantize bitwise")
 
+    resources = rwkv6_scan.kernel_info(64)
+    print_resources("wkv6", resources, "hd 64")
+    counts = hmma_counts(build, "wkv6", "wkv6_kernel")
+    if counts is None:
+        print("HMMA count: not available (no cuobjdump in the toolkit)")
+    else:
+        resources["hmma"] = counts.get("wkv6_kernel<64>", 0)
+        require(resources["hmma"] > 0,
+                "wkv6: no tensor-core instruction in its SASS")
     rows = []
-    args = wkv_inputs(*main)
-    b, by = wkv6_bound(*main)
+    args = wkv_inputs(gen, *main)
+    (b, by), (b_cc, by_cc) = wkv6_bound(*main)
     rows.append(dict(
         name="wkv6", counter="wkv6", route="cuda",
         source="src/repro_torch/kernels/csrc/wkv6.cu",
@@ -518,7 +605,10 @@ def check_new_kernels(dev, rwkv6_scan, stc_topk, quant):
         shape=list(main), max_abs_err=k8_err,
         ms=cuda_ms(lambda: rwkv6_scan.wkv6(*args)),
         plain_ms=cuda_ms(lambda: rwkv6_scan.wkv6_plain(*args)),
-        bound_ms=b, bound_by=by, library_ms=None))
+        bound_ms=b, bound_by=by, library_ms=None,
+        **resources))
+    print(f"wkv6 bound {b:.4f} ms ({by}; products on the 3xTF32 tensor "
+          f"cores), {b_cc:.4f} ms ({by_cc}) all on the fp32 CUDA cores")
     del args
     n = 2 ** 20
     x = randn(n) * 0.37
@@ -531,6 +621,7 @@ def check_new_kernels(dev, rwkv6_scan, stc_topk, quant):
         replaces="src/repro/kernels/stc_topk.py:65",
         shape=[n], max_abs_err=errs["stc_dense"],
         ms=cuda_ms(lambda: stc_topk.stc_compress(x, 0.01)),
+        device_ms=device_ms(lambda: stc_topk.stc_compress(x, 0.01)),
         plain_ms=cuda_ms(lambda: stc_topk.stc_dense_plain(x, 0.01)),
         bound_ms=b, bound_by=by, library_ms=None))
     q, sc = quant.quantize(x)
@@ -542,6 +633,7 @@ def check_new_kernels(dev, rwkv6_scan, stc_topk, quant):
         replaces="src/repro/kernels/quant.py:36",
         shape=[n], max_abs_err=errs["int8_quantize"],
         ms=cuda_ms(lambda: quant.quantize(x)),
+        device_ms=device_ms(lambda: quant.quantize(x)),
         plain_ms=cuda_ms(lambda: quant.quantize_plain(x)),
         bound_ms=b, bound_by=by, library_ms=None))
     b, by = bound(n + 4 * tiles + 4 * n, 2 * n)
@@ -552,15 +644,22 @@ def check_new_kernels(dev, rwkv6_scan, stc_topk, quant):
         replaces="src/repro/kernels/quant.py:44",
         shape=[n], max_abs_err=errs["int8_dequantize"],
         ms=cuda_ms(lambda: quant.dequantize(q, sc, x.shape)),
+        device_ms=device_ms(lambda: quant.dequantize(q, sc, x.shape)),
         plain_ms=cuda_ms(lambda: quant.dequantize_plain(q, sc, x.shape)),
         bound_ms=b, bound_by=by,
         # q * s broadcast over the tiles (int8 * f32 promotes to f32)
-        library_ms=cuda_ms(lambda: torch.mul(q2, sc))))
+        library_ms=cuda_ms(lambda: torch.mul(q2, sc)),
+        library_device_ms=device_ms(lambda: torch.mul(q2, sc))))
     for r in rows:
         print(f"{r['name']:16s} {r['shape']}: kernel {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, library "
               f"{'-' if r['library_ms'] is None else format(r['library_ms'], '.4f')}"
               f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        if "device_ms" in r:
+            lib = r.get("library_device_ms")
+            print(f"{'':16s} device time (torch.profiler, {REPS} calls): "
+                  f"kernel {r['device_ms']:.4f} ms, library "
+                  f"{'-' if lib is None else format(lib, '.4f')} ms")
     return rows
 
 

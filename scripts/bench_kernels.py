@@ -1,0 +1,213 @@
+"""Time one source tree's hand-written kernels at their main path's shape,
+and hold its WKV6 kernel (K8) against a float64 run.
+
+    python3 scripts/bench_kernels.py --kernel flash|wkv6 [--root DIR]
+
+imports ``repro_torch`` from ``DIR/src`` (default: this checkout), builds
+the kernel's source into ``DIR/build/kernels``, and prints the card
+(``nvidia-smi`` name and power limit) and one JSON line:
+
+* ``flash``: milliseconds of K6 (forward), K7a (dQ) and K7b (dK/dV) and of
+  fp32 ``scaled_dot_product_attention`` at BH 512 (4 clients x 4
+  sequences x 32 heads), S 512, D 128, causal — the GLM-4 LoRA path's
+  shape (``chip_smoke.py`` phase 3b);
+* ``wkv6``: milliseconds of K8 at (B 16, T 512, H 32, hd 64), one layer of
+  the ``rwkv6-1.6b`` prefill, on phase 3c's inputs (``chip_smoke.
+  wkv_inputs``); its distance from that tree's plain version; and its
+  distances from a float64 run of the exact form
+  (``models/rwkv6.wkv6_chunked``), each beside the f32 exact form's own:
+  on those inputs; in each of the 24 layers of ``rwkv6-1.6b`` (f32,
+  parameters from seed 0, 2 x 500 tokens as phase 5c), each on the same
+  input, against the same layer with its recurrence run in float64; and
+  in the logits end to end, with the token where each gap peaks and,
+  beside K8, the tree's plain version run in the kernel's place.
+
+Distances are scaled by max(1, max |reference|), as in phase 3c.  The
+timing (``cuda_ms``) and the SDPA yardstick (``sdpa_ms``) are this
+checkout's ``chip_smoke.py``'s, whatever tree ``DIR`` holds, so the
+numbers compare with its kernel table.  To compare two trees on one card,
+unpack one (``git archive``) into a directory that ``.gitignore`` lists and
+run, in one call on the card: parent, change, change, parent.  Needs a
+CUDA card.
+"""
+import argparse
+import contextlib
+import dataclasses
+import json
+import math
+import os
+import subprocess
+import sys
+
+import torch
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FLASH_SHAPE = (512, 512, 128)   # BH, S, D of the LoRA path (phase 3b)
+
+
+def bench_flash(smoke):
+    from repro_torch.kernels import attention
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    q, k, v, do = (torch.randn(FLASH_SHAPE, generator=gen, device=dev)
+                   for _ in range(4))
+    o, lse = attention.flash_fwd(q, k, v, True)
+    delta = (do * o).sum(dim=-1)
+    res = {
+        "repro_torch": os.path.relpath(attention.__file__),
+        "shape": list(FLASH_SHAPE), "causal": True,
+        "flash_fwd": smoke.cuda_ms(
+            lambda: attention.flash_fwd(q, k, v, True)),
+        "flash_dq": smoke.cuda_ms(lambda: attention.flash_dq(
+            q, k, v, do, lse, delta, True)),
+        "flash_dkv": smoke.cuda_ms(lambda: attention.flash_dkv(
+            q, k, v, do, lse, delta, True)),
+    }
+    res["sdpa_fwd"], res["sdpa_bwd"] = smoke.sdpa_ms(q, k, v, do)
+    return res
+
+
+def bench_wkv6(smoke):
+    from repro_torch.kernels import rwkv6_scan
+    from repro_torch.models import rwkv6 as rwkv_mod
+
+    gen = torch.Generator(device="cuda").manual_seed(smoke.WKV_SEED)
+    args = smoke.wkv_inputs(gen, *smoke.WKV_MAIN)
+    y, sT = rwkv6_scan.wkv6(*args)
+    py, ps = rwkv6_scan.wkv6_plain(*args)
+    res = {
+        "repro_torch": os.path.relpath(rwkv6_scan.__file__),
+        "shape": list(smoke.WKV_MAIN),
+        "wkv6_ms": smoke.cuda_ms(lambda: rwkv6_scan.wkv6(*args)),
+        "scaled_err": max(smoke.scaled_err(y, py)[1],
+                          smoke.scaled_err(sT, ps)[1]),
+    }
+    del py, ps
+    ey, es = rwkv_mod.wkv6_chunked(*(a.double() for a in args))
+    cy, cs = rwkv_mod.wkv6_chunked(*args)
+    for tag, (a, b) in {"k8": (y, sT), "chunked": (cy, cs)}.items():
+        res[f"{tag}_vs_f64_y"] = smoke.scaled_err(a, ey)[1]
+        res[f"{tag}_vs_f64_sT"] = smoke.scaled_err(b, es)[1]
+    del args, y, sT, ey, es, cy, cs
+    res.update(wkv6_model_float64(smoke, rwkv_mod))
+    return res
+
+
+@contextlib.contextmanager
+def plain_in_kernels_place():
+    """The no-grad path's recurrence (``ops.wkv6``, K8) replaced by the
+    tree's plain version."""
+    from repro_torch.kernels import ops, rwkv6_scan
+
+    kernel = ops.wkv6
+    ops.wkv6 = rwkv6_scan.wkv6_plain
+    try:
+        yield
+    finally:
+        ops.wkv6 = kernel
+
+
+@contextlib.contextmanager
+def float64_recurrence(rwkv_mod):
+    """The model's grad-mode recurrence (``wkv6_chunked``) run in float64
+    on float64 copies of its inputs, its outputs cast back to f32."""
+    exact = rwkv_mod.wkv6_chunked
+
+    def f64(*args):
+        return tuple(t.float() for t in exact(*(a.double() for a in args)))
+    rwkv_mod.wkv6_chunked = f64
+    try:
+        yield
+    finally:
+        rwkv_mod.wkv6_chunked = exact
+
+
+def wkv6_model_float64(smoke, rwkv_mod):
+    """rwkv6-1.6b in f32, phase 5c's tokens: K8 (no_grad) and the f32
+    exact form (grad mode, nothing recorded) against the float64
+    recurrence, layer by layer on the same input and end to end (there
+    also the plain version in K8's place)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.model import Model
+
+    dev = torch.device("cuda")
+    model = Model(dataclasses.replace(get_arch("rwkv6-1.6b"),
+                                      dtype="float32"))
+    cfg = model.cfg
+    params = model.init(torch.Generator().manual_seed(0), dev)
+    toks = torch.randint(0, cfg.vocab, (2, 500),
+                         generator=torch.Generator().manual_seed(2)).to(dev)
+
+    def scaled(a, b):
+        return smoke.scaled_err(a, b)[1]
+    with torch.no_grad():
+        k8, _ = model.forward(params, toks)
+        with plain_in_kernels_place():
+            plain, _ = model.forward(params, toks)
+    with torch.enable_grad():
+        chunked, _ = model.forward(params, toks)
+        with float64_recurrence(rwkv_mod):
+            witness, _ = model.forward(params, toks)
+    out = {"e2e_max_logit": witness.abs().max().item()}
+    for tag, a in {"k8": k8, "plain": plain, "chunked": chunked}.items():
+        d = (a - witness).abs().amax(-1)                  # (batch, tokens)
+        out[f"e2e_{tag}_vs_f64"] = d.max().item()
+        out[f"e2e_{tag}_worst_token"] = divmod(int(d.argmax()), d.shape[1])
+    out["e2e_k8_vs_chunked"] = (k8 - chunked).abs().max().item()
+    del k8, plain, chunked, witness
+
+    seg = tfm.segments(cfg)[0]
+    x = params["embed"][toks].to(torch.float32)
+    positions = torch.arange(x.shape[1], device=dev)[None, :]
+    worst = {"layer_k8_vs_f64": 0.0, "layer_chunked_vs_f64": 0.0,
+             "layer_k8_vs_chunked": 0.0}
+    for li in range(seg.count):
+        p = tfm._layer(params["segments"][0], li)
+        with torch.no_grad():
+            a = tfm._apply_layer(cfg, seg, p, x, positions)       # K8
+        with torch.enable_grad():
+            c = tfm._apply_layer(cfg, seg, p, x, positions)       # f32 exact
+            with float64_recurrence(rwkv_mod):
+                w = tfm._apply_layer(cfg, seg, p, x, positions)
+        for key, (u, v) in {"layer_k8_vs_f64": (a, w),
+                            "layer_chunked_vs_f64": (c, w),
+                            "layer_k8_vs_chunked": (a, c)}.items():
+            worst[key] = max(worst[key], scaled(u, v))
+        x = w
+    out.update(worst)
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", choices=("flash", "wkv6"), required=True)
+    ap.add_argument("--root", default=HERE)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        sys.exit("bench_kernels.py needs a CUDA card")
+    sys.path.insert(0, HERE)
+    import chip_smoke as smoke                  # puts HERE/src on the path
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, os.path.join(root, "src"))
+    os.environ["REPRO_TORCH_BUILD_DIR"] = os.path.join(root, "build",
+                                                       "kernels")
+    from repro_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip())
+    build.build_all(["flash_attn" if args.kernel == "flash" else "wkv6"])
+    res = (bench_flash if args.kernel == "flash" else bench_wkv6)(smoke)
+    res = {"root": os.path.relpath(root), **res}
+    assert all(math.isfinite(x) for x in res.values()
+               if isinstance(x, float))
+    print(json.dumps(res))
+
+
+if __name__ == "__main__":
+    main()

@@ -5,9 +5,10 @@ own shared library, loaded with :mod:`ctypes` — no PyTorch headers, so a
 build takes seconds.  Libraries are built at first use, from the sources in
 this checkout only, into ``build/kernels/`` at the repository root
 (``REPRO_TORCH_BUILD_DIR`` overrides it); the file name carries a hash of
-the source and the flags, so an edited source is rebuilt and a stale
-library is never loaded.  :func:`build_all` compiles several sources with
-one ``nvcc`` process each, all started together.
+the source, of the shared headers (``csrc/*.cuh``) and of the flags, so an
+edited source or header is rebuilt and a stale library is never loaded.
+:func:`build_all` compiles several sources with one ``nvcc`` process each,
+all started together.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3`` and never
 ``--use_fast_math`` — the int8 round trip relies on an IEEE-rounded
@@ -49,7 +50,8 @@ SIGNATURES = {
         "flash_dq_launch": (_P,) * 7 + (_I64,) * 3 + (_F, _C, _P),
         "flash_dkv_launch": (_P,) * 8 + (_I64,) * 3 + (_F, _C, _P),
         "flash_kernel_info": (_C, _I64, _P)},
-    "wkv6": {"wkv6_launch": (_P,) * 8 + (_I64,) * 4 + (_P,)},
+    "wkv6": {"wkv6_launch": (_P,) * 8 + (_I64,) * 4 + (_P,),
+             "wkv6_kernel_info": (_I64, _P)},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -74,9 +76,14 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return build_dir() / f"lib{name}-{tag}.so"
+    """The library of ``name``; its file name carries a hash of the source,
+    of every header in ``csrc`` (``*.cuh``, which a source may include) and
+    of the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:

@@ -22,19 +22,13 @@
 // per fp32-accurate product, so the roofline is 495 / 3 = 165 TFLOP/s
 // (0.2086 / 0.3130 / 0.4173 ms at BH 512, S 512, D 128, causal).
 //
-// Precision ("TF32 off" semantics).  Every operand x of a product is split in
-// registers into big = x rounded to TF32 (to nearest, ties away) and small =
-// x - big (exact in fp32), which the MMA truncates to TF32, and a.b is taken
-// as small_a.big_b + big_a.small_b + big_a.big_b — the 3xTF32 scheme of
-// CUTLASS's OpMultiplyAddFastF32 (which rounds big toward zero and small to
-// nearest instead; both cost three instructions, and this way round the
-// dropped small.small term is <= 2^-22 of |a.b|).  The tensor core's fp32
-// accumulation does not round to nearest, and its error grows with the
-// number of MMAs into one accumulator, so the two small terms go to an
-// accumulator of their own, and in the backward each tile's products over
-// keys or queries to a zeroed register block, added in fp32; on the H100
-// that cuts the largest error against the plain fp32 versions, most in
-// dK/dV.
+// Precision ("TF32 off" semantics): every product runs in 3xTF32, each fp32
+// operand split into a TF32 big and the remainder small (tf32x3.cuh, which
+// holds the split, the MMA and the fragment loops this file shares with
+// wkv6.cu).  The small terms go to an accumulator of their own, and in the
+// backward each tile's products over keys or queries to a zeroed register
+// block, added in fp32; on the H100 that cuts the largest error against the
+// plain fp32 versions, most in dK/dV.
 //
 // Design (FA2-style tiles on mma.sync.aligned.m16n8k8 tf32):
 //   * a CTA is 4 warps, each owning 16 rows: query rows of a 64-row query
@@ -71,8 +65,7 @@
 //     blockIdx.y; dK/dV's key tile 0, first already, has the longest loop).
 // Not done here: wgmma and TMA (TF32 wgmma takes B only K-major from shared
 // memory, and 3xTF32 on it needs split big/small copies of every B tile).
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -87,36 +80,6 @@ constexpr float TINY = 1e-30f;
 constexpr unsigned FULL = 0xffffffffu;
 
 // ---------------------------------------------------------------------------
-// cp.async
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ unsigned smem_addr(const float* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N of this thread's groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
 // rows [row0, row0 + ROWS) of one (S, D) matrix into shared memory (row
 // stride DP + 4), zeros beyond S and D
 template <int DP, int ROWS>
@@ -141,38 +104,8 @@ __device__ __forceinline__ void load_tile(float* dst,
 }
 
 // ---------------------------------------------------------------------------
-// 3xTF32 on mma.sync.m16n8k8
-//   A (16 x 8): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
-//   B (8 x 8):  b0 (t, g), b1 (t + 4, g)
-//   C (16 x 8): c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1)
-// with g = lane / 4, t = lane % 4.
+// products over the head dim (split, mma and mma_cols: tf32x3.cuh)
 // ---------------------------------------------------------------------------
-// x = big + small for a 3xTF32 product.  big rounds x to TF32 to nearest
-// (ties away) by adding half a TF32 ulp to the bit pattern: the MMA reads
-// only the 19 high bits of an operand, so the sum is the operand, and its
-// value with the 13 low bits cleared is subtracted from x, exactly; small,
-// that remainder, is truncated to TF32 by the MMA.  Three instructions and
-// no branch (cvt.rna.tf32.f32 takes three or four, with a predicated branch
-// for non-finite x, on each of the two parts); a NaN x leaves small NaN, so
-// NaNs propagate.
-template <int N>
-__device__ __forceinline__ void split(const float (&x)[N], uint32_t (&big)[N],
-                                      uint32_t (&small)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    big[i] = __float_as_uint(x[i]) + 0x1000u;
-    small[i] = __float_as_uint(x[i] - __uint_as_float(big[i] & 0xffffe000u));
-  }
-}
-
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // acc[nb] += A . B^T over the head dim, nb < NB: A is the warp's 16 rows of
 // As from row ra, B the rows 8 nb .. 8 nb + 7 of Bs; both are (rows, DP)
 // tiles with stride DP + 4.  Each k-step issues the three passes over all
@@ -215,55 +148,6 @@ __device__ __forceinline__ void mma_dim(float (&acc)[NB][4],
   for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nb][e] += lo[nb][e];
-}
-
-// acc[nd] += C . B over the score tile's columns: C is the warp's 16 x 8 NB
-// score tile in C-fragment form, taken as the A fragment (c0, c2, c1, c3)
-// with the summed index relabelled (logical t <-> column 2t, t + 4 <->
-// 2t + 1), so B reads rows 8 kb + 2t and 8 kb + 2t + 1 of the (rows, DP)
-// tile Bs.  Head-dim blocks go in groups of G, three passes over each group.
-// FRESH: a group sums this tile's products in a zeroed register block and
-// adds it to acc in fp32, so no tensor-core accumulation chain spans more
-// than one tile (the backward, whose sums run over up to S / 32 tiles);
-// else the MMAs accumulate into acc itself (the forward, where the
-// registers for the block would cost a CTA per SM).
-template <int DP, int NB, int G, bool FRESH>
-__device__ __forceinline__ void mma_cols(float (&acc)[DP / 8][4],
-                                         const float (&c)[NB][4],
-                                         const float* Bs, int g, int t) {
-  constexpr int LD = DP + 4, ND = DP / 8, GN = ND < G ? ND : G;
-#pragma unroll
-  for (int n0 = 0; n0 < ND; n0 += GN) {
-    float sum[GN][4];
-#pragma unroll
-    for (int j = 0; j < GN; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sum[j][e] = FRESH ? 0.0f : acc[n0 + j][e];
-#pragma unroll
-    for (int kb = 0; kb < NB; ++kb) {
-      const float a[4] = {c[kb][0], c[kb][2], c[kb][1], c[kb][3]};
-      uint32_t ab[4], as[4];
-      split(a, ab, as);
-      const float* b0 = Bs + (8 * kb + 2 * t) * LD + g;
-      uint32_t bb[GN][2], bs[GN][2];
-#pragma unroll
-      for (int j = 0; j < GN; ++j) {
-        const float b[2] = {b0[8 * (n0 + j)], b0[LD + 8 * (n0 + j)]};
-        split(b, bb[j], bs[j]);
-      }
-#pragma unroll
-      for (int j = 0; j < GN; ++j) mma(sum[j], as, bb[j]);
-#pragma unroll
-      for (int j = 0; j < GN; ++j) mma(sum[j], ab, bs[j]);
-#pragma unroll
-      for (int j = 0; j < GN; ++j) mma(sum[j], ab, bb[j]);
-    }
-#pragma unroll
-    for (int j = 0; j < GN; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        acc[n0 + j][e] = FRESH ? acc[n0 + j][e] + sum[j][e] : sum[j][e];
-  }
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -609,15 +493,6 @@ constexpr size_t dkv_smem() {
          ((2 * TILE + 2 * DKV_QUERIES) * (DP + 4) + 2 * DKV_QUERIES);
 }
 
-cudaError_t prepare(const void* kernel, size_t smem) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributePreferredSharedMemoryCarveout,
-                              (int)cudaSharedmemCarveoutMaxShared);
-}
-
 bool bad_shape(int64_t BH, int64_t S, int64_t D) {
   return BH <= 0 || S <= 0 || D <= 0 || D > 128 || BH > 0x7fffffff ||
          S > 0x7fffffff || (S + TILE - 1) / TILE > 65535;
@@ -683,20 +558,7 @@ int info(int which, int* out) {
   const size_t smem = which == 0   ? fwd_smem<DP>()
                       : which == 1 ? dq_smem<DP>()
                                    : dkv_smem<DP>();
-  cudaError_t err = prepare(fn, smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, fn);
-  if (err != cudaSuccess) return (int)err;
-  int ctas = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, fn, THREADS,
-                                                      smem);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = attr.numRegs;
-  out[1] = (int)attr.localSizeBytes;
-  out[2] = attr.maxDynamicSharedSizeBytes;
-  out[3] = ctas;
-  return 0;
+  return kernel_resources(fn, THREADS, smem, out);
 }
 
 int dp_for(int64_t D) {

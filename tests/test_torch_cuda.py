@@ -197,6 +197,24 @@ def test_wkv6_kernel_matches_plain_version(cuda_device, B, T, H, hd):
         assert (got - want).abs().max().item() <= 1e-4 * scale
 
 
+@pytest.mark.parametrize("B,T,H,hd", [(4, 256, 4, 64), (2, 192, 3, 16)])
+def test_wkv6_kernel_stays_finite_under_extreme_decay(cuda_device, B, T, H,
+                                                      hd):
+    """log w at the clip (-e^6), every third step -e^-8: finite, and within
+    3e-2 of the plain version's scale (ROADMAP's WKV6 caveat: f32 cw
+    loses the small steps' digits; both add it serially, so they round it
+    alike)."""
+    r, k, v, _, u, s0 = _wkv_inputs(B, T, H, hd, cuda_device, seed=T + 1)
+    logw = torch.full_like(r, -float(np.exp(6.0)))
+    logw[:, ::3] = -float(np.exp(-8.0))
+    y, s = rwkv6_scan.wkv6(r, k, v, logw, u, s0)
+    py, ps = rwkv6_scan.wkv6_plain(r, k, v, logw, u, s0)
+    for got, want in ((y, py), (s, ps)):
+        assert torch.isfinite(got).all()
+        scale = max(1.0, want.abs().max().item())
+        assert (got - want).abs().max().item() <= 3e-2 * scale
+
+
 # the bench_compression.py size, a ragged size, a small ragged size
 @pytest.mark.parametrize("n", [2 ** 20, 1000003, 10007])
 def test_dense_stc_and_quant_kernels_match_plain_versions(cuda_device, n):

@@ -15,6 +15,8 @@ against its Pallas kernel in interpret mode, whose scale XLA compiles to a
 multiply by f32(1/127) — one ulp off on some tiles
 (``test_quantize_scale_gap_is_the_xla_reciprocal_rewrite``).
 """
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -263,3 +265,22 @@ def test_build_names_libraries_by_source_hash(monkeypatch, tmp_path):
         assert "src/repro/kernels/" in src          # names what it replaces
         for fn in build.SIGNATURES[name]:
             assert f'extern "C" int {fn}(' in src
+
+
+def test_library_names_hash_the_shared_headers(monkeypatch, tmp_path):
+    """An edited header (``csrc/*.cuh``) renames every library, so a stale
+    build of a source that includes it is never loaded."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "out"))
+    headers = sorted(csrc.glob("*.cuh"))
+    assert [h.name for h in headers] == ["tf32x3.cuh"]
+    for name in ("flash_attn", "wkv6"):
+        assert f'#include "{headers[0].name}"' in (
+            csrc / f"{name}.cu").read_text()
+    before = {name: build.library_path(name) for name in build.SOURCES}
+    headers[0].write_text(headers[0].read_text() + "\n// edited\n")
+    after = {name: build.library_path(name) for name in build.SOURCES}
+    assert all(before[n] != after[n] for n in build.SOURCES)
+    assert all(before[n].parent == after[n].parent for n in build.SOURCES)

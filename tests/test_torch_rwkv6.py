@@ -6,7 +6,12 @@ parameters injected (``repro_torch.convert.params_from_jax``).
 * The WKV6 kernel's plain version (what ``ops.wkv6`` runs on a CPU tensor)
   against the reference's Pallas kernel in interpret mode and against the
   sequential ``ref.wkv6_ref``, at the reference's own bar (1e-3); the
-  port's copy of the sequential oracle against the reference's.
+  port's copy of the sequential oracle against the reference's.  The plain
+  version is the CUDA kernel's sub-chunked arithmetic: against the port's
+  exact pairwise ``wkv6_chunked`` (1e-5 of the scale); its serial f32
+  cumsum against a float64 run beside the exact form's; and with its
+  products emulated in 3xTF32 (operands, and the MMAs' accumulation)
+  against a float64 run.
 * ``time_mix`` (both ``use_kernel`` values), ``time_mix_decode`` and
   ``channel_mix`` at the reduced config: f32 within 1e-4; bf16 within 2e-3
   plus one bf16 ulp of the output's largest magnitude (2^-7 of it) — the
@@ -143,6 +148,115 @@ def test_wkv6_plain_stays_finite_under_strong_decay():
     y, s = rwkv6_scan.wkv6_plain(*map(torch.from_numpy,
                                       (r, k, v, logw, u, s0)))
     assert torch.isfinite(y).all() and torch.isfinite(s).all()
+
+
+def _scaled_err(got, want):
+    """max |got - want| over max(1, max |want|), in float64."""
+    want = want.double()
+    return ((got.double() - want).abs().max()
+            / max(1.0, want.abs().max().item())).item()
+
+
+@pytest.mark.parametrize("nonzero_s0", [False, True])
+@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("T", [64, 192])
+def test_wkv6_subchunked_plain_matches_exact_chunked_form(T, hd, nonzero_s0):
+    """The plain version (the CUDA kernel's sub-chunked arithmetic: exact
+    gates within a 16-step sub-chunk, factored products across them, cw
+    added serially in f32) against the model's exact pairwise
+    ``wkv6_chunked`` at the model's decays: within 1e-5 of each output's
+    scale (both take cwx = cw - log w; they differ by the factored blocks'
+    f32 rounding, ~2e-7, and, on the CPU, by the cumsum's: torch.cumsum
+    adds in double there, ~2e-6)."""
+    args = [torch.from_numpy(a) for a in _wkv_inputs(
+        2, T, 3, hd, seed=7 * T + hd + nonzero_s0, nonzero_s0=nonzero_s0)]
+    y, s = rwkv6_scan.wkv6_plain(*args)
+    cy, cs = port_rwkv.wkv6_chunked(*args)
+    assert _scaled_err(y, cy) <= 1e-5
+    assert _scaled_err(s, cs) <= 1e-5
+
+
+@pytest.mark.parametrize("B,T,H,hd", [(2, 512, 4, 64), (2, 192, 3, 16)])
+def test_wkv6_serial_cumsum_keeps_the_plain_version_near_float64(B, T, H,
+                                                                 hd):
+    """The plain version (and the kernel) add cw serially in f32, so each
+    gate's exponent cw[t-1] - cw[s] carries only the roundings of the steps
+    between s and t.  Against a float64 run it is no farther than the exact
+    form, whose ``torch.cumsum`` on the CPU rounds each cw once from a
+    double sum — an error of half an ulp of |cw| on every difference,
+    however short."""
+    args = [torch.from_numpy(a) for a in _wkv_inputs(
+        B, T, H, hd, seed=3 * T + hd, nonzero_s0=True)]
+    ey, es = port_rwkv.wkv6_chunked(*(a.double() for a in args))
+    cy, cs = port_rwkv.wkv6_chunked(*args)
+    py, ps = rwkv6_scan.wkv6_plain(*args)
+    assert _scaled_err(py, ey) <= _scaled_err(cy, ey)
+    assert _scaled_err(ps, es) <= _scaled_err(cs, es)
+
+
+def _rz32(x64):
+    """float64 -> float32 rounded toward zero."""
+    x = x64.float()
+    return torch.where(x.double().abs() > x64.abs(),
+                       torch.nextafter(x, torch.zeros_like(x)), x)
+
+
+def _matmul_3xtf32_mma(a, b):
+    """The kernel's 3xTF32 products as its MMAs accumulate them: k-steps of
+    8, each step's products summed exactly, the small terms into an
+    accumulator of their own and big.big into another, each rounded toward
+    zero per MMA (the tensor core's accumulation does not round to
+    nearest), the two added in fp32 at the end.  (The kernel chains y's
+    two products into one accumulator; here each is its own chain.)"""
+    from test_torch_attention import _tf32_nearest, _tf32_truncated
+    ab, bb = _tf32_nearest(a), _tf32_nearest(b)
+    as_, bs = _tf32_truncated(a - ab), _tf32_truncated(b - bb)
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float64)
+    lo = torch.zeros_like(acc)
+    for k0 in range(0, a.shape[-1], 8):
+        def step(x, y):
+            return x[..., k0:k0 + 8].double() @ y[..., k0:k0 + 8, :].double()
+        lo = _rz32(lo + step(as_, bb) + step(ab, bs)).double()
+        acc = _rz32(acc + step(ab, bb)).double()
+    return acc.float() + lo.float()
+
+
+def _matmul_3xtf32(a, b):
+    from test_torch_attention import _mm_3xtf32
+    return _mm_3xtf32("...ij,...jk->...ik", a, b)
+
+
+def _check_3xtf32(B, T, H, hd, mm):
+    args = [torch.from_numpy(a) for a in _wkv_inputs(
+        B, T, H, hd, seed=T + hd, nonzero_s0=True)]
+    ey, es = port_rwkv.wkv6_chunked(*(a.double() for a in args))
+    cy, cs = port_rwkv.wkv6_chunked(*args)
+    my, ms = rwkv6_scan.wkv6_plain(*args, matmul=mm)
+    assert _scaled_err(my, ey) <= 2 * _scaled_err(cy, ey)
+    assert _scaled_err(ms, es) <= 2 * _scaled_err(cs, es)
+    logw = torch.full_like(args[3], -float(np.exp(6.0)))
+    logw[:, ::3] = -float(np.exp(-8.0))
+    args[3] = logw
+    my, ms = rwkv6_scan.wkv6_plain(*args, matmul=mm)
+    assert torch.isfinite(my).all() and torch.isfinite(ms).all()
+
+
+@pytest.mark.parametrize("B,T,H,hd", [(2, 512, 4, 64), (2, 192, 3, 16)])
+def test_wkv6_3xtf32_products_keep_the_kernel_at_fp32_accuracy(B, T, H, hd):
+    """The sub-chunked form with its four products in 3xTF32 as the kernel
+    splits its operands (``tests/test_torch_attention.py``'s emulation,
+    summed in fp32 einsum: the operand split only) against a float64 run
+    of the exact form: within twice the f32 exact form's own distance from
+    float64, output by output; finite at the clip."""
+    _check_3xtf32(B, T, H, hd, _matmul_3xtf32)
+
+
+@pytest.mark.parametrize("B,T,H,hd", [(2, 512, 4, 64), (2, 192, 3, 16)])
+def test_wkv6_3xtf32_mma_accumulation_keeps_the_kernel_at_fp32_accuracy(
+        B, T, H, hd):
+    """As above with the MMAs' accumulation modelled too
+    (``_matmul_3xtf32_mma``: k-steps of 8, rounded toward zero)."""
+    _check_3xtf32(B, T, H, hd, _matmul_3xtf32_mma)
 
 
 def _time_params(dtype_name):
