@@ -14,9 +14,10 @@ Phases, in order; any failed check raises, so the script exits non-zero:
 3. hold every kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it (every ``femnist_cnn`` leaf of >= 64
    elements at N_b = 16 clients, the whole (16, 6,603,710) update matrix,
-   and ragged widths), and time kernel, plain version and — where one
+   and ragged widths; for STC also ``stc_topk.adversarial_rows``, 8193
+   and 20001 wide), and time kernel, plain version and — where one
    PyTorch call computes the same function — that call (median of CUDA
-   events over 20 runs);
+   events over 20 runs; K2 also by device time);
 3b. print the three flash-attention kernels' resources at D = 128 as the
    runtime reads them (``cudaFuncGetAttributes``: registers, local memory
    = spills and stack, dynamic shared memory; CTAs per SM) and the count of
@@ -42,8 +43,9 @@ Phases, in order; any failed check raises, so the script exits non-zero:
    products on the 3xTF32 tensor cores and, beside that, all on the fp32
    CUDA cores; the dense STC (K4) and the dense int8 quantize / dequantize
    (K5) against theirs at the ``bench_compression`` size 2^20 and a ragged
-   1,000,003 (STC masks, signs and counts bitwise, values within 1 ulp; q,
-   scales and dequantized values bitwise); time each as in phase 3, and
+   1,000,003, and K4 on the adversarial rows, one a segment (STC masks,
+   signs and counts bitwise, values within 1 ulp; q, scales and
+   dequantized values bitwise); time each as in phase 3, and
    K4/K5 and ``torch.mul(q, s)`` also by device time (``torch.profiler``,
    20 calls), the host's launch path left out;
 4. drive the main path through the public entry points: ``init`` + ``run``
@@ -76,7 +78,13 @@ Phases, in order; any failed check raises, so the script exits non-zero:
    nothing recorded), and stepwise decode against the full-sequence
    forward (B 2, 64 tokens), end to end beside a 1e-7 perturbation probe
    (the random-init model's conditioning), and layer by layer on the same
-   inputs (bar 1e-4 of the output's scale); the reduced ``rwkv6-1.6b``
+   inputs (bar 1e-4 of the output's scale); then K8 and the f32 exact form
+   against the same forward with its recurrence in float64
+   (``float64_recurrence``): per token over tokens >= 16 (bar: K8 within
+   max(2 x the exact form's gap, 1e-2 x max |logit|); the first tokens
+   carry the model's conditioning) and over all tokens (printed), and per
+   layer on the same input (bar: K8 within 1.5 x the exact form's
+   distance); the reduced ``rwkv6-1.6b``
    prefill and the reduced ``rwkv6-1.6b`` and ``glm4-9b`` decode on the
    card against the CPU (1e-4);
 6. print the kernel table as one JSON line, then the result line.
@@ -92,6 +100,7 @@ and one ``rwkv6-1.6b`` prefill and 8 decode steps of phase 4c's
 configuration, with ``torch.profiler`` (device time by operator and the
 device's busy share); ``--profile rwkv6`` profiles the last alone.
 """
+import contextlib
 import dataclasses
 import json
 import os
@@ -585,6 +594,16 @@ def check_new_kernels(dev, rwkv6_scan, stc_topk, quant, build):
         print(f"dense ({n}): stc masks+signs+nnz bitwise, values <= {u:.3g} "
               f"ulp (nnz {int(torch.count_nonzero(o))}); quantize q+scales "
               f"and dequantize bitwise")
+    x = torch.cat([stc_topk.adversarial_rows(stc_topk.SEG).reshape(-1),
+                   torch.tensor([5.0])]).to(dev)
+    o, p = stc_topk.stc_compress(x, 0.01), stc_topk.stc_dense_plain(x)
+    torch.cuda.synchronize()
+    u = check_stc(o, p, "stc_dense adversarial")
+    require(torch.count_nonzero(o) == torch.count_nonzero(p),
+            "stc_dense adversarial: nnz differ")
+    errs["stc_dense"] = max(errs["stc_dense"], (o - p).abs().max().item())
+    print(f"dense adversarial ({x.numel()}: one case a segment, then one "
+          f"element): stc masks+signs+nnz bitwise, values <= {u:.3g} ulp")
 
     resources = rwkv6_scan.kernel_info(64)
     print_resources("wkv6", resources, "hd 64")
@@ -612,9 +631,7 @@ def check_new_kernels(dev, rwkv6_scan, stc_topk, quant, build):
     del args
     n = 2 ** 20
     x = randn(n) * 0.37
-    kept = int(torch.count_nonzero(stc_topk.stc_compress(x, 0.01)))
-    t = -(-n // stc_topk.SEG)
-    b, by = bound(8 * n, 36 * t * stc_topk.SEG + 2 * kept)
+    b, by = stc_bound(x.view(1, n), stc_topk, counts=False)
     rows.append(dict(
         name="stc_dense", counter="stc_dense", route="cuda",
         source="src/repro_torch/kernels/csrc/stc_topk.cu",
@@ -785,16 +802,49 @@ def run_compression_api(ops, dev):
     return used
 
 
+@contextlib.contextmanager
+def float64_recurrence(rwkv_mod):
+    """The model's grad-mode recurrence (``wkv6_chunked``) run in float64
+    on float64 copies of its inputs, its outputs cast back to f32: the
+    witness of phase 5c and ``scripts/bench_kernels.py --kernel wkv6``."""
+    exact = rwkv_mod.wkv6_chunked
+
+    def f64(*args):
+        return tuple(t.float() for t in exact(*(a.double() for a in args)))
+    rwkv_mod.wkv6_chunked = f64
+    try:
+        yield
+    finally:
+        rwkv_mod.wkv6_chunked = exact
+
+
+F64_FROM = 16      # phase 5c's float64 bar holds the tokens from this one on
+
+
+def worst_token(gap, start=0):
+    """(max, sequence, token) of a (batch, tokens) gap from token
+    ``start`` on."""
+    g = gap[:, start:]
+    s, t = divmod(int(g.argmax()), g.shape[1])
+    return g.max().item(), s, t + start
+
+
 def rwkv6_agreement(params, dev):
     """Phase 5c.  At full width and depth the random-init model amplifies
     f32 rounding differences over its 24 layers (how far, the probe shows:
-    the logits moved by a 1e-7 relative perturbation of the embedding), so
-    the end-to-end gaps are printed beside that probe, with a sanity bar
-    of a tenth of the largest logit, and the bars hold each layer alone: every layer gets the same input (the
-    chunked forward's hidden state) through K8 and through
-    ``wkv6_chunked``, and through 64 decode steps, within 1e-4 of the
-    layer output's scale."""
+    the logits moved by a 1e-7 relative perturbation of the embedding), most
+    at the first tokens, so the end-to-end gaps are printed beside that
+    probe, with a sanity bar of a tenth of the largest logit, and the bars
+    hold the kernel against a float64 witness (the same forward with its
+    recurrence in float64): per token, over the tokens from ``F64_FROM``
+    on, K8 within max(2 x the f32 exact form's gap, 1e-2 x the largest
+    logit); and each layer alone: every layer gets the same input (the
+    chunked forward's hidden state) through K8, through ``wkv6_chunked``
+    and through 64 decode steps, within 1e-4 of the layer output's scale of
+    one another, and K8 within 1.5 x the exact form's distance from the
+    layer with its recurrence in float64."""
     from repro_torch.configs import get_arch
+    from repro_torch.models import rwkv6 as rwkv_mod
     from repro_torch.models import transformer as tfm
     from repro_torch.models.model import (
         Model, make_prefill_step, make_serve_step,
@@ -811,6 +861,8 @@ def rwkv6_agreement(params, dev):
     with torch.enable_grad():
         chunked, _ = f32.forward(params, toks)
         probe, _ = f32.forward(perturbed, toks)
+        with float64_recurrence(rwkv_mod):
+            witness, _ = f32.forward(params, toks)
     require(not chunked.requires_grad, "[5c] the grad-mode forward recorded")
     e2e = (k8 - chunked).abs().max().item()
     pr = (probe - chunked).abs().max().item()
@@ -821,7 +873,24 @@ def rwkv6_agreement(params, dev):
     require(bool(torch.isfinite(k8).all())
             and e2e <= 0.1 * k8.abs().max().item(),
             f"[5c] K8 vs chunked logits differ by {e2e}")
-    del k8, chunked, probe, perturbed
+    big = witness.abs().max().item()
+    gaps = {tag: (a - witness).abs().amax(-1)          # (batch, tokens)
+            for tag, a in (("K8", k8), ("wkv6_chunked", chunked))}
+    tail = {tag: worst_token(g, F64_FROM) for tag, g in gaps.items()}
+    for tag, g in gaps.items():
+        v, sq, t = tail[tag]
+        va, sa, ta = worst_token(g)
+        print(f"[5c] end to end vs the float64 recurrence, {tag}: tokens >= "
+              f"{F64_FROM} {v:.4g} (sequence {sq}, token {t}); all tokens "
+              f"{va:.4g} (sequence {sa}, token {ta})")
+    bar = max(2 * tail["wkv6_chunked"][0], 1e-2 * big)
+    print(f"[5c] float64 bar, tokens >= {F64_FROM}: K8 {tail['K8'][0]:.4g} "
+          f"<= max(2 x {tail['wkv6_chunked'][0]:.4g}, 1e-2 x max |logit| "
+          f"{big:.4g}) = {bar:.4g}")
+    require(tail["K8"][0] <= bar,
+            f"[5c] K8 vs float64 over tokens >= {F64_FROM}: "
+            f"{tail['K8'][0]} > {bar}")
+    del k8, chunked, probe, perturbed, witness, gaps
 
     S = 64
     full = make_prefill_step(f32)(params, {"tokens": toks[:, :S]})
@@ -842,7 +911,7 @@ def rwkv6_agreement(params, dev):
     x = params["embed"][toks].to(torch.float32)
     positions = torch.arange(x.shape[1], device=dev)[None, :]
     caches = f32.init_cache(2, S)["segments"][0]
-    worst = {"k8": 0.0, "decode": 0.0}
+    worst = {"k8": 0.0, "decode": 0.0, "k8_f64": 0.0, "chunked_f64": 0.0}
 
     def scaled(a, b):
         return (a - b).abs().max().item() / max(1.0, b.abs().max().item())
@@ -852,7 +921,11 @@ def rwkv6_agreement(params, dev):
             a = tfm._apply_layer(cfg, seg, p, x, positions)      # K8
             with torch.enable_grad():
                 b = tfm._apply_layer(cfg, seg, p, x, positions)  # chunked
+                with float64_recurrence(rwkv_mod):
+                    w = tfm._apply_layer(cfg, seg, p, x, positions)
             worst["k8"] = max(worst["k8"], scaled(a, b))
+            worst["k8_f64"] = max(worst["k8_f64"], scaled(a, w))
+            worst["chunked_f64"] = max(worst["chunked_f64"], scaled(b, w))
             c = tfm._layer(caches, li)
             d = torch.cat([tfm._decode_layer(cfg, seg, p, x[:, t:t + 1], c,
                                              t, False) for t in range(S)],
@@ -866,6 +939,13 @@ def rwkv6_agreement(params, dev):
     require(worst["k8"] <= 1e-4, f"[5c] layer K8 vs chunked {worst['k8']}")
     require(worst["decode"] <= 1e-4,
             f"[5c] layer decode vs forward {worst['decode']}")
+    print(f"[5c] each layer on the same input against the layer with its "
+          f"recurrence in float64: K8 {worst['k8_f64']:.4g}, wkv6_chunked "
+          f"{worst['chunked_f64']:.4g} (bar: K8 <= 1.5 x wkv6_chunked = "
+          f"{1.5 * worst['chunked_f64']:.4g})")
+    require(worst["k8_f64"] <= 1.5 * worst["chunked_f64"],
+            f"[5c] layer K8 vs float64 {worst['k8_f64']} > 1.5 x "
+            f"{worst['chunked_f64']}")
     del x, caches
 
     from repro_torch import convert
@@ -908,16 +988,22 @@ def femnist_shapes():
     return list(zip(tree_paths(p), sizes))
 
 
+def update_rows(gen, n, d):
+    """(n, d) update-like rows on ``gen``'s device: unit normal times a
+    per-client scale, the last of more than 9 rows all zero (a padded
+    client)."""
+    x = torch.randn((n, d), generator=gen, device=gen.device)
+    x *= torch.rand((n, 1), generator=gen, device=gen.device) * 0.1 + 1e-3
+    if n > 9:
+        x[-1] = 0.0
+    return x.contiguous()
+
+
 def check_kernels(dev, fedavg_agg, stc_topk, quant):
     gen = torch.Generator(device=dev).manual_seed(1234)
 
     def rand(n, d):
-        # update-like rows: per-client scale, one all-zero padded client
-        x = torch.randn((n, d), generator=gen, device=dev)
-        x *= torch.rand((n, 1), generator=gen, device=dev) * 0.1 + 1e-3
-        if n > 9:
-            x[-1] = 0.0
-        return x.contiguous()
+        return update_rows(gen, n, d)
 
     leaves = [(name, s) for name, s in femnist_shapes() if s >= 64]
     d_total = sum(s for _, s in femnist_shapes())
@@ -963,6 +1049,16 @@ def check_kernels(dev, fedavg_agg, stc_topk, quant):
         errs["qdq"] = max(errs["qdq"], (kq - pq).abs().max().item())
         print(f"stc/int8 ({n}, {d}): masks+nnz bitwise, values <= {u:.3g} "
               f"ulp; rowmax+qdq bitwise")
+    for d in (8193, 20001):
+        x = stc_topk.adversarial_rows(d).to(dev)
+        ko, kn = stc_topk.stc_compress_batched(x, 0.01)
+        po, pn = stc_topk.stc_plain(x, 0.01)
+        torch.cuda.synchronize()
+        u = check_stc(ko, po, f"stc adversarial (7, {d})")
+        require(torch.equal(kn, pn), f"stc adversarial (7, {d}): nnz differ")
+        errs["stc"] = max(errs["stc"], (ko - po).abs().max().item())
+        print(f"stc adversarial rows (7, {d}): masks+signs+nnz bitwise, "
+              f"values <= {u:.3g} ulp (nnz {kn.int().tolist()})")
 
     # timings at the main path's largest shapes
     rows = []
@@ -984,18 +1080,14 @@ def check_kernels(dev, fedavg_agg, stc_topk, quant):
 
     n, d = N_BUCKET, 6422528          # fc1/w, the dominant leaf
     x = rand(n, d)
-    _, nnz = stc_topk.stc_compress_batched(x, 0.01)
-    kept = int(nnz.sum().item())
-    t = -(-d // stc_topk.SEG)
-    # bytes: read x, write out and nnz; operations: per padded element,
-    # abs + max + 16 x (compare, add) + final compare and add
-    b, by = bound(8 * n * d + 4 * n, 36 * n * t * stc_topk.SEG + 2 * kept)
+    b, by = stc_bound(x, stc_topk)
     rows.append(dict(
         name="stc_batched", counter="stc_batched", route="cuda",
         source="src/repro_torch/kernels/csrc/stc_topk.cu",
         replaces="src/repro/kernels/stc_topk.py:118",
         shape=[n, d], max_abs_err=errs["stc"],
         ms=cuda_ms(lambda: stc_topk.stc_compress_batched(x, 0.01)),
+        device_ms=device_ms(lambda: stc_topk.stc_compress_batched(x, 0.01)),
         plain_ms=cuda_ms(lambda: stc_topk.stc_plain(x, 0.01)),
         bound_ms=b, bound_by=by, library_ms=None))
     b, by = bound(4 * n * d + 4 * n, 2 * n * d)
@@ -1027,8 +1119,31 @@ def check_kernels(dev, fedavg_agg, stc_topk, quant):
         print(f"{r['name']:12s} {r['shape']}: kernel {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, library "
               f"{'-' if r['library_ms'] is None else format(r['library_ms'], '.4f')}"
-              f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+              f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+              + (f"; device time {r['device_ms']:.4f} ms"
+                 if "device_ms" in r else ""))
     return rows
+
+
+def stc_bound(x, stc_topk, counts=True):
+    """Least time of STC on an (N, D) matrix: bytes to read x and write the
+    output (and, with ``counts``, the N kept counts: K2, not K4);
+    operations per real element abs + max + 16 x (compare, add) + the final
+    compare and add, and an add per kept element.
+    -> (ms, "bytes" | "operations")."""
+    n, d = x.shape
+    kept = int(stc_topk.stc_compress_batched(x, 0.01)[1].sum().item())
+    return bound(8 * n * d + 4 * n * counts, 36 * n * d + 2 * kept)
+
+
+def check_stc(out, plain, what):
+    """STC masks and signs bitwise, values within 1 ulp -> the ulps."""
+    require(torch.equal(out != 0, plain != 0), f"{what}: masks differ")
+    require(torch.equal(torch.sign(out), torch.sign(plain)),
+            f"{what}: signs differ")
+    u = ulps(out, plain) if out.numel() else 0.0
+    require(u <= 1.0, f"{what}: values differ by {u} ulp > 1")
+    return u
 
 
 # ---------------------------------------------------------------------------

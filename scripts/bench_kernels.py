@@ -1,7 +1,7 @@
 """Time one source tree's hand-written kernels at their main path's shape,
 and hold its WKV6 kernel (K8) against a float64 run.
 
-    python3 scripts/bench_kernels.py --kernel flash|wkv6 [--root DIR]
+    python3 scripts/bench_kernels.py --kernel flash|wkv6|stc|int8 [--root DIR]
 
 imports ``repro_torch`` from ``DIR/src`` (default: this checkout), builds
 the kernel's source into ``DIR/build/kernels``, and prints the card
@@ -20,7 +20,17 @@ the kernel's source into ``DIR/build/kernels``, and prints the card
   parameters from seed 0, 2 x 500 tokens as phase 5c), each on the same
   input, against the same layer with its recurrence run in float64; and
   in the logits end to end, with the token where each gap peaks and,
-  beside K8, the tree's plain version run in the kernel's place.
+  beside K8, the tree's plain version run in the kernel's place;
+* ``stc``: K2 (batched STC) at each of the six compressed ``femnist_cnn``
+  leaves at N = 16 (the main path's shapes; phase 4 launches each once a
+  round) and their sum a round, and K4 (dense STC) at 2^20 and 1,000,003:
+  CUDA-event ms (host dispatch included), device ms (``chip_smoke.
+  device_ms``: the profiler's kernel time) and graph ms (``graph_ms``:
+  calls replayed from a CUDA graph, the host out of the way, launch gaps
+  in), each beside its bound (``chip_smoke.stc_bound``);
+* ``int8``: K3a (row max) and K3b (quantize/dequantize) at the same six
+  leaves and their sums a round, timed as ``stc``, beside their bounds
+  (phase 3's).
 
 Distances are scaled by max(1, max |reference|), as in phase 3c.  The
 timing (``cuda_ms``) and the SDPA yardstick (``sdpa_ms``) are this
@@ -33,6 +43,7 @@ CUDA card.
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -108,21 +119,6 @@ def plain_in_kernels_place():
         ops.wkv6 = kernel
 
 
-@contextlib.contextmanager
-def float64_recurrence(rwkv_mod):
-    """The model's grad-mode recurrence (``wkv6_chunked``) run in float64
-    on float64 copies of its inputs, its outputs cast back to f32."""
-    exact = rwkv_mod.wkv6_chunked
-
-    def f64(*args):
-        return tuple(t.float() for t in exact(*(a.double() for a in args)))
-    rwkv_mod.wkv6_chunked = f64
-    try:
-        yield
-    finally:
-        rwkv_mod.wkv6_chunked = exact
-
-
 def wkv6_model_float64(smoke, rwkv_mod):
     """rwkv6-1.6b in f32, phase 5c's tokens: K8 (no_grad) and the f32
     exact form (grad mode, nothing recorded) against the float64
@@ -148,7 +144,7 @@ def wkv6_model_float64(smoke, rwkv_mod):
             plain, _ = model.forward(params, toks)
     with torch.enable_grad():
         chunked, _ = model.forward(params, toks)
-        with float64_recurrence(rwkv_mod):
+        with smoke.float64_recurrence(rwkv_mod):
             witness, _ = model.forward(params, toks)
     out = {"e2e_max_logit": witness.abs().max().item()}
     for tag, a in {"k8": k8, "plain": plain, "chunked": chunked}.items():
@@ -169,7 +165,7 @@ def wkv6_model_float64(smoke, rwkv_mod):
             a = tfm._apply_layer(cfg, seg, p, x, positions)       # K8
         with torch.enable_grad():
             c = tfm._apply_layer(cfg, seg, p, x, positions)       # f32 exact
-            with float64_recurrence(rwkv_mod):
+            with smoke.float64_recurrence(rwkv_mod):
                 w = tfm._apply_layer(cfg, seg, p, x, positions)
         for key, (u, v) in {"layer_k8_vs_f64": (a, w),
                             "layer_chunked_vs_f64": (c, w),
@@ -180,9 +176,89 @@ def wkv6_model_float64(smoke, rwkv_mod):
     return out
 
 
+def graph_ms(smoke, fn, calls=20, reps=20):
+    """Milliseconds a call of ``fn`` takes on the device with no host in
+    the way: ``calls`` calls captured in one CUDA graph, the median over
+    ``reps`` replays (CUDA events) divided by ``calls``.  Launch gaps on the
+    device count; the host's dispatch does not."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return smoke.cuda_ms(graph.replay, reps) / calls
+
+
+def times(smoke, fn, b_by):
+    """CUDA-event, device and graph ms of ``fn`` beside its bound."""
+    return {"ms": smoke.cuda_ms(fn), "device_ms": smoke.device_ms(fn),
+            "graph_ms": graph_ms(smoke, fn), "bound_ms": b_by[0],
+            "bound_by": b_by[1]}
+
+
+def bench_stc(smoke):
+    """K2 at the six compressed femnist leaves (N = 16 update-like rows,
+    ``chip_smoke.update_rows``; one launch each a round) and K4 at 2^20
+    and 1,000,003: CUDA-event, device and graph ms, each beside its
+    bound."""
+    from repro_torch.kernels import stc_topk
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    res = {"repro_torch": os.path.relpath(stc_topk.__file__), "k2": {},
+           "k4": {}}
+    for name, d in smoke.femnist_shapes():
+        if d < 64:
+            continue
+        x = smoke.update_rows(gen, smoke.N_BUCKET, d)
+        res["k2"][name] = {"shape": list(x.shape), **times(
+            smoke, functools.partial(stc_topk.stc_compress_batched, x),
+            smoke.stc_bound(x, stc_topk))}
+    for key in ("ms", "device_ms", "graph_ms", "bound_ms"):
+        res[f"k2_round_{key}"] = sum(r[key] for r in res["k2"].values())
+    for n in (2 ** 20, 1000003):
+        x = torch.randn((n,), generator=gen, device=dev) * 0.37
+        res["k4"][str(n)] = times(
+            smoke, functools.partial(stc_topk.stc_compress, x),
+            smoke.stc_bound(x.view(1, n), stc_topk, counts=False))
+    return res
+
+
+def bench_int8(smoke):
+    """K3a (row max) and K3b (quantize/dequantize) at the six compressed
+    femnist leaves (N = 16 update-like rows; one launch each a round, as
+    K2): CUDA-event, device and graph ms, each beside its bound."""
+    from repro_torch.kernels import quant
+
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    res = {"repro_torch": os.path.relpath(quant.__file__), "k3a": {},
+           "k3b": {}}
+    for name, d in smoke.femnist_shapes():
+        if d < 64:
+            continue
+        n = smoke.N_BUCKET
+        x = smoke.update_rows(gen, n, d)
+        s = quant.int8_scale(quant.rowmax_plain(x))
+        res["k3a"][name] = times(smoke, functools.partial(quant.rowmax, x),
+                                 smoke.bound(4 * n * d + 4 * n, 2 * n * d))
+        res["k3b"][name] = times(smoke, functools.partial(quant.qdq, x, s),
+                                 smoke.bound(8 * n * d + 4 * n, 5 * n * d))
+    for k in ("k3a", "k3b"):
+        for key in ("ms", "device_ms", "graph_ms", "bound_ms"):
+            res[f"{k}_round_{key}"] = sum(r[key] for r in res[k].values())
+    return res
+
+
+BENCHES = {"flash": ("flash_attn", bench_flash),
+           "wkv6": ("wkv6", bench_wkv6),
+           "stc": ("stc_topk", bench_stc),
+           "int8": ("quant", bench_int8)}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=("flash", "wkv6"), required=True)
+    ap.add_argument("--kernel", choices=sorted(BENCHES), required=True)
     ap.add_argument("--root", default=HERE)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -201,9 +277,9 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip())
-    build.build_all(["flash_attn" if args.kernel == "flash" else "wkv6"])
-    res = (bench_flash if args.kernel == "flash" else bench_wkv6)(smoke)
-    res = {"root": os.path.relpath(root), **res}
+    source, bench = BENCHES[args.kernel]
+    build.build_all([source])
+    res = {"root": os.path.relpath(root), **bench(smoke)}
     assert all(math.isfinite(x) for x in res.values()
                if isinstance(x, float))
     print(json.dumps(res))

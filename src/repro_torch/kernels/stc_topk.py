@@ -8,7 +8,11 @@ unpadded length), and the kept elements become ``sign(x) * mu`` with ``mu``
 their mean |x|; the rest become 0.  Returns the sparsified matrix and the
 per-row count of kept elements.  This is the CUDA port of the reference's
 ``stc_topk._stc_batched_kernel`` (``csrc/stc_topk.cu``: one CTA per
-(row, segment), the segment staged in shared memory).
+(row, segment), the segment held in registers; once at most ``CAND_CAP``
+elements can still lie between the bisection's bounds, one warp takes the
+remaining steps on those alone — the same thresholds in fewer passes and
+barriers; :func:`stc_kernel_order_segment` models that order for the
+tests).
 
 :func:`stc_compress_batched` launches the kernel for a CUDA tensor and uses
 :func:`stc_plain` for a CPU tensor.
@@ -28,6 +32,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -35,6 +40,7 @@ from repro_torch.kernels import build
 
 SEG = 8192            # elements per threshold segment (reference TILE_SEG)
 BISECT_ITERS = 16
+CAND_CAP = 128        # candidates the kernel's last steps take (csrc CAP)
 
 #: launches of the CUDA kernel in this process (see ``ops.launch_counts``),
 #: batched and dense
@@ -53,15 +59,11 @@ def segment_targets(keep_frac: float, d: int,
         1.0)
 
 
-def stc_plain(x: torch.Tensor, keep_frac: float = 0.01
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(N, D) -> (sparsified (N, D) f32, nnz (N,) f32), in plain PyTorch."""
-    n, d = x.shape
-    t = -(-d // SEG)
-    xp = F.pad(x.to(torch.float32), (0, t * SEG - d)).view(n, t, SEG)
-    ax = xp.abs()
-    target = segment_targets(keep_frac, d, x.device)[:, None]   # (T, 1)
-    lo = torch.zeros((n, t, 1), dtype=torch.float32, device=x.device)
+def _bisect(ax: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """16 single bisection steps on (N, T, SEG) magnitudes against (T, 1)
+    targets -> (N, T, 1) thresholds."""
+    n, t, _ = ax.shape
+    lo = torch.zeros((n, t, 1), dtype=torch.float32, device=ax.device)
     hi = ax.amax(dim=-1, keepdim=True) + 1e-12
     for _ in range(BISECT_ITERS):
         mid = 0.5 * (lo + hi)
@@ -69,7 +71,91 @@ def stc_plain(x: torch.Tensor, keep_frac: float = 0.01
         more = count > target
         lo = torch.where(more, mid, lo)
         hi = torch.where(more, hi, mid)
+    return 0.5 * (lo + hi)
+
+
+def stc_thresholds(x: torch.Tensor, keep_frac: float = 0.01
+                   ) -> torch.Tensor:
+    """(N, D) -> (N, T) thresholds of :func:`stc_plain`, one a segment."""
+    n, d = x.shape
+    t = -(-d // SEG)
+    ax = F.pad(x.to(torch.float32), (0, t * SEG - d)).view(n, t, SEG).abs()
+    return _bisect(ax, segment_targets(keep_frac, d, x.device)[:, None])[..., 0]
+
+
+def stc_kernel_order_segment(seg: torch.Tensor, keep_frac: float,
+                             cap: int = CAND_CAP
+                             ) -> Tuple[torch.Tensor, torch.Tensor, int, int]:
+    """The CUDA kernel's order of the bisection on one segment's real
+    elements (1-D f32, at most ``SEG``; no padding, as the kernel's loops
+    stop at the real length).  With count(t) = #{|x| > t}, the kernel keeps
+    count(lo) and count(hi) (count(0) is the non-zero elements), steps over
+    the whole segment while more than ``cap`` elements lie in (lo, hi],
+    then gathers those candidates and takes the
+    remaining steps on them alone, as count(mid) = count(hi) +
+    #{candidates > mid} for every mid in [lo, hi].  Returns (threshold,
+    mask, kept count, steps taken over the whole segment); the tests hold
+    the first three bit for bit against :func:`stc_plain`'s 16 steps."""
+    a = seg.to(torch.float32).abs()
+    target = segment_targets(keep_frac, a.numel())[0]
+    lo = torch.zeros((), dtype=torch.float32)
+    hi = a.max() + 1e-12
+    cnt_lo, cnt_hi, step = int((a > 0).sum()), 0, 0
+    while step < BISECT_ITERS and cnt_lo - cnt_hi > cap:
+        mid = 0.5 * (lo + hi)
+        c = int((a > mid).sum())
+        if c > target:
+            lo, cnt_lo = mid, c
+        else:
+            hi, cnt_hi = mid, c
+        step += 1
+    full_steps = step
+    cand = a[(a > lo) & (a <= hi)]
+    assert step == BISECT_ITERS or cand.numel() == cnt_lo - cnt_hi <= cap
+    for _ in range(step, BISECT_ITERS):
+        mid = 0.5 * (lo + hi)
+        if cnt_hi + int((cand > mid).sum()) > target:
+            lo = mid
+        else:
+            hi = mid
     thr = 0.5 * (lo + hi)
+    mask = a > thr
+    return thr, mask, int(mask.sum()), full_steps
+
+
+def adversarial_rows(d: int, seed: int = 0) -> torch.Tensor:
+    """Seven (7, d) f32 rows on the CPU that stress the bisection: ties at
+    the threshold (a mid lands exactly on 1.0, the magnitude of 2,000 of
+    every 8192), one non-zero element, denormals only, one magnitude
+    everywhere, all zeros (signed), a 1e30 outlier over unit noise, and
+    small integer magnitudes (ties everywhere).  With ``d = 8193`` every
+    row ends in a segment of one real element; flattened, ``d = 8192``
+    gives one case a segment."""
+    rs = np.random.RandomState(seed)
+    sign = np.where(rs.rand(7, d) < 0.5, -1.0, 1.0).astype(np.float32)
+    mag = np.zeros((7, d), np.float32)
+    mag[0] = 0.5
+    for s0 in range(0, d, SEG):
+        idx = s0 + rs.permutation(min(SEG, d - s0))
+        mag[0, idx[:2000]] = 1.0
+        mag[0, idx[2000:2050]] = 2.0
+    mag[1, rs.randint(d)] = 3.0
+    mag[2] = np.abs(rs.standard_normal(d)) * np.float32(1e-39)
+    mag[3] = 0.37
+    mag[5] = np.abs(rs.standard_normal(d))
+    mag[5, rs.randint(d)] = 1e30
+    mag[6] = rs.randint(1, 4, d)
+    return torch.from_numpy((sign * mag).astype(np.float32))
+
+
+def stc_plain(x: torch.Tensor, keep_frac: float = 0.01
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(N, D) -> (sparsified (N, D) f32, nnz (N,) f32), in plain PyTorch."""
+    n, d = x.shape
+    t = -(-d // SEG)
+    xp = F.pad(x.to(torch.float32), (0, t * SEG - d)).view(n, t, SEG)
+    ax = xp.abs()
+    thr = _bisect(ax, segment_targets(keep_frac, d, x.device)[:, None])
     mask = ax > thr
     cnt = mask.sum(dim=-1, keepdim=True)
     total = torch.where(mask, ax, 0.0).sum(dim=-1, keepdim=True,
@@ -80,17 +166,19 @@ def stc_plain(x: torch.Tensor, keep_frac: float = 0.01
     return out, cnt.sum(dim=(1, 2)).to(torch.float32)
 
 
-def _launch(x: torch.Tensor, keep_frac: float
+def _launch(x: torch.Tensor, keep_frac: float, counts: bool = True
             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel on an (N, D) CUDA tensor -> (out, int32 nnz, or
+    None without ``counts``: the kernel then skips them)."""
     n, d = x.shape
     out = torch.empty_like(x)
-    nnz = torch.empty((n,), dtype=torch.int32, device=x.device)
+    nnz = (torch.empty((n,), dtype=torch.int32, device=x.device) if counts
+           else None)
     lib = build.load("stc_topk")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    build.check(lib.stc_batched_launch(x.data_ptr(), out.data_ptr(),
-                                       nnz.data_ptr(), n, d, float(keep_frac),
-                                       stream),
-                "stc_batched")
+    build.check(lib.stc_batched_launch(
+        x.data_ptr(), out.data_ptr(), None if nnz is None else nnz.data_ptr(),
+        n, d, float(keep_frac), stream), "stc_batched")
     return out, nnz
 
 
@@ -136,6 +224,6 @@ def stc_compress(x: torch.Tensor, keep_frac: float = 0.01) -> torch.Tensor:
             f"stc_compress needs a non-empty contiguous float32 tensor, got "
             f"{tuple(x.shape)} {x.dtype} (contiguous={x.is_contiguous()})")
     global dense_launches
-    out, _ = _launch(x.view(1, -1), keep_frac)
+    out, _ = _launch(x.view(1, -1), keep_frac, counts=False)
     dense_launches += 1
     return out.view(x.shape)

@@ -45,11 +45,33 @@ def _updates(n, d, device):
     return torch.from_numpy(x).to(device)
 
 
+def _stc_matches_plain(out, plain):
+    """STC masks and signs bit for bit, values within 1 ulp."""
+    assert torch.equal(out != 0, plain != 0)
+    assert torch.equal(torch.sign(out), torch.sign(plain))
+    a, b = out.cpu().numpy(), plain.cpu().numpy()
+    ulp = np.spacing(np.maximum(np.abs(a), np.abs(b)).astype(np.float32))
+    assert (np.abs(a.astype(np.float64) - b) <= ulp).all()
+
+
 # (16, 6603710): the whole femnist_cnn update matrix (D % 4 != 0); then
-# its fc1/w leaf (D % 4 == 0, the float4 FedAvg path) and ragged widths
+# its fc1/w leaf (D % 4 == 0, the float4 FedAvg path) and ragged widths;
+# then STC's adversarial rows (``stc_topk.adversarial_rows``: ties at the
+# threshold, one non-zero, denormals, one magnitude, all zeros, an outlier,
+# small integers), whose rows end in a one-element segment (8193) or start
+# misaligned (20001), through K2 alone
 @pytest.mark.parametrize("n,d", [(16, 6603710), (16, 6422528),
-                                 (16, 51200), (7, 20001), (1, 63)])
+                                 (16, 51200), (7, 20001), (1, 63),
+                                 ("adversarial", 8193),
+                                 ("adversarial", 20001)])
 def test_cuda_kernels_match_plain_versions(cuda_device, n, d):
+    if n == "adversarial":
+        x = stc_topk.adversarial_rows(d).to(cuda_device)
+        ko, kn = stc_topk.stc_compress_batched(x, 0.01)
+        po, pn = stc_topk.stc_plain(x, 0.01)
+        assert torch.equal(kn, pn)
+        _stc_matches_plain(ko, po)
+        return
     x = _updates(n, d, cuda_device)
     w = torch.rand((n,), device=cuda_device)
     w /= w.sum()
@@ -215,9 +237,19 @@ def test_wkv6_kernel_stays_finite_under_extreme_decay(cuda_device, B, T, H,
         assert (got - want).abs().max().item() <= 3e-2 * scale
 
 
-# the bench_compression.py size, a ragged size, a small ragged size
-@pytest.mark.parametrize("n", [2 ** 20, 1000003, 10007])
+# the bench_compression.py size, a ragged size, a small ragged size; then
+# STC's adversarial rows as one segment each and a last segment of one
+# element, through K4 alone
+@pytest.mark.parametrize("n", [2 ** 20, 1000003, 10007, "adversarial"])
 def test_dense_stc_and_quant_kernels_match_plain_versions(cuda_device, n):
+    if n == "adversarial":
+        x = torch.cat([stc_topk.adversarial_rows(stc_topk.SEG).reshape(-1),
+                       torch.tensor([5.0])]).to(cuda_device)
+        out = stc_topk.stc_compress(x, 0.01)
+        plain = stc_topk.stc_dense_plain(x, 0.01)
+        assert torch.count_nonzero(out) == torch.count_nonzero(plain)
+        _stc_matches_plain(out, plain)
+        return
     gen = torch.Generator(device=cuda_device).manual_seed(n)
     x = torch.randn((n,), generator=gen, device=cuda_device) * 0.37
     out, plain = stc_topk.stc_compress(x, 0.01), stc_topk.stc_dense_plain(x)

@@ -20,6 +20,7 @@ import shutil
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from hypothesis import given, settings, strategies as hst
 
 torch = pytest.importorskip("torch")
 
@@ -192,6 +193,111 @@ def test_stc_dense_plain_matches_reference_kernel(shape):
     # the same tiles as one row of the batched kernel
     row, _ = stc_topk.stc_plain(torch.from_numpy(x.reshape(1, -1)), 0.01)
     np.testing.assert_array_equal(row.numpy().reshape(shape), out)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA STC kernel's order of the bisection (csrc/stc_topk.cu): steps over
+# the whole segment until at most CAND_CAP elements lie between the bounds,
+# then the remaining steps on those candidates alone
+# ---------------------------------------------------------------------------
+
+SEGMENT_KINDS = ("normal", "ties", "one_nonzero", "denormal", "all_equal",
+                 "all_zero", "outlier", "cauchy")
+
+
+def _segment(kind, real, seed):
+    """One segment of ``real`` f32 elements of a kind that stresses the
+    bisection ("ties": a mid lands exactly on 1.0, the magnitude of a
+    quarter of the elements)."""
+    rs = np.random.RandomState(seed)
+    sign = np.where(rs.rand(real) < 0.5, -1.0, 1.0)
+    mag = np.zeros(real)
+    if kind == "normal":
+        mag = np.abs(rs.standard_normal(real)) * rs.uniform(1e-3, 2.0)
+    elif kind == "ties":
+        mag = rs.choice([0.5, 1.0, 2.0], real, p=[0.74, 0.25, 0.01])
+    elif kind == "one_nonzero":
+        mag[rs.randint(real)] = 3.0
+    elif kind == "denormal":
+        mag = np.abs(rs.standard_normal(real)) * 1e-39
+    elif kind == "all_equal":
+        mag[:] = 0.37
+    elif kind == "outlier":
+        mag = np.abs(rs.standard_normal(real))
+        mag[rs.randint(real)] = 1e30
+    elif kind == "cauchy":
+        mag = np.abs(rs.standard_cauchy(real))
+    return (sign * mag).astype(np.float32)
+
+
+@given(kind=hst.sampled_from(SEGMENT_KINDS),
+       real=hst.one_of(hst.just(1), hst.integers(1, 300),
+                       hst.integers(1, stc_topk.SEG)),
+       seed=hst.integers(0, 2 ** 31 - 1),
+       keep=hst.sampled_from([0.01, 0.05, 0.3]),
+       cap=hst.sampled_from([stc_topk.CAND_CAP, 1, 1024]))
+@settings(max_examples=80, deadline=None, derandomize=True)
+def test_stc_kernel_order_matches_sixteen_single_steps(kind, real, seed, keep,
+                                                      cap):
+    """The kernel's order on a segment's real elements alone gives
+    :func:`stc_plain`'s 16 steps on the padded segment, bit for bit:
+    thresholds, masks and counts."""
+    seg = torch.from_numpy(_segment(kind, real, seed))
+    thr, mask, kept, _ = stc_topk.stc_kernel_order_segment(seg, keep, cap)
+    want = stc_topk.stc_thresholds(seg[None], keep)[0, 0]
+    assert thr.view(torch.int32) == want.view(torch.int32)
+    out, nnz = stc_topk.stc_plain(seg[None], keep)
+    assert torch.equal(mask, out[0] != 0)
+    assert kept == int(nnz[0]) == int(mask.sum())
+
+
+@pytest.mark.parametrize("real", [stc_topk.SEG, 800, 64])
+def test_stc_kernel_order_leaves_update_like_segments_after_few_steps(real):
+    """On unit-normal segments (update-like) the whole-segment steps stop
+    after at most 3 of the 16 (the kernel's note), and an all-zero
+    (padded-client) segment takes none."""
+    rs = np.random.RandomState(real)
+    for _ in range(5):
+        seg = torch.from_numpy(rs.standard_normal(real).astype(np.float32))
+        assert stc_topk.stc_kernel_order_segment(seg, 0.01)[3] <= 3
+    zero = torch.zeros(real)
+    assert stc_topk.stc_kernel_order_segment(zero, 0.01)[3] == 0
+
+
+@pytest.mark.parametrize("d", [8193, 20001])
+def test_stc_plain_matches_reference_on_adversarial_rows(d):
+    """The card's adversarial rows (ties at the threshold, one non-zero,
+    denormals, one magnitude, all zeros, an outlier, small integers; d =
+    8193 ends every row in a segment of one element, d = 20001 misaligns
+    every row after the first) through the reference kernel and
+    :func:`stc_plain`: masks, signs and counts bit for bit, and the port's
+    values within 1 ulp of the exact mean of the kept magnitudes (the
+    reference's f32 sum of 8192 equal magnitudes lands 3 ulp from it)."""
+    x = stc_topk.adversarial_rows(d)
+    ro, rn = ref_ops.stc_compress_batched(jnp.asarray(x.numpy()), 0.01,
+                                          interpret=True)
+    po, pn = stc_topk.stc_plain(x, 0.01)
+    ro, po = np.asarray(ro), po.numpy()
+    np.testing.assert_array_equal(ro != 0, po != 0)
+    np.testing.assert_array_equal(np.sign(ro), np.sign(po))
+    np.testing.assert_array_equal(np.asarray(rn), pn.numpy())
+    assert _mean_ulps_from_exact(x.numpy(), po) <= 1.0
+    assert pn[4] == 0 and pn[1] == 1          # all zeros; one non-zero
+
+
+def test_stc_dense_plain_matches_reference_on_adversarial_segments():
+    """One adversarial case a segment, then a last segment of one element,
+    through the reference's dense kernel and the dense plain version (bars
+    as for the batched rows)."""
+    x = torch.cat([stc_topk.adversarial_rows(stc_topk.SEG).reshape(-1),
+                   torch.tensor([5.0])]).numpy()
+    ref = np.asarray(ref_ops.stc_compress(jnp.asarray(x), 0.01,
+                                          interpret=True))
+    out = stc_topk.stc_dense_plain(torch.from_numpy(x), 0.01).numpy()
+    np.testing.assert_array_equal(out != 0, ref != 0)
+    np.testing.assert_array_equal(np.sign(out), np.sign(ref))
+    assert _mean_ulps_from_exact(x[None], out[None]) <= 1.0
+    assert out[-1] == 5.0
 
 
 def _tile_scales(x):
