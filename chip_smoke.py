@@ -45,9 +45,14 @@ Phases, in order; any failed check raises, so the script exits non-zero:
    (K5) against theirs at the ``bench_compression`` size 2^20 and a ragged
    1,000,003, and K4 on the adversarial rows, one a segment (STC masks,
    signs and counts bitwise, values within 1 ulp; q, scales and
-   dequantized values bitwise); time each as in phase 3, and
+   dequantized values bitwise); K5 also on ``check_k5_edges``'s cases
+   (lengths 1 to 1,000,003, f32 / bf16 / f16, data 16-byte aligned or one
+   element past, zero / subnormal / tie / NaN / inf tiles); print K5's
+   resources (registers, spills, static shared memory, CTAs per SM) and
+   its CTAs at 2^20 against the SMs; time each as in phase 3, and
    K4/K5 and ``torch.mul(q, s)`` also by device time (``torch.profiler``,
-   20 calls), the host's launch path left out;
+   20 calls), the host's launch path left out, and K5 and ``torch.mul``
+   by CUDA-graph replay (``graph_ms``);
 4. drive the main path through the public entry points: ``init`` + ``run``
    on ``femnist_cnn`` / ``femnist`` at full width, 3 rounds of 10 clients,
    ``execution="batched"``, ``aggregation_kernel=True``, once per
@@ -490,16 +495,100 @@ def device_ms(fn, n=REPS):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-             for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
+    for _ in range(3):      # now and then a session records no kernel at all
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+                 for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            break
     require(us > 0, "device_ms: the profiler saw no device time")
     return us / 1e3 / n
+
+
+def graph_ms(fn, calls=20, reps=REPS):
+    """Milliseconds a call of ``fn`` takes on the device with no host in
+    the way: ``calls`` calls captured in one CUDA graph, the median over
+    ``reps`` replays (CUDA events) divided by ``calls``.  Launch gaps on the
+    device count; the host's dispatch does not."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_ms(graph.replay, reps) / calls
+
+
+def same_bits(a, b):
+    """Bit for bit, except that any NaN equals any NaN."""
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b)) and torch.equal(
+        a[~nan].view(torch.int32), b[~nan].view(torch.int32)))
+
+
+def check_dense_quant(quant, x, what):
+    """K5a and K5b on ``x`` against their plain versions: scales and the
+    dequantized values bit for bit (NaN as NaN), q bit for bit wherever the
+    plain round trip gives a number and the padding q = 0; K5b also from a
+    q one byte past a 16-byte boundary.  -> whether q was also bit for bit
+    where the round trip gives NaN (tiles with NaN or inf)."""
+    n = x.numel()
+    q, s = quant.quantize(x)
+    pq, ps = quant.quantize_plain(x)
+    require(same_bits(s, ps), f"int8 quantize {what}: scales differ")
+    plain = quant.dequantize_plain(pq, ps, x.shape)
+    num = torch.ones(q.numel(), dtype=torch.bool, device=x.device)
+    num[:n] = ~torch.isnan(plain.reshape(-1))
+    require(torch.equal(q.view(-1)[num], pq.view(-1)[num]),
+            f"int8 quantize {what}: q not bitwise")
+    require(not q.view(-1)[n:].any(), f"int8 quantize {what}: padding q")
+    want = quant.dequantize_plain(q, s, x.shape)
+    require(same_bits(quant.dequantize(q, s, x.shape), want),
+            f"int8 dequantize {what}: not bitwise")
+    buf = torch.zeros(q.numel() + 16, dtype=torch.int8, device=x.device)
+    qv = buf[1:1 + q.numel()].view(q.shape)
+    qv.copy_(q)
+    require(qv.data_ptr() % 16, "k5 case: q view alignment")
+    require(same_bits(quant.dequantize(qv, s, x.shape), want),
+            f"int8 dequantize {what}, q misaligned: not bitwise")
+    return bool(torch.equal(q, pq))
+
+
+def check_k5_edges(dev, quant):
+    """Phase 3c's K5 cases: lengths around one vector and one tile, a
+    ragged run of tiles, and the full sizes 10,007, 2^20 and 1,000,003 with
+    ``quant.edge_tiles`` (zeros, subnormals, half-integer quotients, NaN,
+    inf) as their first six tiles where they fit; each in f32, bf16 and
+    f16, at an allocation's start and one element past it."""
+    edges = quant.edge_tiles().to(dev)
+    cases, nan_q = 0, True
+    for n in (1, 15, 16, 17, 8191, 8192, 8193, 3 * 8192 + 5, 10007,
+              2 ** 20, 1000003):
+        base = torch.randn((n,), generator=torch.Generator(device=dev)
+                           .manual_seed(n), device=dev)
+        if n >= edges.numel():
+            base[:edges.numel()] = edges
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            for offset in (0, 1):
+                buf = torch.zeros(n + offset, dtype=dtype, device=dev)
+                buf[offset:].copy_(base)
+                x = buf[offset:]
+                require(bool(x.data_ptr() % 16) == bool(offset),
+                        "k5 case: view alignment")
+                nan_q &= check_dense_quant(
+                    quant, x, f"({n}, {dtype}, offset {offset})")
+                cases += 1
+    torch.cuda.synchronize()
+    print(f"dense int8: {cases} cases (lengths 1 .. 1,000,003 x f32/bf16/f16 "
+          f"x aligned / one element past; zero, subnormal, tie, NaN, inf "
+          f"tiles in the full sizes): scales, dequantized values and q "
+          f"bitwise (NaN as NaN; q also on the NaN/inf tiles: {nan_q}); K5b "
+          f"also from a misaligned q")
 
 
 def check_new_kernels(dev, rwkv6_scan, stc_topk, quant, build):
@@ -594,6 +683,7 @@ def check_new_kernels(dev, rwkv6_scan, stc_topk, quant, build):
         print(f"dense ({n}): stc masks+signs+nnz bitwise, values <= {u:.3g} "
               f"ulp (nnz {int(torch.count_nonzero(o))}); quantize q+scales "
               f"and dequantize bitwise")
+    check_k5_edges(dev, quant)
     x = torch.cat([stc_topk.adversarial_rows(stc_topk.SEG).reshape(-1),
                    torch.tensor([5.0])]).to(dev)
     o, p = stc_topk.stc_compress(x, 0.01), stc_topk.stc_dense_plain(x)
@@ -643,6 +733,15 @@ def check_new_kernels(dev, rwkv6_scan, stc_topk, quant, build):
         bound_ms=b, bound_by=by, library_ms=None))
     q, sc = quant.quantize(x)
     tiles = sc.shape[0]
+    k5_res = {"int8_quantize": quant.kernel_info("quantize"),
+              "int8_dequantize": quant.kernel_info("dequantize")}
+    for name, r in k5_res.items():
+        print(f"{name}: {r['registers']} registers, {r['spill_bytes']} bytes "
+              f"of local memory (spills), {r['smem_bytes']} bytes of static "
+              f"shared memory, {r['ctas_per_sm']} CTAs per SM")
+    print(f"{tiles} tiles at 2^20 = {tiles} K5a CTAs and "
+          f"{tiles * quant.TILE // 16 // 256} K5b CTAs on "
+          f"{torch.cuda.get_device_properties(dev).multi_processor_count} SMs")
     b, by = bound(4 * n + q.numel() + 4 * tiles, 6 * n)
     rows.append(dict(
         name="int8_quantize", counter="int8_quantize", route="cuda",
@@ -651,8 +750,10 @@ def check_new_kernels(dev, rwkv6_scan, stc_topk, quant, build):
         shape=[n], max_abs_err=errs["int8_quantize"],
         ms=cuda_ms(lambda: quant.quantize(x)),
         device_ms=device_ms(lambda: quant.quantize(x)),
+        graph_ms=graph_ms(lambda: quant.quantize(x)),
         plain_ms=cuda_ms(lambda: quant.quantize_plain(x)),
-        bound_ms=b, bound_by=by, library_ms=None))
+        bound_ms=b, bound_by=by, library_ms=None,
+        **k5_res["int8_quantize"]))
     b, by = bound(n + 4 * tiles + 4 * n, 2 * n)
     q2 = q.view(tiles, quant.TILE)
     rows.append(dict(
@@ -662,11 +763,14 @@ def check_new_kernels(dev, rwkv6_scan, stc_topk, quant, build):
         shape=[n], max_abs_err=errs["int8_dequantize"],
         ms=cuda_ms(lambda: quant.dequantize(q, sc, x.shape)),
         device_ms=device_ms(lambda: quant.dequantize(q, sc, x.shape)),
+        graph_ms=graph_ms(lambda: quant.dequantize(q, sc, x.shape)),
         plain_ms=cuda_ms(lambda: quant.dequantize_plain(q, sc, x.shape)),
         bound_ms=b, bound_by=by,
         # q * s broadcast over the tiles (int8 * f32 promotes to f32)
         library_ms=cuda_ms(lambda: torch.mul(q2, sc)),
-        library_device_ms=device_ms(lambda: torch.mul(q2, sc))))
+        library_device_ms=device_ms(lambda: torch.mul(q2, sc)),
+        library_graph_ms=graph_ms(lambda: torch.mul(q2, sc)),
+        **k5_res["int8_dequantize"]))
     for r in rows:
         print(f"{r['name']:16s} {r['shape']}: kernel {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, library "
@@ -676,6 +780,11 @@ def check_new_kernels(dev, rwkv6_scan, stc_topk, quant, build):
             lib = r.get("library_device_ms")
             print(f"{'':16s} device time (torch.profiler, {REPS} calls): "
                   f"kernel {r['device_ms']:.4f} ms, library "
+                  f"{'-' if lib is None else format(lib, '.4f')} ms")
+        if "graph_ms" in r:
+            lib = r.get("library_graph_ms")
+            print(f"{'':16s} CUDA-graph replay (20 calls a graph): kernel "
+                  f"{r['graph_ms']:.4f} ms, library "
                   f"{'-' if lib is None else format(lib, '.4f')} ms")
     return rows
 

@@ -25,17 +25,24 @@ the kernel's source into ``DIR/build/kernels``, and prints the card
   leaves at N = 16 (the main path's shapes; phase 4 launches each once a
   round) and their sum a round, and K4 (dense STC) at 2^20 and 1,000,003:
   CUDA-event ms (host dispatch included), device ms (``chip_smoke.
-  device_ms``: the profiler's kernel time) and graph ms (``graph_ms``:
-  calls replayed from a CUDA graph, the host out of the way, launch gaps
-  in), each beside its bound (``chip_smoke.stc_bound``);
+  device_ms``: the profiler's kernel time) and graph ms (``chip_smoke.
+  graph_ms``: calls replayed from a CUDA graph, the host out of the way,
+  launch gaps in), each beside its bound (``chip_smoke.stc_bound``);
 * ``int8``: K3a (row max) and K3b (quantize/dequantize) at the same six
   leaves and their sums a round, timed as ``stc``, beside their bounds
-  (phase 3's).
+  (phase 3's); K5a (dense quantize) and K5b (dense dequantize) at 2^20,
+  1,000,003 and 16 (one tile: the latency of a launch's dependent chain),
+  timed the same way beside their bounds (phase 3c's) and
+  ``torch.mul(q, s)``; the host microseconds a K5 wrapper call takes
+  (``time.perf_counter_ns`` over 1,000 calls); and a digest of K5's
+  outputs on ``quant.edge_tiles``.
 
 Distances are scaled by max(1, max |reference|), as in phase 3c.  The
-timing (``cuda_ms``) and the SDPA yardstick (``sdpa_ms``) are this
-checkout's ``chip_smoke.py``'s, whatever tree ``DIR`` holds, so the
-numbers compare with its kernel table.  To compare two trees on one card,
+timing (``cuda_ms``, ``device_ms``, ``graph_ms``) and the SDPA yardstick
+(``sdpa_ms``) are this checkout's ``chip_smoke.py``'s, and K5's edge
+tiles this checkout's ``quant.edge_tiles``, whatever tree ``DIR`` holds,
+so the numbers compare with its kernel table and two trees' digests with
+each other.  To compare two trees on one card,
 unpack one (``git archive``) into a directory that ``.gitignore`` lists and
 run, in one call on the card: parent, change, change, parent.  Needs a
 CUDA card.
@@ -44,11 +51,13 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import hashlib
 import json
 import math
 import os
 import subprocess
 import sys
+import time
 
 import torch
 
@@ -176,24 +185,10 @@ def wkv6_model_float64(smoke, rwkv_mod):
     return out
 
 
-def graph_ms(smoke, fn, calls=20, reps=20):
-    """Milliseconds a call of ``fn`` takes on the device with no host in
-    the way: ``calls`` calls captured in one CUDA graph, the median over
-    ``reps`` replays (CUDA events) divided by ``calls``.  Launch gaps on the
-    device count; the host's dispatch does not."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    return smoke.cuda_ms(graph.replay, reps) / calls
-
-
 def times(smoke, fn, b_by):
     """CUDA-event, device and graph ms of ``fn`` beside its bound."""
     return {"ms": smoke.cuda_ms(fn), "device_ms": smoke.device_ms(fn),
-            "graph_ms": graph_ms(smoke, fn), "bound_ms": b_by[0],
+            "graph_ms": smoke.graph_ms(fn), "bound_ms": b_by[0],
             "bound_by": b_by[1]}
 
 
@@ -233,7 +228,7 @@ def bench_int8(smoke):
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
     res = {"repro_torch": os.path.relpath(quant.__file__), "k3a": {},
-           "k3b": {}}
+           "k3b": {}, **k5_host_us(quant)}
     for name, d in smoke.femnist_shapes():
         if d < 64:
             continue
@@ -247,7 +242,78 @@ def bench_int8(smoke):
     for k in ("k3a", "k3b"):
         for key in ("ms", "device_ms", "graph_ms", "bound_ms"):
             res[f"{k}_round_{key}"] = sum(r[key] for r in res[k].values())
+    res.update(bench_k5(smoke, quant))
     return res
+
+
+def host_us(fn, calls=1000, reps=5):
+    """Host microseconds a call of ``fn`` takes (``time.perf_counter_ns``
+    over ``calls`` calls, the median of ``reps``): what the caller waits
+    before the launch is queued, the device's time left out."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter_ns()
+        for _ in range(calls):
+            fn()
+        out.append((time.perf_counter_ns() - t0) / calls / 1e3)
+        torch.cuda.synchronize()
+    return sorted(out)[reps // 2]
+
+
+def k5_host_us(quant):
+    """Host us a K5 wrapper call takes at 2^20 f32, measured first in the
+    process, before any profiler session or graph capture, so that every
+    tree measures it at the same point."""
+    x = torch.randn((2 ** 20,), device="cuda")
+    q, s = quant.quantize(x)
+    return {"host_us_quantize": host_us(functools.partial(quant.quantize, x)),
+            "host_us_dequantize": host_us(
+                functools.partial(quant.dequantize, q, s, x.shape))}
+
+
+def bench_k5(smoke, quant):
+    """K5a (quantize) and K5b (dequantize) at 2^20, 1,000,003 and 16 f32:
+    CUDA-event, device and graph ms beside their bounds (phase 3c's) and
+    ``torch.mul(q, s)``'s; a digest of q, scales and dequantized values of
+    this checkout's ``quant.edge_tiles`` (equal digests: equal bits, NaN
+    and inf tiles included)."""
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    res = {"k5a": {}, "k5b": {}, "k5_mul": {}}
+    for n in (2 ** 20, 1000003, 16):            # 16: one tile's latency
+        x = torch.randn((n,), generator=gen, device="cuda") * 0.37
+        q, s = quant.quantize(x)
+        tiles = s.shape[0]
+        q2 = q.view(tiles, quant.TILE)
+        b5b = smoke.bound(n + 4 * tiles + 4 * n, 2 * n)
+        res["k5a"][str(n)] = times(
+            smoke, functools.partial(quant.quantize, x),
+            smoke.bound(4 * n + q.numel() + 4 * tiles, 6 * n))
+        res["k5b"][str(n)] = times(
+            smoke, functools.partial(quant.dequantize, q, s, x.shape), b5b)
+        res["k5_mul"][str(n)] = times(
+            smoke, functools.partial(torch.mul, q2, s), b5b)
+    x = here_edge_tiles().cuda()
+    q, s = quant.quantize(x)
+    h = hashlib.sha256()
+    for t in (q, s, quant.dequantize(q, s, x.shape)):
+        h.update(t.cpu().numpy().tobytes())
+    res["k5_edge_digest"] = h.hexdigest()[:16]
+    return res
+
+
+def here_edge_tiles():
+    """This checkout's ``quant.edge_tiles()``, whatever tree ``--root``
+    holds, so that two trees' digests are of the same input."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "_k5_edges", os.path.join(HERE, "src", "repro_torch", "kernels",
+                                  "quant.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.edge_tiles()
 
 
 BENCHES = {"flash": ("flash_attn", bench_flash),

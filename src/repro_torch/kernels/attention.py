@@ -152,7 +152,7 @@ def _fwd_cuda(q, k, v, causal):
     o = torch.empty_like(q)
     lse = torch.empty((bh, s), dtype=torch.float32, device=q.device)
     lib = build.load("flash_attn")
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = build.stream(q.device)
     build.check(lib.flash_fwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), bh, s, d, 1.0 / math.sqrt(d), int(causal), stream),
@@ -172,7 +172,7 @@ def flash_dq(q, k, v, do, lse, delta, causal: bool) -> torch.Tensor:
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, s, d,
         1.0 / math.sqrt(d), int(causal),
-        torch.cuda.current_stream(q.device).cuda_stream), "flash_dq")
+        build.stream(q.device)), "flash_dq")
     dq_launches += 1
     return dq
 
@@ -189,7 +189,7 @@ def flash_dkv(q, k, v, do, lse, delta, causal: bool
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh,
         s, d, 1.0 / math.sqrt(d), int(causal),
-        torch.cuda.current_stream(q.device).cuda_stream), "flash_dkv")
+        build.stream(q.device)), "flash_dkv")
     dkv_launches += 1
     return dk, dv
 

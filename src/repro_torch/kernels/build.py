@@ -26,6 +26,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("fedavg_agg", "stc_topk", "quant", "flash_attn", "wkv6")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -43,8 +45,9 @@ SIGNATURES = {
                                         ctypes.c_float, _P)},
     "quant": {"int8_rowmax_launch": (_P, _P, _I64, _I64, _P),
               "int8_qdq_launch": (_P, _P, _P, _I64, _I64, _P),
-              "int8_quantize_launch": (_P, _P, _P, _I64, _P),
-              "int8_dequantize_launch": (_P, _P, _P, _I64, _P)},
+              "int8_quantize_launch": (_P, _P, _P, _I64, _C, _C, _P),
+              "int8_dequantize_launch": (_P, _P, _P, _I64, _C, _P),
+              "int8_kernel_info": (_C, _P)},
     "flash_attn": {
         "flash_fwd_launch": (_P,) * 5 + (_I64,) * 3 + (_F, _C, _P),
         "flash_dq_launch": (_P,) * 7 + (_I64,) * 3 + (_F, _C, _P),
@@ -131,6 +134,15 @@ def load(name: str) -> ctypes.CDLL:
             getattr(lib, fn).restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
+
+
+def stream(device: torch.device) -> int:
+    """The current CUDA stream of ``device`` (a CUDA tensor's device, so its
+    index is set) as a ``cudaStream_t``, for a launch.  The raw getter
+    skips the ``Stream`` object that ``torch.cuda.current_stream(device)``
+    builds on every call, the costliest step of a launch on the host
+    (PERF.md gives both costs)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(err: int, what: str) -> None:

@@ -61,7 +61,7 @@ def fedavg_aggregate(updates: torch.Tensor,
     n, d = updates.shape
     out = torch.empty((d,), dtype=torch.float32, device=updates.device)
     lib = build.load("fedavg_agg")
-    stream = torch.cuda.current_stream(updates.device).cuda_stream
+    stream = build.stream(updates.device)
     build.check(lib.fedavg_agg_launch(updates.data_ptr(), weights.data_ptr(),
                                       out.data_ptr(), n, d, stream),
                 "fedavg_agg")

@@ -25,13 +25,19 @@ tiles (the reference's (8, 1024) blocks) and returns int8 ``q`` of shape
 reciprocal multiply) and ``q = clip(rint(x / s), -127, 127)``;
 :func:`dequantize` returns ``q * s`` in the original shape.  Both plain
 versions divide tensor by tensor: PyTorch's CUDA division by a host scalar
-multiplies by the reciprocal instead.
+multiplies by the reciprocal instead.  :func:`quantize` takes f32, bf16 or
+f16 and widens to f32 first, as the reference's kernel does.  Both kernels
+take any pointer a contiguous tensor may have: 16-byte accesses from each
+tile's first 16-byte-aligned element on, scalar ones for the head before
+it and the tail after the last whole vector (:func:`tile_plan`; the wrapper
+passes :func:`vector_head` of the input's address).
 
 A CPU tensor goes to the plain version, a CUDA tensor to the kernel; any
 other device raises.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Tuple
 
@@ -85,7 +91,7 @@ def rowmax(x: torch.Tensor) -> torch.Tensor:
     n, d = x.shape
     m = torch.empty((n,), dtype=torch.float32, device=x.device)
     lib = build.load("quant")
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = build.stream(x.device)
     build.check(lib.int8_rowmax_launch(x.data_ptr(), m.data_ptr(), n, d,
                                        stream), "int8_rowmax")
     rowmax_launches += 1
@@ -107,7 +113,7 @@ def qdq(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     n, d = x.shape
     out = torch.empty_like(x)
     lib = build.load("quant")
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = build.stream(x.device)
     build.check(lib.int8_qdq_launch(x.data_ptr(), scale.data_ptr(),
                                     out.data_ptr(), n, d, stream),
                 "int8_qdq")
@@ -149,28 +155,67 @@ def dequantize_plain(q: torch.Tensor, s: torch.Tensor, shape,
     return out.reshape(-1)[:n].reshape(shape).to(dtype)
 
 
+def edge_tiles(seed: int = 0) -> torch.Tensor:
+    """Six dense-quantization tiles, flattened, f32 on the CPU, that stress
+    K5: unit noise; signed zeros; subnormals only; exact half-integer
+    quotients (max |x| = 127, so s = 1 and each x / s = k + 1/2 rounds half
+    to even); noise with a NaN; noise with +inf and -inf."""
+    rs = np.random.RandomState(seed)
+    t = rs.standard_normal((6, TILE))
+    sign = np.where(rs.rand(TILE) < 0.5, -1.0, 1.0)
+    t[1] = sign * 0.0
+    t[2] = sign * rs.randint(1, 2 ** 23, TILE) * 2.0 ** -149
+    t[3] = rs.randint(-127, 127, TILE) + 0.5
+    t[3, rs.randint(TILE)] = 127.0
+    t[4, rs.randint(TILE)] = np.nan
+    t[5, rs.permutation(TILE)[:2]] = (np.inf, -np.inf)
+    return torch.from_numpy(t.astype(np.float32).reshape(-1))
+
+
+_QUANT_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def vector_head(ptr: int, itemsize: int) -> int:
+    """Elements from a tile's start to its first 16-byte-aligned element,
+    for data at byte address ``ptr`` (the same in every tile: a tile's bytes
+    are a multiple of 16)."""
+    return (-ptr % 16) // itemsize
+
+
+def tile_plan(real: int, head: int, vec: int) -> Tuple[int, int, int]:
+    """The K5 kernels' accesses in a tile of ``real`` elements
+    (``csrc/quant.cu::TilePlan``): 16-byte vectors of ``vec`` elements cover
+    ``[lead, tail)``, scalar accesses ``[0, lead)`` and ``[tail, real)``.
+    -> ``(lead, number of vectors, tail)``."""
+    lead = min(head, real)
+    nvec = (real - lead) // vec
+    return lead, nvec, lead + vec * nvec
+
+
 def quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Any-shape f32 tensor -> (q int8 (tiles * 8, 1024), scales f32
-    (tiles, 1)); the input to :func:`dequantize`."""
-    if x.device.type == "cpu":
+    """Any-shape f32, bf16 or f16 tensor -> (q int8 (tiles * 8, 1024),
+    scales f32 (tiles, 1)); the input to :func:`dequantize`."""
+    dev = x.device
+    if dev.type == "cpu":
         return quantize_plain(x)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"int8 quantize: no kernel for device {x.device}")
-    if x.dtype != torch.float32 or not x.is_contiguous() or not x.numel():
+    if dev.type != "cuda":
+        raise RuntimeError(f"int8 quantize: no kernel for device {dev}")
+    code = _QUANT_DTYPES.get(x.dtype)
+    if code is None or not x.is_contiguous() or not x.numel():
         raise ValueError(
-            f"int8 quantize needs a non-empty contiguous float32 tensor, got "
-            f"{tuple(x.shape)} {x.dtype} (contiguous={x.is_contiguous()})")
+            f"int8 quantize needs a non-empty contiguous float32, bfloat16 "
+            f"or float16 tensor, got {tuple(x.shape)} {x.dtype} "
+            f"(contiguous={x.is_contiguous()})")
     global quantize_launches
     n = x.numel()
     tiles = -(-n // TILE)
-    q = torch.empty((tiles * TILE_R, TILE_C), dtype=torch.int8,
-                    device=x.device)
-    s = torch.empty((tiles, 1), dtype=torch.float32, device=x.device)
-    lib = build.load("quant")
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    build.check(lib.int8_quantize_launch(x.data_ptr(), q.data_ptr(),
-                                         s.data_ptr(), n, stream),
-                "int8_quantize")
+    q = torch.empty((tiles * TILE_R, TILE_C), dtype=torch.int8, device=dev)
+    s = torch.empty((tiles, 1), dtype=torch.float32, device=dev)
+    ptr = x.data_ptr()
+    build.check(build.load("quant").int8_quantize_launch(
+        ptr, q.data_ptr(), s.data_ptr(), n, code,
+        vector_head(ptr, x.element_size()), build.stream(dev)),
+        "int8_quantize")
     quantize_launches += 1
     return q, s
 
@@ -178,16 +223,17 @@ def quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def dequantize(q: torch.Tensor, s: torch.Tensor, shape,
                dtype=torch.float32) -> torch.Tensor:
     """(q, scales) from :func:`quantize` -> ``q * s`` of ``shape``."""
-    if q.device.type == "cpu":
+    dev = q.device
+    if dev.type == "cpu":
         return dequantize_plain(q, s, shape, dtype)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"int8 dequantize: no kernel for device {q.device}")
+    if dev.type != "cuda":
+        raise RuntimeError(f"int8 dequantize: no kernel for device {dev}")
     n = math.prod(shape)
     tiles = s.shape[0]
     if q.dtype != torch.int8 or q.shape != (tiles * TILE_R, TILE_C) \
             or s.shape != (tiles, 1) or s.dtype != torch.float32 \
-            or s.device != q.device or not (q.is_contiguous()
-                                            and s.is_contiguous()) \
+            or s.device != dev or not (q.is_contiguous()
+                                       and s.is_contiguous()) \
             or not 0 < n <= tiles * TILE:
         raise ValueError(
             f"int8 dequantize needs contiguous int8 q ({tiles * TILE_R}, "
@@ -195,11 +241,20 @@ def dequantize(q: torch.Tensor, s: torch.Tensor, shape,
             f"{n} elements, got q {tuple(q.shape)} {q.dtype}, s "
             f"{tuple(s.shape)} {s.dtype} on {s.device}")
     global dequantize_launches
-    out = torch.empty(tuple(shape), dtype=torch.float32, device=q.device)
-    lib = build.load("quant")
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    build.check(lib.int8_dequantize_launch(q.data_ptr(), s.data_ptr(),
-                                           out.data_ptr(), n, stream),
-                "int8_dequantize")
+    out = torch.empty(tuple(shape), dtype=torch.float32, device=dev)
+    ptr = q.data_ptr()
+    build.check(build.load("quant").int8_dequantize_launch(
+        ptr, s.data_ptr(), out.data_ptr(), n, vector_head(ptr, 1),
+        build.stream(dev)), "int8_dequantize")
     dequantize_launches += 1
-    return out.to(dtype)
+    return out if dtype == torch.float32 else out.to(dtype)
+
+
+def kernel_info(kernel: str) -> dict:
+    """{"registers", "spill_bytes", "smem_bytes" (static), "ctas_per_sm"}
+    of ``"quantize"`` (f32) or ``"dequantize"`` (needs a card)."""
+    vals = (ctypes.c_int * 4)()
+    build.check(build.load("quant").int8_kernel_info(
+        ("quantize", "dequantize").index(kernel), vals), "int8_kernel_info")
+    return dict(zip(("registers", "spill_bytes", "smem_bytes",
+                     "ctas_per_sm"), vals))

@@ -175,7 +175,7 @@ def _launch(x: torch.Tensor, keep_frac: float, counts: bool = True
     nnz = (torch.empty((n,), dtype=torch.int32, device=x.device) if counts
            else None)
     lib = build.load("stc_topk")
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = build.stream(x.device)
     build.check(lib.stc_batched_launch(
         x.data_ptr(), out.data_ptr(), None if nnz is None else nnz.data_ptr(),
         n, d, float(keep_frac), stream), "stc_batched")

@@ -3,6 +3,9 @@ PyTorch version at the main path's shapes, and the fused round on the card
 against the same round on the CPU.  Run on a CUDA machine with
 ``pytest -m cuda tests/test_torch_cuda.py``; every test skips without a
 card.  Imports no jax, so it runs where only PyTorch is installed."""
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -111,6 +114,8 @@ def test_wrappers_count_only_kernel_launches(cuda_device):
                                    "wkv6": 1}
     with pytest.raises(ValueError, match="contiguous"):
         ops.stc_compress_batched(x.t(), 0.01)
+    with pytest.raises(ValueError, match="bfloat16 or float16"):
+        ops.quantize(x.double())
 
 
 @pytest.mark.parametrize("compression", ["none", "stc", "int8"])
@@ -265,6 +270,39 @@ def test_dense_stc_and_quant_kernels_match_plain_versions(cuda_device, n):
     back = quant.dequantize(q, s, x.shape)
     assert torch.equal(back.view(torch.int32),
                        quant.dequantize_plain(q, s, x.shape).view(torch.int32))
+
+
+def _chip_smoke():
+    """The repo's ``chip_smoke.py`` as a module: its K5 check
+    (``check_dense_quant``) is the one these tests and phase 3c share."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    return chip_smoke
+
+
+# the lengths around one vector and one tile, a ragged run of tiles, and
+# ``quant.edge_tiles`` (zeros, subnormals, half-integer quotients, NaN, inf);
+# each in f32, bf16 and f16, at the allocation's start and one element past
+# it (a contiguous view whose data is not 16-byte aligned)
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 8191, 8192, 8193,
+                               3 * 8192 + 5, "edge"])
+def test_dense_quant_kernels_hold_lengths_views_and_edge_tiles(
+        cuda_device, n, dtype, offset):
+    if n == "edge":
+        x = quant.edge_tiles()
+    else:
+        x = torch.from_numpy(np.random.RandomState(n).standard_normal(n)
+                             .astype(np.float32))
+    x = x.to(cuda_device, getattr(torch, dtype))
+    if offset:
+        buf = torch.zeros(x.numel() + 1, dtype=x.dtype, device=cuda_device)
+        buf[1:].copy_(x)
+        x = buf[1:]
+        assert x.is_contiguous() and x.data_ptr() % 16
+    _chip_smoke().check_dense_quant(quant, x, f"({n}, {dtype}, {offset})")
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "glm4-9b"])

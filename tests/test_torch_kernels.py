@@ -359,6 +359,88 @@ def test_dequantize_plain_matches_reference_bitwise(shape):
     assert np.abs(back - x).max() <= 0.5 * float(s.max()) * 1.0001
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("shape", DENSE_SHAPES, ids=str)
+def test_quantize_plain_matches_reference_on_16_bit_input(shape, dtype):
+    """The reference quantizes any float input (its kernel widens to f32):
+    the port's plain version on the same bf16 / f16 values gives the
+    oracle's q and scales bit for bit, and the interpret-mode kernel's
+    wherever its scale is the division."""
+    x = _dense(shape, seed=4)
+    xj = jnp.asarray(x).astype(dtype)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    np.testing.assert_array_equal(                  # the same 16-bit values
+        np.asarray(xj).view(np.uint16), xt.view(torch.int16).numpy()
+        .view(np.uint16))
+    q, s = ops.quantize(xt)
+    oq, os_ = ref_oracles.quantize_ref(xj)
+    kq, ks = ref_ops.quantize(xj, interpret=True)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(oq))
+    np.testing.assert_array_equal(s.numpy().view(np.int32),
+                                  np.asarray(os_).view(np.int32))
+    div, mul = _tile_scales(xt.to(torch.float32).numpy())
+    ks, s = np.asarray(ks).reshape(-1), s.numpy().reshape(-1)
+    same = ks == s
+    assert (same | ((ks == mul) & (s == div))).all()
+    rows = np.repeat(same, 8)
+    np.testing.assert_array_equal(q.numpy()[rows], np.asarray(kq)[rows])
+
+
+def test_k5_clip_never_binds_for_any_tile_max():
+    """K5a leaves out clip(., -127, 127) (``csrc/quant.cu::qbyte``): with
+    s = max(m, 1e-12) / 127 for a tile whose max |x| is m, the largest
+    quotient m / s rounds to at most 127.  m / RN(m / 127) depends on m's
+    mantissa alone while m >= 1e-12 (m / 127 stays normal), so every
+    mantissa at three exponents of that range, and maxima below 1e-12 (where
+    s is 1e-12 / 127), cover every finite m."""
+    mant = np.arange(1 << 23, dtype=np.uint32)
+    for exp in (88, 127, 254):     # m in [2^-39, 2^-38), [1, 2), up to FLT_MAX
+        m = ((exp << 23) | mant).view(np.float32)
+        s = np.maximum(m, np.float32(1e-12)) / np.float32(127.0)
+        assert np.abs(np.rint(m / s)).max() == 127.0
+    tiny = np.array([1e-45, 1e-30, 9.99e-13], np.float32)
+    s = np.maximum(tiny, np.float32(1e-12)) / np.float32(127.0)
+    assert np.abs(np.rint(tiny / s)).max() <= 127.0
+
+
+def _k5_accesses(n, offset, itemsize):
+    """Every access of a K5 launch over ``n`` elements at ``offset`` bytes
+    past a 16-byte boundary, from the wrapper's plan -> (vector length,
+    first elements of the 16-byte vectors, scalar elements, scalars a
+    tile)."""
+    vec = 16 // itemsize
+    head = quant.vector_head(offset, itemsize)
+    vectors, scalars, per_tile = [], [], []
+    for start in range(0, n, quant.TILE):
+        real = min(quant.TILE, n - start)
+        lead, nvec, tail = quant.tile_plan(real, head, vec)
+        vectors.append(start + lead + vec * np.arange(nvec))
+        scalars.append(start + np.r_[0:lead, tail:real])
+        per_tile.append(len(scalars[-1]))
+    return vec, np.concatenate(vectors), np.concatenate(scalars), per_tile
+
+
+@pytest.mark.parametrize("itemsize", [4, 2, 1])
+@settings(max_examples=60, deadline=None)
+@given(n=hst.integers(1, 5 * quant.TILE + 17), data=hst.data())
+def test_k5_access_plan_covers_each_element_once_inside_its_tile(
+        itemsize, n, data):
+    """The K5 kernels' plan for any length and pointer offset: every
+    element covered once, no access past n, no 16-byte access across a
+    tile boundary (or off its 16-byte alignment), and at most one scalar
+    access for each of a tile's first 2 * (vec - 1) threads."""
+    offset = data.draw(hst.sampled_from(range(0, 16, itemsize)))
+    vec, vectors, scalars, per_tile = _k5_accesses(n, offset, itemsize)
+    covered = np.zeros(n, np.int64)
+    np.add.at(covered, (vectors[:, None] + np.arange(vec)).reshape(-1), 1)
+    np.add.at(covered, scalars, 1)
+    assert (covered == 1).all()
+    assert (vectors + vec <= n).all() and (scalars < n).all()
+    assert (vectors // quant.TILE == (vectors + vec - 1) // quant.TILE).all()
+    assert ((offset + vectors * itemsize) % 16 == 0).all()
+    assert max(per_tile) <= 2 * (vec - 1)
+
+
 def test_build_names_libraries_by_source_hash(monkeypatch, tmp_path):
     monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
     paths = {name: build.library_path(name) for name in build.SOURCES}
