@@ -194,14 +194,18 @@ def register_model(model) -> None:
 
 def register_server(server_cls) -> None:
     """Use ``server_cls`` (a :class:`repro_torch.core.server.Server`
-    subclass) for subsequent ``run()`` calls."""
+    subclass) for subsequent ``run()`` calls.  The sequential engine runs
+    its stage overrides; under ``"batched"`` an ``aggregation`` or
+    ``apply_delta`` override needs the staged path (ROADMAP M5.4)."""
     _ctx.server_cls = server_cls
 
 
 def register_client(client_cls) -> None:
     """Use ``client_cls`` (a :class:`repro_torch.core.client.Client`
-    subclass) for subsequent runs.  Stage overrides need the sequential
-    engine (ROADMAP M4) and raise at ``run()``."""
+    subclass) for subsequent runs.  The sequential engine (the default
+    ``execution``) runs every stage override; under ``"batched"`` a
+    ``train`` override raises, as in the reference, and compression /
+    encryption / upload overrides need the gathering path (ROADMAP M5.4)."""
     _ctx.client_cls = client_cls
 
 

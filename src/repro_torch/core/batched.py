@@ -52,10 +52,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.local_train import cyclic_batches
+from repro_torch.core.local_train import client_grads, cyclic_batches
 from repro_torch.models.small import FLModel
 from repro_torch.optim import (
-    Optimizer, TracedOptimizer, adamw_traced, apply_updates, global_norm,
+    Optimizer, TracedOptimizer, adamw_traced, apply_updates,
     hparams_from_config, sgd_traced,
 )
 from repro_torch.utils.tree import (
@@ -146,24 +146,9 @@ def _one_client_fn(model: FLModel, optimizer: TracedOptimizer, steps: int,
     (``x[client, idx[client, s]]``) outside ``vmap``."""
 
     def client_step(params, opt_state, xb, yb, vec, global_params):
-        def loss_fn(p):
-            loss, metrics = model.loss_and_metrics(p, {"x": xb, "y": yb})
-            if use_prox:
-                prox = sum(
-                    torch.sum(torch.square(a.to(torch.float32)
-                                           - g.to(torch.float32)))
-                    for a, g in zip(tree_leaves(p),
-                                    tree_leaves(global_params)))
-                loss = loss + 0.5 * vec.mu * prox
-            return loss, (loss, metrics["accuracy"])
-
-        grads, (loss, acc) = torch.func.grad(loss_fn, has_aux=True)(params)
-        if use_clip:
-            norm = global_norm(grads)
-            scale = torch.where(
-                vec.max_norm > 0.0,
-                torch.clamp_max(vec.max_norm / (norm + 1e-9), 1.0), 1.0)
-            grads = tree_map(lambda g: g * scale, grads)
+        grads, loss, acc = client_grads(model, params, xb, yb, global_params,
+                                        vec.mu, vec.max_norm, use_prox,
+                                        use_clip)
         updates, new_opt = optimizer.update(grads, opt_state, params, vec.hp)
         return apply_updates(params, updates), new_opt, loss, acc
 

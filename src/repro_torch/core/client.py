@@ -4,25 +4,28 @@ Stage pipeline per round:
     download -> decompression -> train (E local epochs) -> compression
     -> encryption -> upload
 
-Subclass and override any stage to implement a new algorithm (§V-B).  The
-batched engine vectorizes ``train`` across the cohort and runs the built-in
-compression in-program, so in this port a ``Client`` is the per-client
-shell the engine reads (id, data, config, optimizer, batch size); the
-per-client ``train`` and compression stages belong to the sequential
-engine, which is not ported yet (ROADMAP M4) and raise.
+Subclass and override any stage to implement a new algorithm (§V-B); the
+sequential engine runs every stage of every client.  The batched engine
+vectorizes ``train`` across the cohort and runs the built-in compression
+in-program, reading only the client's id, data, config, optimizer and
+batch size.
 """
 from __future__ import annotations
 
+import time
 from typing import Any, Dict
+
+import torch
 
 from repro_torch.core import compression as comp
 from repro_torch.core.config import (
     ClientConfig, validate_finetune_config, validate_optimizer_hparams,
 )
-from repro_torch.core.local_train import evaluate
+from repro_torch.core.local_train import evaluate, local_train
 from repro_torch.data.fed_data import ClientData
 from repro_torch.models.small import FLModel
 from repro_torch.optim import get_optimizer
+from repro_torch.utils.tree import tree_map
 
 
 class Client:
@@ -38,7 +41,7 @@ class Client:
         self.optimizer = get_optimizer(cfg.optimizer, cfg.lr, cfg.momentum,
                                        cfg.weight_decay, cfg.nesterov,
                                        cfg.adam_b1, cfg.adam_b2, cfg.adam_eps)
-        self._residual = None      # error-feedback state (sequential engine)
+        self._residual = None      # error-feedback state for compression
 
     # ------------------------------------------------------------------
     # stages
@@ -50,24 +53,41 @@ class Client:
         return comp.decompress(payload["params"])
 
     def train(self, params: Any, round_id: int) -> Dict[str, Any]:
-        raise NotImplementedError(
-            "per-client training (the sequential engine) is not ported to "
-            "repro_torch yet (ROADMAP M4); use "
-            "resources.execution='batched'")
+        global_params = params
+        t0 = time.perf_counter()
+        new_params, metrics = local_train(
+            self.model, params, self.data.x, self.data.y,
+            epochs=self.cfg.local_epochs, batch_size=self._batch_size(),
+            optimizer=self.optimizer, proximal_mu=self.cfg.proximal_mu,
+            max_grad_norm=self.cfg.max_grad_norm,
+            seed=round_id * 9973 + _stable_hash(self.client_id),
+            global_params=global_params)
+        train_time = time.perf_counter() - t0
+        update = tree_map(
+            lambda n, g: n.to(torch.float32) - g.to(torch.float32),
+            new_params, global_params)
+        return {"update": update, "num_samples": len(self.data),
+                "metrics": metrics, "train_time": train_time}
 
     def test(self, params: Any) -> Dict[str, float]:
         return evaluate(self.model, params, self.data.x, self.data.y)
 
     def compression(self, result: Dict[str, Any]) -> Dict[str, Any]:
-        """Built-in update compression.  The batched engine runs the
-        built-in methods in-program and never calls this stage; the
-        per-client stage with error feedback is ROADMAP M4."""
+        """Built-in update compression with error feedback.  The batched
+        engine runs the same stage in-program (the same kernels, and a
+        device-resident residual store with the semantics of
+        ``self._residual``) and never calls this method."""
         method = self.cfg.compression
         if method in ("none", "", None):
             return result
-        raise NotImplementedError(
-            f"the per-client compression stage ({method!r}) is not ported "
-            f"to repro_torch yet (ROADMAP M4)")
+        if self._residual is None:
+            self._residual = comp.zero_residual(result["update"])
+        compressed, self._residual = comp.compress_with_feedback(
+            result["update"], self._residual, method, self.cfg.stc_sparsity)
+        out = dict(result)
+        out["update"] = compressed
+        out["payload_bytes"] = comp.payload_bytes(compressed)
+        return out
 
     def encryption(self, result: Dict[str, Any]) -> Dict[str, Any]:
         return result  # hook for secure aggregation / HE plugins

@@ -419,8 +419,8 @@ class ResourceConfig:
 
     ``execution`` selects the client execution engine:
 
-    * ``"sequential"`` — one train step dispatched per client per batch
-      (not ported yet: ROADMAP M4).
+    * ``"sequential"`` — one train step dispatched per client per batch;
+      every client and server stage override runs.
     * ``"batched"`` — the whole selected cohort runs as one round program
       (``torch.func.vmap`` over clients around a loop over the bucketed
       local steps, see ``repro_torch.core.batched``).  Requires a uniform

@@ -4,18 +4,21 @@ Combines the platform modules per the FL life cycle (§III): simulation
 manager (heterogeneity) + data manager + server/client stages +
 distribution manager (GreedyAda, §VI) + tracking manager (§V-C).
 
-Timing model: each client's local-training time is its step-count share
-of the measured round time; the system-heterogeneity simulator scales it by
-the client's device-class speed ratio (virtual clock).  The round's virtual
-duration is the makespan of the device groups, Eq. 1:
+Timing model: each client's measured local-training time is recorded; the
+system-heterogeneity simulator scales it by the client's device-class
+speed ratio (virtual clock).  The round's virtual duration is the makespan
+of the device groups, Eq. 1:
 
     T_round = max_g  sum_{c in g} simulated_time(c)
 
-The ported slice is the fused batched round: ``resources.execution=
-"batched"`` with ``round_fusion="auto"``, flat FedAvg, no faults or
-deadlines, synchronous rounds, and full or LoRA fine-tuning.  Every
-configuration outside it raises ``NotImplementedError`` naming the ROADMAP
-item that ports it — at construction, never as a silent detour.
+Two engines are ported.  ``resources.execution="sequential"`` (the
+default) runs every stage of every selected client in turn — each stage
+overridable — then ``Server.aggregation``.  ``"batched"`` with
+``round_fusion="auto"`` runs the fused round program
+(``core/batched.py``).  Both run flat aggregation, no faults or deadlines,
+synchronous rounds; LoRA runs under ``batched``.  Every configuration
+outside that raises ``NotImplementedError`` naming the ROADMAP item that
+ports it — at construction, never as a silent detour.
 """
 from __future__ import annotations
 
@@ -41,21 +44,30 @@ from repro_torch.simulation.heterogeneity import (
     FaultInjector, SystemHeterogeneity,
 )
 from repro_torch.tracking import Tracker
+from repro_torch.utils.tree import tree_leaves
+
+
+def dense_update_bytes(params) -> int:
+    """Wire size of one dense (uncompressed) update of ``params``' shape,
+    from each leaf's own item size."""
+    return sum(comp.array_nbytes(leaf) for leaf in tree_leaves(params))
 
 
 def unported_config(cfg: Config) -> List[str]:
-    """Every setting of ``cfg`` outside the ported slice, each with the
-    ROADMAP item that ports it (empty when the slice covers ``cfg``)."""
+    """Every setting of ``cfg`` outside the ported engines, each with the
+    ROADMAP item that ports it (empty when they cover ``cfg``)."""
     res = cfg.resources
+    batched = res.execution == "batched"
     out = []
-    if res.execution == "sequential":
-        out.append("resources.execution='sequential' (ROADMAP M4)")
-    elif res.execution == "async":
+    if res.execution == "async":
         out.append("resources.execution='async' (ROADMAP M7)")
-    if res.round_fusion != "auto":
+    if res.execution == "sequential" and cfg.client.finetune == "lora":
+        out.append("client.finetune='lora' under resources.execution="
+                   "'sequential' (ROADMAP M8)")
+    if batched and res.round_fusion != "auto":
         out.append(f"resources.round_fusion={res.round_fusion!r}, the staged "
                    f"batched path (ROADMAP M5)")
-    if res.distributed != "none":
+    if batched and res.distributed != "none":
         out.append(f"resources.distributed={res.distributed!r} (ROADMAP M5)")
     if res.aggregation_topology != "flat":
         out.append(f"resources.aggregation_topology="
@@ -68,12 +80,13 @@ def unported_config(cfg: Config) -> List[str]:
         out.append("checkpointing, checkpoint.every > 0 (ROADMAP M6)")
     if not cfg.tracking.round_sync:
         out.append("tracking.round_sync=False (ROADMAP M5)")
-    if cfg.server.compression != "none":
-        out.append(f"server.compression={cfg.server.compression!r} "
-                   f"(ROADMAP M4)")
-    if cfg.server.aggregation != "fedavg":
-        out.append(f"server.aggregation={cfg.server.aggregation!r}, the "
-                   f"gathering path (ROADMAP M4)")
+    if cfg.server.aggregation == "fedbuff":
+        out.append("server.aggregation='fedbuff', buffered asynchronous "
+                   "aggregation (ROADMAP M7)")
+    elif batched and cfg.server.aggregation != "fedavg":
+        out.append(f"server.aggregation={cfg.server.aggregation!r} under "
+                   f"resources.execution='batched', the gathering path "
+                   f"(ROADMAP M5.4); execution='sequential' runs it")
     return out
 
 
@@ -91,20 +104,22 @@ class Trainer:
         if missing:
             raise NotImplementedError(
                 "not ported to repro_torch yet: " + "; ".join(missing))
-        if server is not None and (
-                type(server).aggregation is not Server.aggregation
-                or type(server).apply_delta is not Server.apply_delta):
-            raise NotImplementedError(
-                "Server.aggregation / Server.apply_delta overrides need the "
-                "gathering and staged paths (ROADMAP M4, M5); the fused "
-                "round applies FedAvg in-program")
-        for stage in ("download", "decompression", "train", "compression",
-                      "encryption", "upload"):
-            if getattr(client_cls, stage) is not getattr(Client, stage):
+        if config.resources.execution == "batched":
+            if server is not None and (
+                    type(server).aggregation is not Server.aggregation
+                    or type(server).apply_delta is not Server.apply_delta):
                 raise NotImplementedError(
-                    f"a Client.{stage} override needs the sequential or "
-                    f"gathering path (ROADMAP M4); the fused batched round "
-                    f"vectorizes training and compresses in-program")
+                    "Server.aggregation / Server.apply_delta overrides under "
+                    "resources.execution='batched' need the gathering and "
+                    "staged paths (ROADMAP M5.4); the fused round applies "
+                    "FedAvg in-program.  execution='sequential' runs them")
+            for stage in ("compression", "encryption", "upload"):
+                if getattr(client_cls, stage) is not getattr(Client, stage):
+                    raise NotImplementedError(
+                        f"a Client.{stage} override under resources."
+                        f"execution='batched' needs the gathering path "
+                        f"(ROADMAP M5.4); the fused round compresses "
+                        f"in-program.  execution='sequential' runs it")
         self.device = get_device()
         if config.client.finetune == "lora":
             # Freeze the base model and train low-rank adapters only: the
@@ -142,8 +157,10 @@ class Trainer:
         # inactive here (faults are outside the slice); constructed for the
         # same validation as the reference
         self.faults = FaultInjector(config.faults)
-        self.engine = BatchedExecutor(model, self.device,
-                                      distributed=config.resources.distributed)
+        # the sequential engine needs no data pool or EF store on the device
+        self.engine = (BatchedExecutor(
+            model, self.device, distributed=config.resources.distributed)
+            if config.resources.execution == "batched" else None)
         self.het = SystemHeterogeneity(config.system_heterogeneity)
         self.scheduler = GreedyAda(
             num_devices=max(1, config.resources.num_devices),
@@ -152,15 +169,18 @@ class Trainer:
         self.history: List[Dict[str, float]] = []
 
     # ------------------------------------------------------------------
-    # Materialized-Client cache bound (virtual populations grow the
-    # touched-client set every round)
+    # Materialized-Client cache bound: virtual populations grow the
+    # touched-client set every round, so Client objects are evicted FIFO
+    # past this bound — except clients carrying error-feedback residuals
+    # (sequential compression), which are state, not recomputable.
     CLIENT_CACHE_MAX = 4096
 
     def client(self, cid: str) -> Client:
         if cid not in self.clients:
             if len(self.clients) >= self.CLIENT_CACHE_MAX:
-                for old in list(self.clients)[
-                        : len(self.clients) - self.CLIENT_CACHE_MAX + 1]:
+                for old in [c for c, cl in self.clients.items()
+                            if cl._residual is None][
+                                : len(self.clients) - self.CLIENT_CACHE_MAX + 1]:
                     del self.clients[old]
             ccfg = self.cfg.client
             overrides = self.het.hyperparam_overrides(cid)
@@ -188,6 +208,10 @@ class Trainer:
             return one_per_device(selected)
         raise ValueError(f"unknown allocation {name!r}")
 
+    def _effective_time(self, cid: str, base: float) -> float:
+        """Virtual response time (no fault plan: faults are ROADMAP M6)."""
+        return self.het.simulate_time(cid, base)
+
     # ------------------------------------------------------------------
     def _run_batched(self, selected: List[str], payload: Dict[str, Any],
                      round_id: int) -> List[Dict[str, Any]]:
@@ -195,8 +219,17 @@ class Trainer:
         in-program with error feedback, aggregates and applies the server
         update; one batched device->host fetch returns metrics and
         per-leaf STC counts.  Returns per-client result dicts (metrics,
-        ``train_time``, ``payload_bytes``; no ``update``)."""
+        ``train_time``, ``payload_bytes``; no ``update``).  The pre-train
+        stages run once, through the first client, as in the reference."""
         clients = [self.client(c) for c in selected]
+        for stage in ("download", "decompression", "train"):
+            impls = {getattr(type(c), stage) for c in clients}
+            if len(impls) > 1 or (stage == "train"
+                                  and impls != {Client.train}):
+                raise ValueError(
+                    f"batched execution cannot vectorize per-client "
+                    f"{stage!r} overrides ({[type(c).__name__ for c in clients]}); "
+                    f"use resources.execution='sequential'")
         global_params = clients[0].decompression(clients[0].download(payload))
         method = self.cfg.client.compression
         st, new_params = self.engine.run_round_fused(
@@ -213,7 +246,7 @@ class Trainer:
             payloads = self.engine.per_client_payload_bytes(st)
         else:
             # dense update wire size from each leaf's real dtype
-            payloads = [comp.payload_bytes(global_params)] * len(clients)
+            payloads = [dense_update_bytes(global_params)] * len(clients)
         return [
             {"client_id": c.client_id, "num_samples": len(c.data),
              "train_time": st["wall"] * steps_f[i] / total_steps,
@@ -223,6 +256,24 @@ class Trainer:
             for i, c in enumerate(clients)]
 
     # ------------------------------------------------------------------
+    def _run_sequential(self, selected: List[str], payload: Dict[str, Any],
+                        round_id: int, groups: List[List[str]]):
+        """Every stage of every client, in the allocator's group order.
+        -> (results in selection order, wall times, simulated times)."""
+        results, wall_times, sim_times = [], {}, {}
+        for group in groups:
+            for cid in group:
+                res = self.client(cid).run_round(payload, round_id)
+                results.append(res)
+                wall_times[cid] = res["train_time"]
+                sim_times[cid] = self._effective_time(cid, res["train_time"])
+        # canonical selection order, not scheduler-group order: the groups
+        # follow measured times, so without this the FedAvg summation
+        # order (and the params, by an ulp) would vary from run to run
+        order = {cid: i for i, cid in enumerate(selected)}
+        results.sort(key=lambda r: order[r["client_id"]])
+        return results, wall_times, sim_times
+
     def run_round(self, round_id: int) -> Dict[str, float]:
         """Run round ``round_id`` and return its metrics."""
         server = self.server
@@ -232,22 +283,36 @@ class Trainer:
 
         t_wall0 = time.perf_counter()
         down_bytes = payload.get("payload_bytes", 0) * len(selected)
-        results = self._run_batched(selected, payload, round_id)
-        wall_times = {r["client_id"]: r["train_time"] for r in results}
-        sim_times = {cid: self.het.simulate_time(cid, t)
-                     for cid, t in wall_times.items()}
+        if self.engine is not None:
+            results = self._run_batched(selected, payload, round_id)
+            wall_times = {r["client_id"]: r["train_time"] for r in results}
+            sim_times = {cid: self._effective_time(cid, t)
+                         for cid, t in wall_times.items()}
+        else:
+            results, wall_times, sim_times = self._run_sequential(
+                selected, payload, round_id, groups)
         # Eq. 1 makespan under the virtual clock
         round_virtual = max(
             (sum(sim_times[c] for c in g) for g in groups if g), default=0.0)
         self.scheduler.update(sim_times)
+        if self.engine is None:
+            server.aggregation(results)
         wall = time.perf_counter() - t_wall0
 
+        # one batched host sync for the wire accounting of the results a
+        # custom stage left without payload_bytes
+        up_bytes = sum(r["payload_bytes"] for r in results
+                       if "payload_bytes" in r)
+        missing = [r for r in results if "payload_bytes" not in r]
+        if missing:
+            up_bytes += sum(comp.payload_bytes_many(
+                [r["update"] for r in missing]))
         metrics = {
             "round_time": round_virtual,
             "wall_time": wall,
             "clients": len(selected),
             "comm_down_bytes": down_bytes,
-            "comm_up_bytes": sum(r["payload_bytes"] for r in results),
+            "comm_up_bytes": up_bytes,
             "train_loss": weighted_train_loss(results),
         }
         if self.cfg.server.test_every and \

@@ -44,7 +44,7 @@ SIGNATURES = {
     "stc_topk": {"stc_batched_launch": (_P, _P, _P, _I64, _I64,
                                         ctypes.c_float, _P)},
     "quant": {"int8_rowmax_launch": (_P, _P, _I64, _I64, _P),
-              "int8_qdq_launch": (_P, _P, _P, _I64, _I64, _P),
+              "int8_qdq_launch": (_P, _P, _P, _P, _I64, _I64, _P),
               "int8_quantize_launch": (_P, _P, _P, _I64, _C, _C, _P),
               "int8_dequantize_launch": (_P, _P, _P, _I64, _C, _P),
               "int8_kernel_info": (_C, _P)},

@@ -7,7 +7,9 @@
 //   * _rowmax_kernel: per-row max |x| accumulated across D-tiles;
 //   * _qdq_kernel:    clip(round(x / s), -127, 127) * s with the per-row
 //                     scale s = max(m, 1e-12) * f32(1/127), computed between
-//                     the two launches by the caller.
+//                     the two launches by the caller.  On request it also
+//                     writes the int8 q itself (the sequential compression
+//                     stage sends q and s, core/compression.py).
 // K5 replaces _quant_kernel (pallas_call in quantize) and _dequant_kernel
 // (pallas_call in dequantize): per 8192-element tile of the flattened,
 // zero-padded tensor, s = max(max|x|, 1e-12) / 127 as a true IEEE division,
@@ -17,7 +19,7 @@
 //
 // Bound on the H100: memory.  The row max reads the (N, D) matrix once
 // (4 bytes per element); the round trip reads it once more and writes the
-// result (8 bytes per element); quantize reads 4 bytes and writes 1 per
+// result (8 bytes per element, 9 with q); quantize reads 4 bytes and writes 1 per
 // element, dequantize the reverse.  Each is a handful of operations per
 // element, well below the card's ridge.
 //
@@ -87,12 +89,13 @@ rowmax_kernel(const float* __restrict__ x, float* __restrict__ m, int64_t D) {
 
 __global__ void __launch_bounds__(THREADS)
 qdq_kernel(const float* __restrict__ x, const float* __restrict__ scale,
-           float* __restrict__ out, int64_t D) {
+           float* __restrict__ out, int8_t* __restrict__ qout, int64_t D) {
   const int64_t row = blockIdx.y;
   const int64_t start = (int64_t)blockIdx.x * CHUNK;
   const float s = __ldg(scale + row);
   const float* xr = x + row * D;
   float* outr = out + row * D;
+  int8_t* qr = qout ? qout + row * D : nullptr;
 #pragma unroll 4
   for (int k = 0; k < PER_THREAD; ++k) {
     const int64_t d = start + (int64_t)k * THREADS + threadIdx.x;
@@ -100,6 +103,8 @@ qdq_kernel(const float* __restrict__ x, const float* __restrict__ scale,
       float q = rintf(__fdiv_rn(__ldg(xr + d), s));
       q = q < -127.0f ? -127.0f : (q > 127.0f ? 127.0f : q);  // NaN passes
       outr[d] = __fmul_rn(q, s);
+      // q is integral in [-127, 127] (NaN converts to 0)
+      if (qr) qr[d] = (int8_t)__float2int_rn(q);
     }
   }
 }
@@ -345,11 +350,13 @@ extern "C" int int8_rowmax_launch(const float* x, float* m, int64_t N,
   return (int)cudaGetLastError();
 }
 
+// q: an (N, D) int8 output for round(x / s) clamped, or NULL (the batched
+// round trip needs only q * s).
 extern "C" int int8_qdq_launch(const float* x, const float* scale, float* out,
-                               int64_t N, int64_t D, void* stream) {
+                               int8_t* q, int64_t N, int64_t D, void* stream) {
   if (N <= 0 || D <= 0 || N > 65535) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  qdq_kernel<<<grid_for(N, D), THREADS, 0, s>>>(x, scale, out, D);
+  qdq_kernel<<<grid_for(N, D), THREADS, 0, s>>>(x, scale, out, q, D);
   return (int)cudaGetLastError();
 }
 

@@ -10,7 +10,9 @@ and ``quant._qdq_kernel``:
    expression with the reciprocal constant built exactly as the reference
    builds it (:func:`int8_scale`);
 3. :func:`qdq` — ``clip(round(x / s), -127, 127) * s``, round-half-even
-   with an IEEE-rounded division.
+   with an IEEE-rounded division; with ``with_q`` the same launch also
+   writes the int8 ``q`` (the sequential compression stage sends ``q`` and
+   ``s``: ``repro_torch.core.compression.int8_compress_array``).
 
 Every step is order-free, so the kernels and the plain versions
 (:func:`rowmax_plain`, :func:`qdq_plain`) agree bit for bit with each
@@ -62,10 +64,10 @@ def rowmax_plain(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float32).abs().amax(dim=1)
 
 
-def qdq_plain(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def qdq_plain(x: torch.Tensor, scale: torch.Tensor, with_q: bool = False):
     s = scale[:, None]
     q = torch.clamp(torch.round(x.to(torch.float32) / s), -127.0, 127.0)
-    return q * s
+    return (q * s, q.to(torch.int8)) if with_q else q * s
 
 
 def int8_scale(m: torch.Tensor) -> torch.Tensor:
@@ -98,10 +100,11 @@ def rowmax(x: torch.Tensor) -> torch.Tensor:
     return m
 
 
-def qdq(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """(N, D), (N,) -> (N, D) f32 quantize -> dequantize round trip."""
+def qdq(x: torch.Tensor, scale: torch.Tensor, with_q: bool = False):
+    """(N, D), (N,) -> (N, D) f32 quantize -> dequantize round trip; with
+    ``with_q`` -> (round trip, (N, D) int8 q) from the same launch."""
     if x.device.type == "cpu":
-        return qdq_plain(x, scale)
+        return qdq_plain(x, scale, with_q)
     _check("int8 qdq", x)
     if scale.shape != (x.shape[0],) or scale.dtype != torch.float32 \
             or scale.device != x.device or not scale.is_contiguous():
@@ -112,13 +115,17 @@ def qdq(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     global qdq_launches
     n, d = x.shape
     out = torch.empty_like(x)
+    q = torch.empty((n, d), dtype=torch.int8, device=x.device) if with_q \
+        else None
     lib = build.load("quant")
     stream = build.stream(x.device)
     build.check(lib.int8_qdq_launch(x.data_ptr(), scale.data_ptr(),
-                                    out.data_ptr(), n, d, stream),
+                                    out.data_ptr(),
+                                    None if q is None else q.data_ptr(),
+                                    n, d, stream),
                 "int8_qdq")
     qdq_launches += 1
-    return out
+    return (out, q) if with_q else out
 
 
 def int8_roundtrip_batched(x: torch.Tensor

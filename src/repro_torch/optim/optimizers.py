@@ -37,6 +37,18 @@ def global_norm(tree: PyTree) -> torch.Tensor:
                           for x in tree_leaves(tree)))
 
 
+def clip_by_global_norm(tree: PyTree, max_norm) -> Tuple[PyTree, torch.Tensor]:
+    """``(tree * min(1, max_norm / (norm + 1e-9)), norm)``.  ``max_norm`` is
+    a float or an f32 tensor (a per-client scalar under ``vmap``); either
+    way the division is tensor by tensor, an IEEE division as in the
+    reference (a float divided by a tensor multiplies by its reciprocal)."""
+    norm = global_norm(tree)
+    if not isinstance(max_norm, torch.Tensor):
+        max_norm = torch.full_like(norm, max_norm)
+    scale = torch.clamp_max(max_norm / (norm + 1e-9), 1.0)
+    return tree_map(lambda g: g * scale, tree), norm
+
+
 def apply_updates(params: PyTree, updates: PyTree) -> PyTree:
     return tree_map(lambda p, u: p + u.to(p.dtype), params, updates)
 

@@ -90,6 +90,9 @@ def test_cuda_kernels_match_plain_versions(cuda_device, n, d):
     assert torch.equal(quant.rowmax(x), quant.rowmax_plain(x))
     assert torch.equal(quant.qdq(x, s).view(torch.int32),
                        quant.qdq_plain(x, s).view(torch.int32))
+    (k, kq), (p, pq) = quant.qdq(x, s, True), quant.qdq_plain(x, s, True)
+    assert torch.equal(k.view(torch.int32), p.view(torch.int32))
+    assert kq.dtype == torch.int8 and torch.equal(kq, pq)
 
 
 def test_wrappers_count_only_kernel_launches(cuda_device):
@@ -274,7 +277,8 @@ def test_dense_stc_and_quant_kernels_match_plain_versions(cuda_device, n):
 
 def _chip_smoke():
     """The repo's ``chip_smoke.py`` as a module: its K5 check
-    (``check_dense_quant``) is the one these tests and phase 3c share."""
+    (``check_dense_quant``) is the one these tests and phase 3c share, its
+    stage check (``check_sequential_stage``) the one of phase 4e."""
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import chip_smoke
 
@@ -303,6 +307,14 @@ def test_dense_quant_kernels_hold_lengths_views_and_edge_tiles(
         x = buf[1:]
         assert x.is_contiguous() and x.data_ptr() % 16
     _chip_smoke().check_dense_quant(quant, x, f"({n}, {dtype}, {offset})")
+
+
+def test_sequential_compression_stage_on_card_matches_cpu(cuda_device):
+    """One client's round-0 femnist update through the sequential STC and
+    int8 stages (K2; K3a + K3b with its int8 output) on the card and on the
+    CPU, bit for bit: ``chip_smoke.check_sequential_stage``, phase 4e's
+    check."""
+    _chip_smoke().check_sequential_stage(repro_torch, cuda_device)
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "glm4-9b"])

@@ -316,6 +316,6 @@ def test_lora_rejects_no_match_targets_and_the_sequential_engine():
         repro_torch.run()
     repro_torch.reset()
     repro_torch.init({**SLICE, "resources": {"execution": "sequential"}})
-    with pytest.raises(NotImplementedError, match="M4"):
+    with pytest.raises(NotImplementedError, match="M8"):
         repro_torch.run()
     repro_torch.reset()

@@ -160,7 +160,8 @@ def test_one_dispatch_and_one_host_sync_per_round():
 
 
 UNPORTED = [
-    ({"resources": {"execution": "sequential"}}, "M4"),
+    ({"resources": {"execution": "sequential"}, "client": {"finetune": "lora"}},
+     "M8"),
     ({"resources": {"execution": "async"}}, "M7"),
     ({"resources": {"round_fusion": "off"}}, "M5"),
     ({"resources": {"distributed": "data"}}, "M5"),
@@ -171,8 +172,8 @@ UNPORTED = [
     ({"tracking": {"round_sync": False}}, "M5"),
     ({"client": {"finetune": "lora"}, "resources": {"execution": "async"}},
      "M7"),
-    ({"server": {"compression": "int8"}}, "M4"),
-    ({"server": {"aggregation": "fedbuff"}}, "M4"),
+    ({"server": {"compression": "int8", "aggregation": "median"}}, "M5.4"),
+    ({"server": {"aggregation": "fedbuff"}}, "M7"),
 ]
 
 
@@ -216,12 +217,13 @@ def test_stage_overrides_and_remote_and_resume_raise():
     repro_torch.reset()
     repro_torch.init(LINEAR)
     repro_torch.register_client(_TrainOverride)
-    with pytest.raises(NotImplementedError, match="M4"):
+    with pytest.raises(ValueError,
+                       match="cannot vectorize per-client 'train' overrides"):
         repro_torch.run()
     repro_torch.reset()
     repro_torch.init(LINEAR)
     repro_torch.register_server(_ApplyOverride)
-    with pytest.raises(NotImplementedError, match="M5"):
+    with pytest.raises(NotImplementedError, match="M5.4"):
         repro_torch.run()
     repro_torch.reset()
     for fn in (repro_torch.start_server, repro_torch.start_client):
