@@ -19,6 +19,11 @@ Phases, in order; any failed check raises, so the script exits non-zero:
    PyTorch call computes the same function — that call (median of CUDA
    events over 20 runs; K2 also by device time); K3b also with its int8
    output (the sequential int8 stage's q), equal to the plain version's;
+   K1's grouped route (the hierarchical tree) bit for bit against
+   ``fedavg_tree_plain`` / ``fedavg_grouped_plain``: the whole tree at
+   (16, 6,603,710) (a tier of 2 groups of 8, then one of 8), one launch of
+   2 groups of 8, and 10 rows padded to 12 in groups of 3 at D =
+   1,000,003; the first tier timed beside ``einsum("gf,gfd->gd")``;
 3b. print the three flash-attention kernels' resources at D = 128 as the
    runtime reads them (``cudaFuncGetAttributes``: registers, local memory
    = spills and stack, dynamic shared memory; CTAs per SM) and the count of
@@ -89,6 +94,18 @@ Phases, in order; any failed check raises, so the script exits non-zero:
    round-0 update
    on the card against the same stage on the CPU, bit for bit
    (``check_sequential_stage``);
+4f. drive the rest of the batched engine on phase 4's configuration: (a)
+   the staged path (``round_fusion="off"``) for none / stc / int8, (b)
+   hierarchical FedAvg, fused, fanout 0, under stc, (c) the deferred round
+   sync (``tracking.round_sync=False``) under int8; launch counts K1 3 a
+   run flat and 6 under the tree (one grouped launch a tier, 2 tiers), K2
+   or K3 18; dispatches and host syncs a round as the reference counts
+   them (staged: 2 / 1 none, 3 / 2 stc, 3 / 1 int8; fused 1 / 1); final
+   params against phase 4's run of the same mode, printed against 1e-4
+   and held within max(1e-4, 2 x ``conditioning_gap`` of that mode); then
+   ``compress_stacked`` (two rounds) and ``aggregate_stacked`` (flat and
+   tree) on one stacked cohort update on the card against the CPU, bit
+   for bit (``check_staged_stages``);
 5. run the same port for 2 rounds of 4 clients from one set of injected
    parameters on the card and on the CPU and compare them, once per
    engine: train losses within 1e-4; parameters printed against 1e-4 and
@@ -118,9 +135,10 @@ Phases, in order; any failed check raises, so the script exits non-zero:
 
 The kernel comparisons of phase 3/3b/3c happen before the counters are
 reset, so the ``launches`` reported are those of the main-path runs alone
-(K1-K3 from phase 4, the flash kernels from the flash-on run of phase 4b,
-K8 from phase 4c, K4/K5 from phase 4d); K1-K3 also carry
-``launches_sequential``, from phase 4e.
+(K1-K3 from phase 4, K1's tree route from phase 4f's hierarchical run,
+the flash kernels from the flash-on run of phase 4b, K8 from phase 4c,
+K4/K5 from phase 4d); K1-K3 also carry ``launches_sequential``, from phase
+4e.
 
 ``python3 chip_smoke.py --profile`` instead profiles one steady-state round
 per compression mode and engine (phases 4 and 4e), one steady LoRA round
@@ -131,6 +149,7 @@ device's busy share); ``--profile rwkv6`` profiles the last alone.
 """
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -257,13 +276,12 @@ def main():
     phase("4. the main path: femnist_cnn through init/run")
     repro_torch.set_device(None)          # the default: CUDA
     launches = {k: 0 for k in ops.launch_counts()}
-    batched_none = None
+    fused = {}                            # mode -> final params (CPU)
     for mode in ("none", "stc", "int8"):
-        used, params = run_slice(repro_torch, ops, mode)
+        used, fused[mode] = run_slice(repro_torch, ops, mode)
         for k, v in used.items():
             launches[k] += v
-        if mode == "none":
-            batched_none = params
+    batched_none = fused["none"]
     for row in kernels:
         row["launches"] = launches[row["counter"]]
 
@@ -310,6 +328,7 @@ def main():
             gap = conditioning_gap(repro_torch,
                                    femnist_config("none", "batched"), init,
                                    batched_none)
+            gaps = {"none": gap}        # phase 4f reuses it
             bar = max(1e-4, 2 * gap)
             print(f"[sequential none] final params vs phase 4's batched "
                   f"none: max |diff| {diff:.4g} ({'within' if diff <= 1e-4 else 'above'}"
@@ -318,9 +337,18 @@ def main():
             require(diff <= bar, f"sequential vs batched none: {diff} > "
                     f"{bar}")
     for row in kernels:          # K1-K3, the rows of phase 3
-        if "counter" in row:
-            row["launches_sequential"] = seq[row.pop("counter")]
+        if row.get("counter") in seq and row["counter"] != "fedavg_agg_tree":
+            row["launches_sequential"] = seq[row["counter"]]
     check_sequential_stage(repro_torch, dev)
+
+    phase("4f. the rest of the batched engine: femnist_cnn staged "
+          "(round_fusion off), hierarchical and deferred (round_sync off)")
+    tree_launches = run_batched_paths(repro_torch, ops, fused, gaps, init)
+    for row in kernels:
+        if row.get("counter") == "fedavg_agg_tree":
+            row["launches"] = tree_launches
+        row.pop("counter", None)
+    check_staged_stages(repro_torch, dev)
 
     phase("5. card against CPU")
     for execution in ("batched", "sequential"):
@@ -1193,6 +1221,7 @@ def check_kernels(dev, fedavg_agg, stc_topk, quant):
         errs["fedavg_agg"] = max(errs["fedavg_agg"], (k - p).abs().max().item())
         require(rel <= 1e-6, f"fedavg_agg ({n}, {d}): rel err {rel} > 1e-6")
         print(f"fedavg_agg ({n}, {d}): max rel err {rel:.3g}")
+    errs["fedavg_agg_tree"] = check_tree(gen, d_total, fedavg_agg)
     for n, d in shapes:
         x = rand(n, d)
         ko, kn = stc_topk.stc_compress_batched(x, 0.01)
@@ -1248,6 +1277,18 @@ def check_kernels(dev, fedavg_agg, stc_topk, quant):
         plain_ms=cuda_ms(lambda: fedavg_agg.fedavg_plain(u, w)),
         bound_ms=b, bound_by=by,
         library_ms=cuda_ms(lambda: w @ u)))
+    g = 2                             # the tree's first tier: 2 groups of 8
+    b, by = bound(4 * n * d + 4 * n + 4 * g * d, 2 * n * d)
+    rows.append(dict(
+        name="fedavg_agg_tree", counter="fedavg_agg_tree", route="cuda",
+        source="src/repro_torch/kernels/csrc/fedavg_agg.cu",
+        replaces="src/repro/kernels/fedavg_agg.py:114",
+        shape=[g, n // g, d], max_abs_err=errs["fedavg_agg_tree"],
+        ms=cuda_ms(lambda: fedavg_agg.fedavg_aggregate_grouped(u, w, g)),
+        plain_ms=cuda_ms(lambda: fedavg_agg.fedavg_grouped_plain(u, w, g)),
+        bound_ms=b, bound_by=by,
+        library_ms=cuda_ms(lambda: torch.einsum(
+            "gf,gfd->gd", w.view(g, -1), u.view(g, -1, d)))))
     del u
 
     n, d = N_BUCKET, 6422528          # fc1/w, the dominant leaf
@@ -1295,6 +1336,40 @@ def check_kernels(dev, fedavg_agg, stc_topk, quant):
               + (f"; device time {r['device_ms']:.4f} ms"
                  if "device_ms" in r else ""))
     return rows
+
+
+def check_tree(gen, d_total, fedavg_agg):
+    """K1's grouped route (the hierarchical tree) against its plain
+    version, bit for bit: the whole femnist update matrix through the tree
+    (16 rows, fanout 0: a tier of 2 groups of 8, then one group of 8 with
+    the 2 partials), one grouped launch of 2 groups of 8, and a ragged
+    launch (10 rows padded to 12 with zero rows, groups of 3, D =
+    1,000,003: the scalar path) -> the largest |kernel - plain|."""
+    worst = 0.0
+    cases = [("tree", N_BUCKET, d_total, 0), ("grouped", N_BUCKET, d_total, 2),
+             ("grouped", 10, 1000003, 4)]
+    for what, n, d, g in cases:
+        u = update_rows(gen, n, d)
+        w = torch.rand((n,), generator=gen, device=gen.device)
+        w /= w.sum()
+        if what == "tree":
+            k = fedavg_agg.fedavg_aggregate_tree(u, w, fanout=0)
+            p = fedavg_agg.fedavg_tree_plain(u, w, fanout=0)
+        else:
+            rows = -(-n // g) * g
+            u = torch.nn.functional.pad(u, (0, 0, 0, rows - n))
+            w = torch.nn.functional.pad(w, (0, rows - n))
+            k = fedavg_agg.fedavg_aggregate_grouped(u, w, g)
+            p = fedavg_agg.fedavg_grouped_plain(u, w, g)
+        torch.cuda.synchronize()
+        require(torch.equal(k.view(torch.int32), p.view(torch.int32)),
+                f"fedavg_agg {what} ({n}, {d}, groups {g}): not bitwise "
+                f"equal to its plain version")
+        worst = max(worst, (k - p).abs().max().item())
+        print(f"fedavg_agg {what} ({n} rows, D {d}, "
+              f"{'fanout 0' if what == 'tree' else f'{g} groups'}): "
+              f"bitwise equal to its plain version")
+    return worst
 
 
 def stc_bound(x, stc_topk, counts=True):
@@ -1356,18 +1431,29 @@ def conditioning_gap(repro_torch, cfg, init, final, seeds=(1, 2, 3)):
     return worst
 
 
-def run_slice(repro_torch, ops, mode, execution="batched"):
-    """femnist_cnn through ``init``/``run`` (phases 4 and 4e) -> (launch
-    counts of the run, final params on the CPU)."""
+def run_slice(repro_torch, ops, mode, execution="batched", resources=None,
+              tracking=None, tag=None, k1="fedavg_agg", per_round=None):
+    """femnist_cnn through ``init``/``run`` (phases 4, 4e and 4f) ->
+    (launch counts of the run, final params on the CPU).  ``resources``
+    and ``tracking`` override the configuration's; ``k1`` is the FedAvg kernel's counter
+    that must count one launch a tier a round (``fedavg_agg``: flat, one
+    tier; ``fedavg_agg_tree``: two tiers), the other none; ``per_round``
+    the dispatches and host syncs a round (default: the fused round's one
+    each, none for the sequential engine)."""
     import math
 
     from repro_torch.core import batched
 
     rounds = 3
-    tag = mode if execution == "batched" else f"{execution} {mode}"
+    tag = tag or (mode if execution == "batched" else f"{execution} {mode}")
+    cfg = femnist_config(mode, execution, rounds)
+    cfg["resources"].update(resources or {})
+    if tracking:
+        cfg["tracking"] = tracking
     repro_torch.reset()
-    repro_torch.init(femnist_config(mode, execution, rounds))
+    repro_torch.init(cfg)
     d0, h0 = batched.dispatch_count(), batched.host_sync_count()
+    gc.collect()                                     # earlier runs' cycles
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated() / 2**30    # earlier phases' tensors
     ops.reset_launch_counts()
@@ -1379,8 +1465,11 @@ def run_slice(repro_torch, ops, mode, execution="batched"):
     used = ops.launch_counts()
     hist = res["history"]
     print(f"[{tag}] launches {used}")
-    require(used["fedavg_agg"] == rounds, f"[{tag}] fedavg_agg launched "
-            f"{used['fedavg_agg']} times, expected {rounds}")
+    tiers = 2 if k1 == "fedavg_agg_tree" else 1
+    for k in ("fedavg_agg", "fedavg_agg_tree"):
+        want_k1 = rounds * tiers if k == k1 else 0
+        require(used[k] == want_k1, f"[{tag}] {k} launched {used[k]} "
+                f"times, expected {want_k1}")
     want = {"none": (), "stc": ("stc_batched",),
             "int8": ("int8_rowmax", "int8_qdq")}[mode]
     for k in ("stc_batched", "int8_rowmax", "int8_qdq"):
@@ -1388,15 +1477,15 @@ def run_slice(repro_torch, ops, mode, execution="batched"):
             require(used[k] > 0, f"[{tag}] {k} never launched")
         else:
             require(used[k] == 0, f"[{tag}] {k} launched outside its mode")
-    # the batched engine: one dispatch and one host sync a round; the
-    # sequential engine never enters it
-    per_round = rounds if execution == "batched" else 0
-    require(batched.dispatch_count() - d0 == per_round,
-            f"[{tag}] dispatches {batched.dispatch_count() - d0} != "
-            f"{per_round}")
-    require(batched.host_sync_count() - h0 == per_round,
-            f"[{tag}] host syncs {batched.host_sync_count() - h0} != "
-            f"{per_round}")
+    # the fused round: one dispatch and one host sync a round; the
+    # sequential engine never enters the batched one
+    if per_round is None:
+        per_round = (1, 1) if execution == "batched" else (0, 0)
+    for what, count, n in (("dispatches", batched.dispatch_count(), d0),
+                           ("host syncs", batched.host_sync_count(), h0)):
+        want_n = rounds * per_round[what == "host syncs"]
+        require(count - n == want_n, f"[{tag}] {what} {count - n} != "
+                f"{want_n}")
     for h in hist:
         require(math.isfinite(h["train_loss"]) and math.isfinite(h["loss"]),
                 f"[{tag}] non-finite loss in {h}")
@@ -1419,6 +1508,111 @@ def run_slice(repro_torch, ops, mode, execution="batched"):
           f"{[h['comm_up_bytes'] for h in hist]}")
     repro_torch.reset()
     return used, [t.cpu() for t in out]
+
+
+def run_batched_paths(repro_torch, ops, fused, gaps, init):
+    """Phase 4f: phase 4's configuration (a) on the staged path
+    (``round_fusion="off"``) for none / stc / int8, (b) hierarchical,
+    fused, fanout 0 (stc) and (c) with ``tracking.round_sync=False``
+    (int8).  Launch counts: K1 3 a run flat, 6 under the tree (two tiers,
+    one grouped launch each), K2 or K3 18 (6 leaves x 3 rounds).  Final
+    params against phase 4's run of the same mode (``fused``), printed
+    against 1e-4 and held within max(1e-4, 2 x how far phase 4's run of
+    that mode moves from 1e-7-perturbed inits; ``gaps`` caches it).
+    -> the tree run's grouped K1 launches."""
+    runs = [("staged none", "none", {"round_fusion": "off"}, "fedavg_agg",
+             (2, 1)),
+            ("staged stc", "stc", {"round_fusion": "off"}, "fedavg_agg",
+             (3, 2)),
+            ("staged int8", "int8", {"round_fusion": "off"}, "fedavg_agg",
+             (3, 1)),
+            ("hierarchical stc", "stc",
+             {"aggregation_topology": "hierarchical"}, "fedavg_agg_tree",
+             (1, 1)),
+            ("deferred int8", "int8", {}, "fedavg_agg", (1, 1))]
+    tree_launches = None
+    for tag, mode, res, k1, per_round in runs:
+        used, params = run_slice(
+            repro_torch, ops, mode, resources=res, tag=tag, k1=k1,
+            per_round=per_round, tracking={"round_sync": False}
+            if tag.startswith("deferred") else None)
+        for k in ("stc_batched", "int8_rowmax", "int8_qdq"):
+            require(used[k] in (0, 18), f"[{tag}] {k} launched {used[k]} "
+                    f"times, expected 18 (6 leaves x 3 rounds) or 0")
+        if k1 == "fedavg_agg_tree":
+            tree_launches = used[k1]
+        if mode not in gaps:
+            gaps[mode] = conditioning_gap(
+                repro_torch, femnist_config(mode, "batched"), init,
+                fused[mode])
+        diff = max_diff(params, fused[mode])
+        bar = max(1e-4, 2 * gaps[mode])
+        print(f"[{tag}] final params vs phase 4's fused {mode}: max |diff| "
+              f"{diff:.4g} ({'within' if diff <= 1e-4 else 'above'} 1e-4); "
+              f"phase 4's {mode} run from 1e-7-perturbed inits moves up to "
+              f"{gaps[mode]:.4g}; bar max(1e-4, 2 x that) = {bar:.4g}")
+        require(diff <= bar, f"[{tag}] vs fused {mode}: {diff} > {bar}")
+    return tree_launches
+
+
+def check_staged_stages(repro_torch, dev):
+    """The staged path's compression and aggregation stages on the card
+    against the same stages on the CPU, bit for bit, on one fixed stacked
+    cohort update: phase 4's round-0 cohort of 10 clients (16 rows)
+    trained on the card from seed 0.  For STC and int8, two rounds of
+    ``compress_stacked`` (the second corrects by the first's residual):
+    the sent values, the residual rows, the STC counts and the wire bytes;
+    then ``aggregate_stacked`` flat (K1) and hierarchical (the grouped
+    K1).  Called by ``tests/test_torch_cuda.py`` too."""
+    from repro_torch.core import api
+    from repro_torch.core.batched import BatchedExecutor
+    from repro_torch.core.rounds import Trainer
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    repro_torch.reset()
+    repro_torch.set_device(dev)
+    repro_torch.init(femnist_config("none", "batched"))
+    ctx = api._ctx
+    trainer = Trainer(ctx.config, ctx.model, ctx.fed_data,
+                      tracker=ctx.tracker)
+    params = ctx.model.init(torch.Generator().manual_seed(ctx.config.seed),
+                            dev)
+    clients = [trainer.client(c) for c in trainer.server.selection(
+        ctx.fed_data.client_ids, 0)]
+    st = trainer.engine.run_cohort_stacked(clients, params, 0)
+    cpu = torch.device("cpu")
+    for mode in ("stc", "int8"):
+        out = []
+        for where in (dev, cpu):
+            engine = BatchedExecutor(ctx.model, where)
+            s = dict(st, updates=tree_map(lambda t: t.to(where),
+                                          st["updates"]))
+            got = []
+            for _ in range(2):
+                c = engine.compress_stacked(s, clients, mode, 0.01)
+                got += [tree_leaves(c["updates"]),
+                        engine._ef.gather([x.client_id for x in clients]),
+                        [t for t in c["nnz"] if t is not None],
+                        engine.per_client_payload_bytes(c)]
+            got += [tree_leaves(engine.aggregate_stacked(
+                        c, use_kernel=True)),
+                    tree_leaves(engine.aggregate_stacked(
+                        c, use_kernel=True, topology="hierarchical"))]
+            out.append(got)
+        card, host = out
+        names = ["sent", "residual", "nnz", "bytes"] * 2 + ["delta flat",
+                                                             "delta tree"]
+        for name, a, b in zip(names, card, host):
+            ok = a == b if name == "bytes" else (
+                len(a) == len(b) and same_bits_tree(a, b))
+            require(ok, f"staged {mode}: {name} differ between card and CPU")
+        print(f"[staged stages {mode}] 10 clients, 2 rounds of "
+              f"compress_stacked + aggregate_stacked (flat and tree): card "
+              f"= CPU bit for bit (sent, residual, "
+              f"{'nnz, ' if mode == 'stc' else ''}bytes, deltas); bytes "
+              f"{sum(card[7])}")
+    repro_torch.set_device(None)
+    repro_torch.reset()
 
 
 def same_bits_tree(a, b):

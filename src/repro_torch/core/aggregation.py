@@ -37,21 +37,26 @@ def weighted_train_loss(results: List[Dict]) -> float:
 def weighted_average(updates: List[PyTree], weights: np.ndarray,
                      use_kernel: bool = False, topology: str = "flat",
                      fanout: int = 0) -> PyTree:
-    """Weighted mean over a list of trees of equal structure (flat
-    topology; the hierarchical tree is ROADMAP M5)."""
-    if topology != "flat":
-        raise NotImplementedError(
-            "aggregation_topology='hierarchical' is not ported to "
-            "repro_torch yet (ROADMAP M5)")
+    """Weighted mean over a list of trees of equal structure.
+
+    ``topology="hierarchical"`` reduces the stacked (N, D) matrix through
+    the edge -> region -> global tree
+    (``kernels.fedavg_agg.fedavg_aggregate_tree``, grouped K1 launches
+    under ``use_kernel``) with ``fanout`` children per node — bit-equal to
+    flat when ``fanout >= len(updates)``."""
     leaves0, treedef = tree_flatten(updates[0])
     device = leaves0[0].device
     w = torch.as_tensor(np.asarray(weights, np.float32), device=device)
-    if use_kernel:
+    if use_kernel or topology == "hierarchical":
         from repro_torch.kernels import ops as kops
         flat = torch.stack([
             torch.cat([leaf.reshape(-1).to(torch.float32)
                        for leaf in tree_flatten(u)[0]]) for u in updates])
-        delta = kops.fedavg_aggregate(flat, w)
+        if topology == "hierarchical":
+            delta = kops.fedavg_aggregate_tree(flat, w, fanout=fanout,
+                                               use_kernel=use_kernel)
+        else:
+            delta = kops.fedavg_aggregate(flat, w)
         out, off = [], 0
         for leaf in leaves0:
             out.append(delta[off: off + leaf.numel()].reshape(leaf.shape))

@@ -194,9 +194,9 @@ def register_model(model) -> None:
 
 def register_server(server_cls) -> None:
     """Use ``server_cls`` (a :class:`repro_torch.core.server.Server`
-    subclass) for subsequent ``run()`` calls.  The sequential engine runs
-    its stage overrides; under ``"batched"`` an ``aggregation`` or
-    ``apply_delta`` override needs the staged path (ROADMAP M5.4)."""
+    subclass) for subsequent ``run()`` calls.  Both engines run its stage
+    overrides; under ``"batched"`` an ``apply_delta`` override takes the
+    staged path and an ``aggregation`` override the gathering path."""
     _ctx.server_cls = server_cls
 
 
@@ -205,7 +205,7 @@ def register_client(client_cls) -> None:
     subclass) for subsequent runs.  The sequential engine (the default
     ``execution``) runs every stage override; under ``"batched"`` a
     ``train`` override raises, as in the reference, and compression /
-    encryption / upload overrides need the gathering path (ROADMAP M5.4)."""
+    encryption / upload overrides take the gathering path."""
     _ctx.client_cls = client_cls
 
 

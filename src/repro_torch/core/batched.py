@@ -11,11 +11,22 @@ training: per-leaf error-feedback (EF) correction, in-program STC or int8
 compression with the EF residual update (hand-written CUDA kernels,
 ``repro_torch.kernels``), the flat (N_b, D) update matrix, FedAvg (the
 streaming CUDA kernel with ``resources.aggregation_kernel``, else
-``torch.einsum``) and the server apply ``p + server_lr * delta``.
-:meth:`BatchedExecutor.run_round_fused` dispatches it and performs the
-round's ONE device-to-host transfer (loss, accuracy and every per-leaf STC
-count, stacked together).  The program runs eagerly; CUDA-graph capture per
-bucket is ROADMAP M5.
+``torch.einsum``; the hierarchical tree of grouped K1 launches under
+``resources.aggregation_topology="hierarchical"``) and the server apply
+``p + server_lr * delta``.  :meth:`BatchedExecutor.run_round_fused`
+dispatches it and performs the round's ONE device-to-host transfer (loss,
+accuracy and every per-leaf STC count, stacked together) — at once, or
+later through a ``fetch`` closure (``tracking.round_sync=False``).  The
+program runs eagerly; CUDA-graph capture per bucket is ROADMAP M5.3.
+
+The staged path (``round_fusion="off"``, or a round the fused program
+cannot take) runs the same arithmetic in three stages —
+:meth:`~BatchedExecutor.run_cohort_stacked`,
+:meth:`~BatchedExecutor.compress_stacked`,
+:meth:`~BatchedExecutor.aggregate_stacked` — through the helpers the fused
+program uses, so the two agree bit for bit.  The gathering path
+(:meth:`~BatchedExecutor.run_cohort`) hands back per-client
+``Client.train``-shaped results for the clients' own post-train stages.
 
 Under ``client.finetune = "lora"`` the model is the LoRA wrapper
 (``repro_torch.models.lora``): the stacked leaves are the adapter factors
@@ -46,7 +57,7 @@ from __future__ import annotations
 
 import time
 from functools import lru_cache
-from typing import Any, Dict, List, NamedTuple, Sequence
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -91,13 +102,16 @@ def round_trace_count() -> int:
 
 
 def dispatch_count() -> int:
-    """Executor-level program dispatches this process (1 per fused round)."""
+    """Executor-level program dispatches this process: each stage handed to
+    the device — 1 per fused round; on the staged path cohort training,
+    compression and aggregation one each, as the reference counts them."""
     return _dispatches
 
 
 def host_sync_count() -> int:
     """Device->host synchronization points of the round pipeline this
-    process (1 per fused round: its single batched fetch)."""
+    process: 1 per fused round (its single batched fetch); on the staged
+    path the cohort's metric fetch, plus one for the STC counts."""
     return _host_syncs
 
 
@@ -185,10 +199,49 @@ def _one_client_fn(model: FLModel, optimizer: TracedOptimizer, steps: int,
     return cohort
 
 
+def _compress_rows(corrected: torch.Tensor, method: str,
+                   stc_sparsity: float):
+    """One error-corrected (N_b, size) leaf -> (sent, STC counts or None).
+    Leaves under ``DENSE_MIN_ELEMS`` elements stay dense."""
+    from repro_torch.core.compression import DENSE_MIN_ELEMS
+    from repro_torch.kernels import ops as kops
+
+    if corrected.shape[1] < DENSE_MIN_ELEMS:
+        return corrected, None
+    if method == "stc":
+        return kops.stc_compress_batched(corrected, stc_sparsity)
+    return kops.int8_roundtrip_batched(corrected)[0], None
+
+
+def _aggregate(flat: torch.Tensor, weights: torch.Tensor, use_kernel: bool,
+               topology: str, fanout: int) -> torch.Tensor:
+    """FedAvg of the (N_b, D) update matrix: the tree of grouped K1
+    launches (``hierarchical``), K1 (``use_kernel``) or one einsum."""
+    from repro_torch.kernels import ops as kops
+
+    if topology == "hierarchical":
+        return kops.fedavg_aggregate_tree(flat, weights, fanout=fanout,
+                                          use_kernel=use_kernel)
+    if use_kernel:
+        return kops.fedavg_aggregate(flat, weights)
+    return torch.einsum("n,nd->d", weights, flat)
+
+
+def _unflatten_delta(delta: torch.Tensor, leaves, treedef) -> PyTree:
+    """Cut the (D,) delta into the stacked leaves' per-client shapes."""
+    out, off = [], 0
+    for leaf in leaves:
+        size = leaf[0].numel()
+        out.append(delta[off: off + size].reshape(leaf.shape[1:]))
+        off += size
+    return tree_unflatten(treedef, out)
+
+
 @lru_cache(maxsize=16)
 def make_round_program(model: FLModel, optimizer: TracedOptimizer,
                        steps: int, use_prox: bool, use_clip: bool,
                        method: str = "none", stc_sparsity: float = 0.01,
+                       topology: str = "flat", fanout: int = 0,
                        use_kernel: bool = False, server_lr: float = 1.0):
     """The whole round as one function (``resources.round_fusion="auto"``).
 
@@ -205,6 +258,8 @@ def make_round_program(model: FLModel, optimizer: TracedOptimizer,
       rows of the cohort, so they read a zero residual and are never
       written back — the reference reaches the same with an out-of-bounds
       sentinel row.  ``()`` and unused under ``method="none"``.
+    * ``topology`` / ``fanout`` — flat FedAvg, or the hierarchical tree
+      (``kernels.fedavg_agg.fedavg_aggregate_tree``).
     * ``nnz`` — per-STC-leaf (N_b,) non-zero counts (empty otherwise).
     """
     global _round_builds
@@ -213,9 +268,6 @@ def make_round_program(model: FLModel, optimizer: TracedOptimizer,
 
     def round_fn(global_params, x, y, idx, n_steps, vec, weights, ef_leaves,
                  ef_rows):
-        from repro_torch.core.compression import DENSE_MIN_ELEMS
-        from repro_torch.kernels import ops as kops
-
         nb = x.shape[0]
         stacked = tree_map(
             lambda p: p.unsqueeze(0).expand((nb,) + tuple(p.shape)),
@@ -226,40 +278,24 @@ def make_round_program(model: FLModel, optimizer: TracedOptimizer,
         leaves, treedef = tree_flatten(updates)
         flat_leaves, nnz_list = [], []
         for li, leaf in enumerate(leaves):
-            size = leaf[0].numel()
-            flat = leaf.reshape(nb, size).to(torch.float32)
+            flat = leaf.reshape(nb, leaf[0].numel()).to(torch.float32)
             if method != "none":
                 ef = ef_leaves[li]
                 # error-correct by the stored residual (0 for padded rows)
                 res = F.pad(ef.index_select(0, ef_rows),
                             (0, 0, 0, nb - ef_rows.shape[0]))
                 corrected = (flat + res).contiguous()
-                if size < DENSE_MIN_ELEMS:   # tiny tensors stay dense
-                    sent = corrected
-                elif method == "stc":
-                    sent, nnz = kops.stc_compress_batched(corrected,
-                                                          stc_sparsity)
+                sent, nnz = _compress_rows(corrected, method, stc_sparsity)
+                if nnz is not None:
                     nnz_list.append(nnz)
-                else:
-                    sent, _ = kops.int8_roundtrip_batched(corrected)
                 ef.index_copy_(0, ef_rows,
                                (corrected - sent)[: ef_rows.shape[0]])
                 flat = sent
             flat_leaves.append(flat)
         flat = (flat_leaves[0] if len(flat_leaves) == 1
                 else torch.cat(flat_leaves, dim=1)).contiguous()
-
-        if use_kernel:
-            delta = kops.fedavg_aggregate(flat, weights)
-        else:
-            delta = torch.einsum("n,nd->d", weights, flat)
-
-        out, off = [], 0
-        for leaf in leaves:
-            size = leaf[0].numel()
-            out.append(delta[off: off + size].reshape(leaf.shape[1:]))
-            off += size
-        delta_tree = tree_unflatten(treedef, out)
+        delta = _aggregate(flat, weights, use_kernel, topology, fanout)
+        delta_tree = _unflatten_delta(delta, leaves, treedef)
         # the server apply (aggregation.apply_delta), in-program
         new_global = tree_map(
             lambda p, d: (p.to(torch.float32) + server_lr * d).to(p.dtype),
@@ -270,14 +306,16 @@ def make_round_program(model: FLModel, optimizer: TracedOptimizer,
 
 
 class BatchedExecutor:
-    """Runs a cohort of :class:`repro_torch.core.client.Client` objects as
-    one round program on ``device``."""
+    """Runs a cohort of :class:`repro_torch.core.client.Client` objects on
+    ``device``: as one round program (:meth:`run_round_fused`), as the
+    staged path's three stages, or as per-client ``Client.train``-shaped
+    results for the clients' own post-train stages (:meth:`run_cohort`)."""
 
     #: bound on the *device-resident* tier of the per-client data pool
     #: (rows); evicted rows are recomputed from ``c.data``
     DATA_POOL_MAX_CLIENTS = 1024
     #: bound on the device-resident tier of the error-feedback residual
-    #: store; evicted residuals spill to host numpy copies and reload
+    #: store; evicted residuals spill to pinned host copies and reload
     #: bit-identically
     EF_MAX_CLIENTS = 1024
 
@@ -286,7 +324,7 @@ class BatchedExecutor:
         if distributed != "none":
             raise NotImplementedError(
                 "resources.distributed='data' (the sharded cohort) is not "
-                "ported to repro_torch yet (ROADMAP M5)")
+                "ported to repro_torch yet (ROADMAP M5.7)")
         self.model = model
         self.device = device
         self.distributed = distributed
@@ -303,6 +341,19 @@ class BatchedExecutor:
         rows = [cyclic_batches(len(client.data), client._batch_size(), seed + e)
                 for e in range(client.cfg.local_epochs)]
         return np.concatenate(rows).astype(np.int64)
+
+    # ------------------------------------------------------------------
+    def invalidate_data(self, client_id: Optional[str] = None) -> None:
+        """Drop cached device data so the next round re-reads ``c.data``:
+        one client's rows, or (no argument) the whole pool.  The pool
+        assumes static client datasets; code that swaps a client's data
+        mid-run calls this."""
+        if self._pool is None:
+            return
+        if client_id is None:
+            self._pool = None
+        else:
+            self._pool.drop(client_id)
 
     # ------------------------------------------------------------------
     def _stacked_data(self, clients: Sequence, n_bucket: int, maxn: int):
@@ -448,24 +499,89 @@ class BatchedExecutor:
         return Nb, S, vec, optimizer, xd, yd, idx, n_steps
 
     # ------------------------------------------------------------------
+    def _ef_store(self, sizes: List[int]):
+        """The EF residual store (built at first use), checked against the
+        update's leaf sizes."""
+        from repro_torch.core.tiered_store import TieredRowStore
+
+        if self._ef is None:
+            self._ef = TieredRowStore(self.EF_MAX_CLIENTS, spill="host",
+                                      device=self.device, name="ef-store")
+        if self._ef.leaves and \
+                [m.shape[1] for m in self._ef.leaves] != sizes:
+            raise ValueError(
+                "error-feedback store leaf sizes "
+                f"{[m.shape[1] for m in self._ef.leaves]} do not match "
+                f"the update structure {sizes}; one executor serves one "
+                f"model")
+        return self._ef
+
+    def _put(self, a):
+        return torch.as_tensor(a, device=self.device)
+
+    def _vec(self, vec: CohortVectors) -> CohortVectors:
+        return CohortVectors(self._put(vec.mu), self._put(vec.max_norm),
+                             tree_map(self._put, vec.hp))
+
+    # ------------------------------------------------------------------
+    def run_cohort_stacked(self, clients: Sequence, global_params: PyTree,
+                           round_id: int) -> Dict[str, Any]:
+        """Train the cohort and return the *stacked* results: ``updates``
+        (a tree of (N_b, ...) f32 device tensors), host ``loss`` / ``acc``
+        / ``n_steps`` (N_b,), ``num_samples`` (N,) and ``wall``, the
+        blocking training time, which ends with the one fetch of loss and
+        accuracy (one dispatch, one host sync)."""
+        Nb, S, vec, optimizer, xd, yd, idx, n_steps = self._cohort_inputs(
+            clients, round_id)
+        # the fused program's own training body
+        cohort = _one_client_fn(self.model, optimizer, S,
+                                use_prox=bool((vec.mu > 0).any()),
+                                use_clip=bool((vec.max_norm > 0).any()))
+        stacked = tree_map(
+            lambda p: p.unsqueeze(0).expand((Nb,) + tuple(p.shape)),
+            global_params)
+        t0 = time.perf_counter()
+        updates, loss, acc = cohort(stacked, xd, yd, self._put(idx),
+                                    self._put(n_steps), self._vec(vec),
+                                    global_params)
+        _note_dispatch()
+        # the timing boundary: ``wall`` feeds the virtual clock
+        fetched = torch.stack([loss, acc]).cpu().numpy()
+        _note_host_sync()
+        wall = time.perf_counter() - t0
+        return {
+            "updates": updates,
+            "loss": fetched[0],
+            "acc": fetched[1],
+            "n_steps": n_steps,
+            "num_samples": np.asarray([len(c.data) for c in clients],
+                                      dtype=np.int64),
+            "wall": wall,
+        }
+
+    # ------------------------------------------------------------------
     def run_round_fused(self, clients: Sequence, global_params: PyTree,
                         round_id: int, *, method: str = "none",
                         stc_sparsity: float = 0.01, use_kernel: bool = False,
-                        server_lr: float = 1.0):
+                        topology: str = "flat", fanout: int = 0,
+                        server_lr: float = 1.0, sync: bool = True):
         """Run the whole round as ONE dispatch (:func:`make_round_program`).
 
-        Returns ``(st, new_global_params)``.  ``st`` holds host numpy
-        ``loss`` / ``acc`` (N_b,), the per-leaf STC ``nnz`` layout,
-        ``n_steps``, ``num_samples`` and ``wall`` — the blocking round time
-        (the virtual clock's boundary), which ends with the round's single
-        batched device->host transfer.  The EF residual store is updated
-        in place."""
+        Returns ``(st, new_global_params, fetch)``.  ``st`` holds
+        ``n_steps``, ``num_samples`` and the per-leaf sizes; the round's
+        single batched device->host transfer fills in host numpy ``loss``
+        / ``acc`` (N_b,) and the per-leaf STC ``nnz`` layout.  With
+        ``sync=True`` that fetch has happened, ``fetch`` is None and
+        ``wall`` is the blocking round time (the virtual clock's
+        boundary).  With ``sync=False`` (``tracking.round_sync``) the call
+        returns after submission: ``wall`` is the submission time and the
+        caller runs ``fetch()`` later, typically after dispatching the next
+        round.  The EF residual store is updated in place."""
         Nb, S, vec, optimizer, xd, yd, idx, n_steps = self._cohort_inputs(
             clients, round_id)
         from repro_torch.core.aggregation import fedavg_weights
         from repro_torch.core.compression import DENSE_MIN_ELEMS
 
-        dev = self.device
         N = len(clients)
         num_samples = np.asarray([len(c.data) for c in clients],
                                  dtype=np.int64)
@@ -474,22 +590,10 @@ class BatchedExecutor:
 
         sizes = [int(leaf.numel()) for leaf in tree_leaves(global_params)]
         if method != "none":
-            from repro_torch.core.tiered_store import TieredRowStore
-
-            if self._ef is None:
-                self._ef = TieredRowStore(self.EF_MAX_CLIENTS, spill="host",
-                                          device=dev, name="ef-store")
-            if self._ef.leaves and \
-                    [m.shape[1] for m in self._ef.leaves] != sizes:
-                raise ValueError(
-                    "error-feedback store leaf sizes "
-                    f"{[m.shape[1] for m in self._ef.leaves]} do not match "
-                    f"the update structure {sizes}; one executor serves one "
-                    f"model")
-            rows = self._ef.ensure(
-                [c.client_id for c in clients],
-                lambda cid: [np.zeros((s,), np.float32) for s in sizes])
-            ef_leaves = tuple(self._ef.leaves)
+            ef = self._ef_store(sizes)
+            rows = ef.ensure([c.client_id for c in clients],
+                             zero_shapes=[(s,) for s in sizes])
+            ef_leaves = tuple(ef.leaves)
         else:
             ef_leaves, rows = (), np.zeros((0,), np.int64)
 
@@ -498,45 +602,130 @@ class BatchedExecutor:
             use_prox=bool((vec.mu > 0).any()),
             use_clip=bool((vec.max_norm > 0).any()),
             method=method, stc_sparsity=float(stc_sparsity),
-            use_kernel=use_kernel, server_lr=float(server_lr))
-
-        def put(a):
-            return torch.as_tensor(a, device=dev)
+            topology=topology, fanout=int(fanout), use_kernel=use_kernel,
+            server_lr=float(server_lr))
 
         t0 = time.perf_counter()
         new_global, loss, acc, nnz = program(
-            global_params, xd, yd, put(idx), put(n_steps),
-            CohortVectors(put(vec.mu), put(vec.max_norm),
-                          tree_map(put, vec.hp)),
-            put(w), ef_leaves, put(rows))
+            global_params, xd, yd, self._put(idx), self._put(n_steps),
+            self._vec(vec), self._put(w), ef_leaves, self._put(rows))
         _note_dispatch()
-        # the round's ONE batched device->host transfer (it also blocks on
-        # the whole round: the timing boundary)
-        fetched = torch.stack([loss, acc, *nnz]).cpu().numpy()
-        _note_host_sync()
-        wall = time.perf_counter() - t0
-
-        counts = iter(fetched[2:])
         st: Dict[str, Any] = {
             "n_steps": n_steps,
             "num_samples": num_samples,
             "compression": method,
             "comp_sizes": sizes,
-            "loss": fetched[0],
-            "acc": fetched[1],
-            # one entry per leaf, None for leaves without an STC count
-            "nnz": [next(counts) if method == "stc" and s >= DENSE_MIN_ELEMS
-                    else None for s in sizes],
-            "wall": wall,
         }
-        return st, new_global
+
+        def fetch():
+            # the round's ONE batched device->host transfer
+            fetched = torch.stack([loss, acc, *nnz]).cpu().numpy()
+            _note_host_sync()
+            counts = iter(fetched[2:])
+            st["loss"], st["acc"] = fetched[0], fetched[1]
+            # one entry per leaf, None for leaves without an STC count
+            st["nnz"] = [next(counts) if method == "stc"
+                         and s >= DENSE_MIN_ELEMS else None for s in sizes]
+
+        if sync:
+            fetch()        # it also blocks on the whole round: the boundary
+            st["wall"] = time.perf_counter() - t0
+            return st, new_global, None
+        st["wall"] = time.perf_counter() - t0      # submission time
+        return st, new_global, fetch
+
+    # ------------------------------------------------------------------
+    def run_cohort(self, clients: Sequence, global_params: PyTree,
+                   round_id: int) -> List[Dict[str, Any]]:
+        """Train ``clients`` as one cohort; one ``Client.train``-shaped
+        dict per client (``update``, ``num_samples``, ``metrics``,
+        ``train_time``), in cohort order — the gathering path, ready for
+        each client's compression / encryption / upload stages."""
+        if not clients:
+            return []
+        st = self.run_cohort_stacked(clients, global_params, round_id)
+        return self.per_client_results(clients, st)
+
+    # ------------------------------------------------------------------
+    def _ef_gather(self, clients: Sequence, leaves: List[torch.Tensor]):
+        """The cohort's EF residual rows, one (N, leaf_size) f32 device
+        tensor per update leaf, keyed by client id: hot rows gather on the
+        device, spilled rows reload from pinned host copies, new clients
+        start from device zeros.  -> (rows per leaf, client ids)."""
+        sizes = [leaf[0].numel() for leaf in leaves]
+        ids = [c.client_id for c in clients]
+        res = self._ef_store(sizes).gather(
+            ids, zero_shapes=[(s,) for s in sizes])
+        return res, ids
+
+    # ------------------------------------------------------------------
+    def compress_stacked(self, st: Dict[str, Any], clients: Sequence,
+                         method: str,
+                         stc_sparsity: float = 0.01) -> Dict[str, Any]:
+        """The staged compression stage: each stacked leaf, flattened to
+        (N_b, size) and error-corrected by the client's stored residual,
+        goes through the batched kernel (K2 for STC, K3a + K3b for int8;
+        leaves under ``DENSE_MIN_ELEMS`` stay dense); the new residual
+        (corrected - sent) is scattered back to the store.  Returns a copy
+        of ``st`` whose ``updates`` are the sent values, with ``nnz`` (one
+        (N_b,) device count per STC leaf, else None), ``comp_sizes`` and
+        ``compression``.  Same arithmetic as the fused program."""
+        if method not in ("stc", "int8"):
+            raise ValueError(
+                f"unknown in-program compression {method!r}; expected "
+                f"'stc' or 'int8'")
+        leaves, treedef = tree_flatten(st["updates"])
+        nb = leaves[0].shape[0]
+        n = len(clients)
+        residuals, ids = self._ef_gather(clients, leaves)
+        sent_leaves, new_res, nnz_list, sizes = [], [], [], []
+        for leaf, res in zip(leaves, residuals):
+            size = leaf[0].numel()
+            sizes.append(size)
+            flat = leaf.reshape(nb, size).to(torch.float32)
+            corrected = (flat + F.pad(res, (0, 0, 0, nb - n))).contiguous()
+            sent, nnz = _compress_rows(corrected, method, stc_sparsity)
+            new_res.append((corrected - sent)[:n])
+            sent_leaves.append(sent.reshape(leaf.shape))
+            nnz_list.append(nnz)
+        self._ef.scatter(ids, new_res)
+        _note_dispatch()               # the staged compression stage
+        out = dict(st)
+        out["updates"] = tree_unflatten(treedef, sent_leaves)
+        out["nnz"] = nnz_list
+        out["comp_sizes"] = sizes
+        out["compression"] = method
+        return out
+
+    # ------------------------------------------------------------------
+    def aggregate_stacked(self, st: Dict[str, Any], use_kernel: bool = False,
+                          topology: str = "flat",
+                          fanout: int = 0) -> PyTree:
+        """The staged aggregation stage: FedAvg of the stacked updates as
+        one (N_b, D) matrix — flat (K1 under ``use_kernel``, else one
+        einsum) or the hierarchical tree — with no per-client slicing.
+        Returns the (f32) delta as a tree shaped like the global params."""
+        from repro_torch.core.aggregation import fedavg_weights
+
+        leaves, treedef = tree_flatten(st["updates"])
+        nb = leaves[0].shape[0]
+        num_samples = st["num_samples"]
+        w = np.zeros((nb,), np.float32)
+        w[: len(num_samples)] = fedavg_weights(num_samples)
+        flat = torch.cat([leaf.reshape(nb, -1).to(torch.float32)
+                          for leaf in leaves], dim=1).contiguous()
+        delta = _aggregate(flat, self._put(w), use_kernel, topology, fanout)
+        _note_dispatch()               # the staged aggregation stage
+        return _unflatten_delta(delta, leaves, treedef)
 
     # ------------------------------------------------------------------
     @staticmethod
     def per_client_payload_bytes(st: Dict[str, Any]) -> List[int]:
-        """Wire sizes of a compressed round, from the pre-fetched counts:
-        STC leaves from the per-client nnz, int8 leaves 1 byte/element +
-        scale, tiny dense leaves (< ``DENSE_MIN_ELEMS``) raw f32 bytes."""
+        """Wire sizes of a compressed round: STC leaves from the per-client
+        nnz (device counts of the staged path fetched in one transfer, one
+        host sync; the fused round's are fetched already), int8 leaves 1
+        byte/element + scale, tiny dense leaves (< ``DENSE_MIN_ELEMS``) raw
+        f32 bytes."""
         from repro_torch.core.compression import (
             DENSE_MIN_ELEMS, stc_leaf_bytes,
         )
@@ -550,7 +739,36 @@ class BatchedExecutor:
             elif method == "int8":
                 base += size + 4                      # int8 + scale
         totals = np.full((n,), base, np.int64)
-        for counts in st["nnz"]:
-            if counts is not None:
-                totals += stc_leaf_bytes(np.asarray(counts)[:n].astype(np.int64))
+        stc_nnz = [a for a in st["nnz"] if a is not None]
+        if any(isinstance(a, torch.Tensor) for a in stc_nnz):
+            stc_nnz = list(torch.stack(stc_nnz).cpu().numpy())
+            _note_host_sync()
+        for counts in stc_nnz:
+            totals += stc_leaf_bytes(np.asarray(counts)[:n].astype(np.int64))
         return totals.tolist()
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def per_client_results(clients: Sequence, st: Dict[str, Any],
+                           include_update: bool = True
+                           ) -> List[Dict[str, Any]]:
+        """Slice stacked results into ``Client.train``-shaped dicts; the
+        shared wall time becomes per-client base times by step share (the
+        virtual clock).  ``include_update=False`` leaves the updates out
+        (the staged path aggregates them stacked)."""
+        updates, n_steps, wall = st["updates"], st["n_steps"], st["wall"]
+        total_steps = max(int(n_steps.sum()), 1)
+        loss, acc = st["loss"].tolist(), st["acc"].tolist()
+        steps_f = n_steps.astype(np.float64).tolist()
+        results = []
+        for i, c in enumerate(clients):
+            res = {
+                "num_samples": len(c.data),
+                "metrics": {"loss": loss[i], "accuracy": acc[i],
+                            "batches": steps_f[i]},
+                "train_time": wall * steps_f[i] / total_steps,
+            }
+            if include_update:
+                res["update"] = tree_map(lambda a, i=i: a[i], updates)
+            results.append(res)
+        return results

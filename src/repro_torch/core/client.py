@@ -6,9 +6,11 @@ Stage pipeline per round:
 
 Subclass and override any stage to implement a new algorithm (§V-B); the
 sequential engine runs every stage of every client.  The batched engine
-vectorizes ``train`` across the cohort and runs the built-in compression
-in-program, reading only the client's id, data, config, optimizer and
-batch size.
+vectorizes ``train`` across the cohort, reading only the client's id,
+data, config, optimizer and batch size; it runs the built-in compression
+in-program, or — under a compression / encryption / upload override or a
+non-FedAvg server — each client's own post-train stages on its slice of
+the cohort's updates (the gathering path).
 """
 from __future__ import annotations
 
@@ -74,9 +76,10 @@ class Client:
 
     def compression(self, result: Dict[str, Any]) -> Dict[str, Any]:
         """Built-in update compression with error feedback.  The batched
-        engine runs the same stage in-program (the same kernels, and a
-        device-resident residual store with the semantics of
-        ``self._residual``) and never calls this method."""
+        engine's fused and staged paths run the same stage in-program (the
+        same kernels, and a device-resident residual store with the
+        semantics of ``self._residual``); its gathering path calls this
+        method."""
         method = self.cfg.compression
         if method in ("none", "", None):
             return result

@@ -437,7 +437,7 @@ class ResourceConfig:
     ``torch.einsum`` path computes the same sum.
 
     ``distributed`` would shard the batched engine across devices
-    (``"data"``; not ported yet: ROADMAP M5); ``"none"`` runs the cohort on
+    (``"data"``; not ported yet: ROADMAP M5.7); ``"none"`` runs the cohort on
     one device.
     """
 
@@ -451,7 +451,7 @@ class ResourceConfig:
     # Aggregation reduction topology: "flat" is the single weighted sum;
     # "hierarchical" reduces the cohort through an edge->region->global
     # tree of streaming tiers with aggregation_fanout children per node
-    # (not ported yet: ROADMAP M5; docs/scale.md describes the reference).
+    # (one grouped FedAvg-kernel launch a tier under aggregation_kernel).
     # Bit-equal to flat when the fanout covers the whole cohort.
     aggregation_topology: str = "flat"   # flat | hierarchical
     aggregation_fanout: int = 0       # children per tree node (0 = sqrt(N);

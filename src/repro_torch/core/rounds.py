@@ -13,10 +13,16 @@ of the device groups, Eq. 1:
 
 Two engines are ported.  ``resources.execution="sequential"`` (the
 default) runs every stage of every selected client in turn — each stage
-overridable — then ``Server.aggregation``.  ``"batched"`` with
-``round_fusion="auto"`` runs the fused round program
-(``core/batched.py``).  Both run flat aggregation, no faults or deadlines,
-synchronous rounds; LoRA runs under ``batched``.  Every configuration
+overridable — then ``Server.aggregation``.  ``"batched"`` trains the
+cohort as one stacked program (``core/batched.py``) and takes one of three
+paths, as the reference does: the fused round (``round_fusion="auto"``),
+the staged path (``"off"``, or a round with a ``Server.apply_delta``
+override) and the gathering path (a non-FedAvg aggregator, a
+``Server.aggregation`` override or a ``Client`` compression / encryption /
+upload override: each client's own post-train stages, then
+``Server.aggregation``).  Both engines run flat or hierarchical FedAvg;
+``tracking.round_sync=False`` defers each round's metric fetch behind the
+next round's dispatch; LoRA runs under ``batched``.  Every configuration
 outside that raises ``NotImplementedError`` naming the ROADMAP item that
 ports it — at construction, never as a silent detour.
 """
@@ -24,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
@@ -57,36 +64,24 @@ def unported_config(cfg: Config) -> List[str]:
     """Every setting of ``cfg`` outside the ported engines, each with the
     ROADMAP item that ports it (empty when they cover ``cfg``)."""
     res = cfg.resources
-    batched = res.execution == "batched"
     out = []
     if res.execution == "async":
         out.append("resources.execution='async' (ROADMAP M7)")
     if res.execution == "sequential" and cfg.client.finetune == "lora":
         out.append("client.finetune='lora' under resources.execution="
                    "'sequential' (ROADMAP M8)")
-    if batched and res.round_fusion != "auto":
-        out.append(f"resources.round_fusion={res.round_fusion!r}, the staged "
-                   f"batched path (ROADMAP M5)")
-    if batched and res.distributed != "none":
-        out.append(f"resources.distributed={res.distributed!r} (ROADMAP M5)")
-    if res.aggregation_topology != "flat":
-        out.append(f"resources.aggregation_topology="
-                   f"{res.aggregation_topology!r} (ROADMAP M5)")
+    if res.execution == "batched" and res.distributed != "none":
+        out.append(f"resources.distributed={res.distributed!r} "
+                   f"(ROADMAP M5.7)")
     if cfg.faults.active:
         out.append("fault injection, cfg.faults (ROADMAP M6)")
     if res.round_deadline > 0:
         out.append("resources.round_deadline > 0 (ROADMAP M6)")
     if cfg.checkpoint.every:
         out.append("checkpointing, checkpoint.every > 0 (ROADMAP M6)")
-    if not cfg.tracking.round_sync:
-        out.append("tracking.round_sync=False (ROADMAP M5)")
     if cfg.server.aggregation == "fedbuff":
         out.append("server.aggregation='fedbuff', buffered asynchronous "
                    "aggregation (ROADMAP M7)")
-    elif batched and cfg.server.aggregation != "fedavg":
-        out.append(f"server.aggregation={cfg.server.aggregation!r} under "
-                   f"resources.execution='batched', the gathering path "
-                   f"(ROADMAP M5.4); execution='sequential' runs it")
     return out
 
 
@@ -104,22 +99,6 @@ class Trainer:
         if missing:
             raise NotImplementedError(
                 "not ported to repro_torch yet: " + "; ".join(missing))
-        if config.resources.execution == "batched":
-            if server is not None and (
-                    type(server).aggregation is not Server.aggregation
-                    or type(server).apply_delta is not Server.apply_delta):
-                raise NotImplementedError(
-                    "Server.aggregation / Server.apply_delta overrides under "
-                    "resources.execution='batched' need the gathering and "
-                    "staged paths (ROADMAP M5.4); the fused round applies "
-                    "FedAvg in-program.  execution='sequential' runs them")
-            for stage in ("compression", "encryption", "upload"):
-                if getattr(client_cls, stage) is not getattr(Client, stage):
-                    raise NotImplementedError(
-                        f"a Client.{stage} override under resources."
-                        f"execution='batched' needs the gathering path "
-                        f"(ROADMAP M5.4); the fused round compresses "
-                        f"in-program.  execution='sequential' runs it")
         self.device = get_device()
         if config.client.finetune == "lora":
             # Freeze the base model and train low-rank adapters only: the
@@ -167,6 +146,9 @@ class Trainer:
             default_time=config.resources.default_client_time,
             momentum=config.resources.momentum)
         self.history: List[Dict[str, float]] = []
+        # one loud warning per trainer when round_fusion="auto" cannot fuse
+        # a batched round
+        self._fusion_warned = False
 
     # ------------------------------------------------------------------
     # Materialized-Client cache bound: virtual populations grow the
@@ -214,13 +196,29 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _run_batched(self, selected: List[str], payload: Dict[str, Any],
-                     round_id: int) -> List[Dict[str, Any]]:
-        """The fused round: ONE dispatch trains the cohort, compresses
-        in-program with error feedback, aggregates and applies the server
-        update; one batched device->host fetch returns metrics and
-        per-leaf STC counts.  Returns per-client result dicts (metrics,
-        ``train_time``, ``payload_bytes``; no ``update``).  The pre-train
-        stages run once, through the first client, as in the reference."""
+                     round_id: int):
+        """Train the cohort as one stacked program and finish the round on
+        one of three paths.  -> ``(results, aggregated, finish)``.
+
+        * **fused** (``round_fusion="auto"``, default stages, FedAvg, no
+          ``Server`` override): ONE dispatch trains, compresses in-program
+          with error feedback, aggregates and applies the server update;
+          one batched fetch returns metrics and per-leaf STC counts.
+          ``finish`` is None, or under ``tracking.round_sync=False`` the
+          closure that runs that fetch and fills ``metrics`` and
+          ``payload_bytes`` later.
+        * **staged** (``round_fusion="off"``, or a ``Server.apply_delta``
+          override): the same arithmetic in three stages
+          (``run_cohort_stacked``, ``compress_stacked``,
+          ``aggregate_stacked``), then ``Server.apply_delta``.
+        * **gathering** (a ``Client`` compression / encryption / upload
+          override, a non-FedAvg aggregator or a ``Server.aggregation``
+          override): per-client updates through each client's own
+          post-train stages; ``aggregated`` is False and the caller runs
+          ``Server.aggregation``.
+
+        The pre-train stages run once, through the first client, as in the
+        reference."""
         clients = [self.client(c) for c in selected]
         for stage in ("download", "decompression", "train"):
             impls = {getattr(type(c), stage) for c in clients}
@@ -231,29 +229,99 @@ class Trainer:
                     f"{stage!r} overrides ({[type(c).__name__ for c in clients]}); "
                     f"use resources.execution='sequential'")
         global_params = clients[0].decompression(clients[0].download(payload))
+        res_cfg = self.cfg.resources
         method = self.cfg.client.compression
-        st, new_params = self.engine.run_round_fused(
-            clients, global_params, round_id,
-            method=method, stc_sparsity=self.cfg.client.stc_sparsity,
-            use_kernel=self.cfg.resources.aggregation_kernel,
-            server_lr=self.cfg.server.server_lr)
-        self.server.params = new_params
+        default_post = all(
+            type(c).compression is Client.compression
+            and type(c).encryption is Client.encryption
+            and type(c).upload is Client.upload for c in clients)
+        fuse_agg = (default_post
+                    and self.cfg.server.aggregation == "fedavg"
+                    and type(self.server).aggregation is Server.aggregation)
+        fuse_round = (fuse_agg and res_cfg.round_fusion == "auto"
+                      and type(self.server).apply_delta is Server.apply_delta)
+        if not fuse_round and res_cfg.round_fusion == "auto" \
+                and not self._fusion_warned:
+            reasons = []
+            if not default_post:
+                reasons.append("per-client compression/encryption/upload "
+                               "stage overrides")
+            if self.cfg.server.aggregation != "fedavg":
+                reasons.append(f"server.aggregation="
+                               f"{self.cfg.server.aggregation!r} (non-FedAvg)")
+            if type(self.server).aggregation is not Server.aggregation:
+                reasons.append("a Server.aggregation override")
+            if type(self.server).apply_delta is not Server.apply_delta:
+                reasons.append("a Server.apply_delta override")
+            self._fusion_warned = True
+            warnings.warn(
+                "resources.round_fusion='auto' cannot fuse this round into "
+                "one program (" + "; ".join(reasons) + "); falling back to "
+                "the staged batched path — set round_fusion='off' to "
+                "silence (docs/perf.md)", stacklevel=3)
 
-        total_steps = max(int(st["n_steps"][: len(clients)].sum()), 1)
-        steps_f = st["n_steps"].astype(np.float64).tolist()
-        loss, acc = st["loss"].tolist(), st["acc"].tolist()
-        if method != "none":
-            payloads = self.engine.per_client_payload_bytes(st)
-        else:
+        def payloads(st):
+            if method != "none":
+                return self.engine.per_client_payload_bytes(st)
             # dense update wire size from each leaf's real dtype
-            payloads = [dense_update_bytes(global_params)] * len(clients)
-        return [
-            {"client_id": c.client_id, "num_samples": len(c.data),
-             "train_time": st["wall"] * steps_f[i] / total_steps,
-             "metrics": {"loss": loss[i], "accuracy": acc[i],
-                         "batches": steps_f[i]},
-             "payload_bytes": payloads[i]}
-            for i, c in enumerate(clients)]
+            return [dense_update_bytes(global_params)] * len(clients)
+
+        if fuse_round:
+            st, new_params, fetch = self.engine.run_round_fused(
+                clients, global_params, round_id,
+                method=method, stc_sparsity=self.cfg.client.stc_sparsity,
+                use_kernel=res_cfg.aggregation_kernel,
+                topology=res_cfg.aggregation_topology,
+                fanout=res_cfg.aggregation_fanout,
+                server_lr=self.cfg.server.server_lr,
+                sync=self.cfg.tracking.round_sync)
+            self.server.params = new_params
+            total_steps = max(int(st["n_steps"][: len(clients)].sum()), 1)
+            steps_f = st["n_steps"].astype(np.float64).tolist()
+            results = [
+                {"client_id": c.client_id, "num_samples": len(c.data),
+                 "train_time": st["wall"] * steps_f[i] / total_steps}
+                for i, c in enumerate(clients)]
+
+            def complete():
+                """Metrics and wire bytes from the round's single fetch."""
+                if fetch is not None:
+                    fetch()
+                loss, acc = st["loss"].tolist(), st["acc"].tolist()
+                for i, (res, pb) in enumerate(zip(results, payloads(st))):
+                    res["metrics"] = {"loss": loss[i], "accuracy": acc[i],
+                                      "batches": steps_f[i]}
+                    res["payload_bytes"] = pb
+
+            if fetch is None:
+                complete()
+                return results, True, None
+            return results, True, complete
+        if fuse_agg:
+            st = self.engine.run_cohort_stacked(clients, global_params,
+                                                round_id)
+            if method != "none":
+                st = self.engine.compress_stacked(
+                    st, clients, method, self.cfg.client.stc_sparsity)
+            self.server.apply_delta(self.engine.aggregate_stacked(
+                st, use_kernel=res_cfg.aggregation_kernel,
+                topology=res_cfg.aggregation_topology,
+                fanout=res_cfg.aggregation_fanout))
+            results = self.engine.per_client_results(clients, st,
+                                                     include_update=False)
+            for client, res, pb in zip(clients, results, payloads(st)):
+                res["client_id"] = client.client_id
+                res["payload_bytes"] = pb
+            return results, True, None
+
+        results = []
+        for client, res in zip(clients, self.engine.run_cohort(
+                clients, global_params, round_id)):
+            res = client.compression(res)
+            res = client.encryption(res)
+            res["client_id"] = client.client_id
+            results.append(client.upload(res))
+        return results, False, None
 
     # ------------------------------------------------------------------
     def _run_sequential(self, selected: List[str], payload: Dict[str, Any],
@@ -275,7 +343,17 @@ class Trainer:
         return results, wall_times, sim_times
 
     def run_round(self, round_id: int) -> Dict[str, float]:
-        """Run round ``round_id`` and return its metrics."""
+        """Run round ``round_id`` and return its metrics: the dispatch and
+        its finalize back to back (see :meth:`_dispatch_round`)."""
+        return self._dispatch_round(round_id)()
+
+    def _dispatch_round(self, round_id: int
+                        ) -> Callable[[], Dict[str, float]]:
+        """Run round ``round_id`` up to its metrics; return the finalize
+        closure that fetches them (a deferred fused round's single batched
+        fetch), accounts bytes, tests ``server.params`` as this round left
+        them, tracks and appends the history entry.  ``_run`` defers it
+        behind the next dispatch under ``tracking.round_sync=False``."""
         server = self.server
         selected = server.selection(self.fed_data.client_ids, round_id)
         payload = server.distribution(selected)
@@ -283,8 +361,10 @@ class Trainer:
 
         t_wall0 = time.perf_counter()
         down_bytes = payload.get("payload_bytes", 0) * len(selected)
+        aggregated, finish = False, None
         if self.engine is not None:
-            results = self._run_batched(selected, payload, round_id)
+            results, aggregated, finish = self._run_batched(
+                selected, payload, round_id)
             wall_times = {r["client_id"]: r["train_time"] for r in results}
             sim_times = {cid: self._effective_time(cid, t)
                          for cid, t in wall_times.items()}
@@ -295,39 +375,52 @@ class Trainer:
         round_virtual = max(
             (sum(sim_times[c] for c in g) for g in groups if g), default=0.0)
         self.scheduler.update(sim_times)
-        if self.engine is None:
+        if not aggregated:
             server.aggregation(results)
         wall = time.perf_counter() - t_wall0
+        # the params this round produced: a deferred finalize tests these
+        # even after the next round has replaced server.params
+        params_r = server.params
 
-        # one batched host sync for the wire accounting of the results a
-        # custom stage left without payload_bytes
-        up_bytes = sum(r["payload_bytes"] for r in results
-                       if "payload_bytes" in r)
-        missing = [r for r in results if "payload_bytes" not in r]
-        if missing:
-            up_bytes += sum(comp.payload_bytes_many(
-                [r["update"] for r in missing]))
-        metrics = {
-            "round_time": round_virtual,
-            "wall_time": wall,
-            "clients": len(selected),
-            "comm_down_bytes": down_bytes,
-            "comm_up_bytes": up_bytes,
-            "train_loss": weighted_train_loss(results),
-        }
-        if self.cfg.server.test_every and \
-           (round_id + 1) % self.cfg.server.test_every == 0:
-            metrics.update(server.test())
-        if self.cfg.tracking.enabled:
-            self.tracker.track_round(self.cfg.task_id, round_id, **metrics)
-            for r in results:
-                self.tracker.track_client(
-                    self.cfg.task_id, round_id, r["client_id"],
-                    train_time=wall_times[r["client_id"]],
-                    simulated_time=sim_times[r["client_id"]],
-                    **r["metrics"])
-        self.history.append(metrics)
-        return metrics
+        def finalize() -> Dict[str, float]:
+            if finish is not None:
+                finish()
+            # one batched host sync for the wire accounting of the results
+            # a custom stage left without payload_bytes
+            up_bytes = sum(r["payload_bytes"] for r in results
+                           if "payload_bytes" in r)
+            missing = [r for r in results if "payload_bytes" not in r]
+            if missing:
+                up_bytes += sum(comp.payload_bytes_many(
+                    [r["update"] for r in missing]))
+            metrics = {
+                "round_time": round_virtual,
+                "wall_time": wall,
+                "clients": len(selected),
+                "comm_down_bytes": down_bytes,
+                "comm_up_bytes": up_bytes,
+                "train_loss": weighted_train_loss(results),
+            }
+            if self.cfg.server.test_every and \
+               (round_id + 1) % self.cfg.server.test_every == 0:
+                saved, server.params = server.params, params_r
+                try:
+                    metrics.update(server.test())
+                finally:
+                    server.params = saved
+            if self.cfg.tracking.enabled:
+                self.tracker.track_round(self.cfg.task_id, round_id,
+                                         **metrics)
+                for r in results:
+                    self.tracker.track_client(
+                        self.cfg.task_id, round_id, r["client_id"],
+                        train_time=wall_times[r["client_id"]],
+                        simulated_time=sim_times[r["client_id"]],
+                        **r["metrics"])
+            self.history.append(metrics)
+            return metrics
+
+        return finalize
 
     # ------------------------------------------------------------------
     def save_checkpoint(self, completed: int) -> str:
@@ -354,8 +447,24 @@ class Trainer:
 
     def _run(self, callback: Optional[Callable],
              start_round: int) -> Dict[str, Any]:
+        # tracking.round_sync=False runs a one-deep pipeline: round R's
+        # finalize (its metric fetch) waits until round R+1 is dispatched,
+        # so the card never idles on that sync; test rounds finalize at
+        # once, with the params they produced
+        defer = not self.cfg.tracking.round_sync
+        te = self.cfg.server.test_every
+        pending: Optional[Callable[[], Dict[str, float]]] = None
         for r in range(start_round, self.cfg.server.rounds):
-            self.run_round(r)
+            fin = self._dispatch_round(r)
+            if pending is not None:
+                pending()
+                pending = None
+            if defer and not (te and (r + 1) % te == 0):
+                pending = fin
+            else:
+                fin()
+        if pending is not None:
+            pending()
         self.server.finalize()
         summary = {
             "task_id": self.cfg.task_id,

@@ -40,7 +40,9 @@ _C = ctypes.c_int
 #: C entry points of each library: name -> argtypes (all return an int,
 #: the launch's ``cudaGetLastError()``)
 SIGNATURES = {
-    "fedavg_agg": {"fedavg_agg_launch": (_P, _P, _P, _I64, _I64, _P)},
+    "fedavg_agg": {"fedavg_agg_launch": (_P, _P, _P, _I64, _I64, _P),
+                   "fedavg_agg_grouped_launch": (_P, _P, _P, _I64, _I64,
+                                                 _I64, _P)},
     "stc_topk": {"stc_batched_launch": (_P, _P, _P, _I64, _I64,
                                         ctypes.c_float, _P)},
     "quant": {"int8_rowmax_launch": (_P, _P, _I64, _I64, _P),

@@ -9,15 +9,38 @@ columns over all N rows in fp32 registers, in row order).
 :func:`fedavg_plain` — the same sum in plain PyTorch, accumulated in the
 same row order, so the two agree bit for bit — for a CPU tensor.  Any other
 device, dtype or layout raises; there is no fallback.
+
+The hierarchical topology (``resources.aggregation_topology =
+"hierarchical"``): :func:`fedavg_aggregate_tree` reduces the rows through
+an edge -> region -> global tree.  Each tier is ONE grouped launch of the
+same kernel (:func:`fedavg_aggregate_grouped`: ``gridDim.y`` = groups, each
+block row summing its group's rows in order), later tiers sum the partials
+at weight 1.  The tree's shape rules are the reference's
+(``fedavg_aggregate_tree``), because they fix the order of summation:
+``fanout = 0`` takes ``max(2, ceil(sqrt(N)))``, ``fanout >= N`` is the flat
+call (bit-equal to it), and under ``use_kernel`` the rows pad to a
+power-of-two multiple of ``TILE_N`` and a group is
+``bucket_clients(fanout)`` rows.  :func:`fedavg_tree_plain` is the same
+tree with :func:`fedavg_plain` per group, bit for bit the kernel's.
 """
 from __future__ import annotations
 
+import math
+from typing import Callable, Tuple
+
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import build
 
-#: launches of the CUDA kernel in this process (see ``ops.launch_counts``)
+#: the reference's client-chunk tile: the kernel tree's padding and group
+#: granularity (``src/repro/kernels/fedavg_agg.py::TILE_N``)
+TILE_N = 8
+
+#: launches of the CUDA kernel in this process (see ``ops.launch_counts``):
+#: flat sums, and grouped launches (one per tier of a tree)
 launches = 0
+grouped_launches = 0
 
 
 def fedavg_plain(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -28,6 +51,16 @@ def fedavg_plain(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     for n in range(u.shape[0]):
         acc = acc + w[n] * u[n]
     return acc
+
+
+def fedavg_grouped_plain(updates: torch.Tensor, weights: torch.Tensor,
+                         groups: int) -> torch.Tensor:
+    """(G*F, D), (G*F,) -> (G, D): :func:`fedavg_plain` of each group of F
+    consecutive rows."""
+    f = updates.shape[0] // groups
+    return torch.stack([fedavg_plain(updates[g * f:(g + 1) * f],
+                                     weights[g * f:(g + 1) * f])
+                        for g in range(groups)])
 
 
 def _check(updates: torch.Tensor, weights: torch.Tensor) -> None:
@@ -67,3 +100,106 @@ def fedavg_aggregate(updates: torch.Tensor,
                 "fedavg_agg")
     launches += 1
     return out
+
+
+def fedavg_aggregate_grouped(updates: torch.Tensor, weights: torch.Tensor,
+                             groups: int) -> torch.Tensor:
+    """Weighted sums of ``groups`` blocks of consecutive rows: (G*F, D),
+    (G*F,) -> (G, D), one launch for all groups.  A CPU tensor goes to
+    :func:`fedavg_grouped_plain`; a CUDA tensor to the kernel."""
+    if updates.device.type == "cpu":
+        return fedavg_grouped_plain(updates, weights, groups)
+    if updates.device.type != "cuda":
+        raise RuntimeError(f"fedavg_aggregate_grouped: no kernel for device "
+                           f"{updates.device}")
+    _check(updates, weights)
+    n, d = updates.shape
+    if groups < 1 or n % groups:
+        raise ValueError(f"fedavg_aggregate_grouped: {n} rows do not split "
+                         f"into {groups} equal groups")
+    global grouped_launches
+    out = torch.empty((groups, d), dtype=torch.float32, device=updates.device)
+    lib = build.load("fedavg_agg")
+    stream = build.stream(updates.device)
+    build.check(lib.fedavg_agg_grouped_launch(
+        updates.data_ptr(), weights.data_ptr(), out.data_ptr(), groups,
+        n // groups, d, stream), "fedavg_agg_grouped")
+    grouped_launches += 1
+    return out
+
+
+def bucket_clients(n: int, tile_n: int = TILE_N) -> int:
+    """Smallest power-of-two multiple of ``tile_n`` that holds ``n`` rows."""
+    b = tile_n
+    while b < n:
+        b *= 2
+    return b
+
+
+def pad_cohort(updates: torch.Tensor, weights: torch.Tensor,
+               tile_n: int = TILE_N) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Zero rows and zero weights up to ``bucket_clients(N, tile_n)`` rows
+    (no-op terms of the weighted sum)."""
+    n = updates.shape[0]
+    nb = bucket_clients(n, tile_n)
+    if nb == n:
+        return updates, weights
+    return F.pad(updates, (0, 0, 0, nb - n)), F.pad(weights, (0, nb - n))
+
+
+def _tree(updates: torch.Tensor, weights: torch.Tensor, fanout: int,
+          use_kernel: bool,
+          flat: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+          tier: Callable[[torch.Tensor, torch.Tensor, int], torch.Tensor]
+          ) -> torch.Tensor:
+    """The reference's tree shapes with ``flat`` for one group and ``tier``
+    ((G*F, D), (G*F,), G -> (G, D)) for a tier."""
+    n = updates.shape[0]
+    u = updates.to(torch.float32)
+    w = weights.to(torch.float32)
+    if fanout <= 0:
+        fanout = max(2, int(math.ceil(math.sqrt(n))))
+    if fanout >= n:                    # one group: the flat call
+        return flat(u.contiguous(), w.contiguous())
+    u, w = pad_cohort(u, w, TILE_N if use_kernel else 1)
+    group = bucket_clients(fanout, TILE_N) if use_kernel else fanout
+    while u.shape[0] > 1:
+        n = u.shape[0]
+        g = -(-n // group)
+        pad = g * group - n
+        if pad:                        # zero rows + zero weights: no-op terms
+            u, w = F.pad(u, (0, 0, 0, pad)), F.pad(w, (0, pad))
+        u = tier(u.contiguous(), w.contiguous(), g)
+        w = torch.ones((g,), dtype=torch.float32, device=u.device)
+    return u[0]
+
+
+def _einsum_tier(u: torch.Tensor, w: torch.Tensor, g: int) -> torch.Tensor:
+    return torch.einsum("gf,gfd->gd", w.view(g, -1),
+                        u.view(g, -1, u.shape[1]))
+
+
+def fedavg_aggregate_tree(updates: torch.Tensor, weights: torch.Tensor,
+                          fanout: int = 0,
+                          use_kernel: bool = True) -> torch.Tensor:
+    """Hierarchical (edge -> region -> global) weighted sum of the rows of
+    ``updates``: (N, D), (N,) -> (D,) f32.
+
+    ``use_kernel``: each tier is one :func:`fedavg_aggregate_grouped` (the
+    kernel on a CUDA tensor, its plain version on a CPU tensor), the flat
+    short cut :func:`fedavg_aggregate`; otherwise each tier is
+    ``torch.einsum("gf,gfd->gd")`` and the short cut ``"n,nd->d"``, as in
+    the reference."""
+    if use_kernel:
+        return _tree(updates, weights, fanout, True, fedavg_aggregate,
+                     fedavg_aggregate_grouped)
+    return _tree(updates, weights, fanout, False,
+                 lambda u, w: torch.einsum("n,nd->d", w, u), _einsum_tier)
+
+
+def fedavg_tree_plain(updates: torch.Tensor, weights: torch.Tensor,
+                      fanout: int = 0) -> torch.Tensor:
+    """The kernel tree (``use_kernel`` shapes) in plain PyTorch:
+    :func:`fedavg_plain` per group and tier, in the kernel's order."""
+    return _tree(updates, weights, fanout, True, fedavg_plain,
+                 fedavg_grouped_plain)

@@ -7,7 +7,7 @@ CUDA device, :func:`get_device` raises instead of falling back quietly to
 the CPU.
 
 The kernel entry points re-exported here (``fedavg_aggregate``,
-``stc_compress_batched``, ``int8_roundtrip_batched``, ``stc_compress``,
+``fedavg_aggregate_tree``, ``stc_compress_batched``, ``int8_roundtrip_batched``, ``stc_compress``,
 ``quantize``, ``dequantize``, ``flash_attention``, ``wkv6``) take the device from their input tensors: a CUDA tensor launches the
 hand-written kernel, a CPU tensor takes the plain PyTorch version beside
 it, anything else raises.
@@ -22,7 +22,9 @@ from repro_torch.kernels import (
     attention, fedavg_agg, quant, rwkv6_scan, stc_topk,
 )
 from repro_torch.kernels.attention import flash_attention  # noqa: F401
-from repro_torch.kernels.fedavg_agg import fedavg_aggregate  # noqa: F401
+from repro_torch.kernels.fedavg_agg import (  # noqa: F401
+    fedavg_aggregate, fedavg_aggregate_tree,
+)
 from repro_torch.kernels.quant import (  # noqa: F401
     dequantize, int8_roundtrip_batched, quantize,
 )
@@ -60,6 +62,7 @@ def get_device() -> torch.device:
 def launch_counts() -> Dict[str, int]:
     """CUDA-kernel launches per kernel in this process."""
     return {"fedavg_agg": fedavg_agg.launches,
+            "fedavg_agg_tree": fedavg_agg.grouped_launches,
             "stc_batched": stc_topk.launches,
             "int8_rowmax": quant.rowmax_launches,
             "int8_qdq": quant.qdq_launches,
@@ -74,6 +77,7 @@ def launch_counts() -> Dict[str, int]:
 
 def reset_launch_counts() -> None:
     fedavg_agg.launches = 0
+    fedavg_agg.grouped_launches = 0
     stc_topk.launches = 0
     quant.rowmax_launches = 0
     quant.qdq_launches = 0

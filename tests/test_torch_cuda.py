@@ -99,6 +99,8 @@ def test_wrappers_count_only_kernel_launches(cuda_device):
     x = _updates(4, 1000, cuda_device)
     ops.reset_launch_counts()
     ops.fedavg_aggregate(x, torch.full((4,), 0.25, device=cuda_device))
+    ops.fedavg_aggregate_tree(x, torch.full((4,), 0.25, device=cuda_device),
+                              fanout=2)    # 4 rows pad to 8: one tier
     ops.stc_compress_batched(x, 0.01)
     ops.int8_roundtrip_batched(x)
     ops.fedavg_aggregate(x.cpu(), torch.full((4,), 0.25))   # plain: no count
@@ -109,7 +111,8 @@ def test_wrappers_count_only_kernel_launches(cuda_device):
     r = x[:, :64].reshape(1, 64, 1, 4).contiguous()
     ops.wkv6(r, r, r, -r.abs(), x[0, :4].reshape(1, 4),
              torch.zeros((1, 1, 4, 4), device=cuda_device))
-    assert ops.launch_counts() == {"fedavg_agg": 1, "stc_batched": 1,
+    assert ops.launch_counts() == {"fedavg_agg": 1, "fedavg_agg_tree": 1,
+                                   "stc_batched": 1,
                                    "int8_rowmax": 1, "int8_qdq": 1,
                                    "flash_fwd": 1, "flash_dq": 1,
                                    "flash_dkv": 1, "stc_dense": 1,
@@ -129,6 +132,60 @@ def test_fused_round_on_card_matches_cpu(cuda_device, compression):
         "server": {"rounds": 3, "clients_per_round": 5},
         "client": {"local_epochs": 2, "lr": 0.1, "compression": compression},
         "resources": {"execution": "batched", "aggregation_kernel": True}})
+    p0 = convert.params_to_numpy(
+        get_model("linear").init(torch.Generator().manual_seed(0)))
+    out = {}
+    for device in ("cuda", "cpu"):
+        repro_torch.set_device(device)
+        trainer = Trainer(cfg, get_model("linear"),
+                          build_federated_data(cfg.data))
+        trainer.server.params = convert.params_from_jax(p0)
+        out[device] = trainer.run()
+    for a, b in zip(tree_leaves(out["cuda"]["params"]),
+                    tree_leaves(out["cpu"]["params"])):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+    assert [h["comm_up_bytes"] for h in out["cuda"]["history"]] == \
+        [h["comm_up_bytes"] for h in out["cpu"]["history"]]
+
+
+# K1's grouped route: the hierarchical tree's first tier at the femnist
+# matrix (2 groups of 8), a ragged width in groups of 3 and 8 groups of 2,
+# and the whole tree (two tiers), bit for bit against the plain versions
+@pytest.mark.parametrize("n,d,groups", [(16, 6603710, 2), (12, 1000003, 4),
+                                        (16, 51200, 8), (16, 6603710, 0)])
+def test_grouped_fedavg_kernel_matches_plain_version(cuda_device, n, d,
+                                                     groups):
+    x = _updates(n, d, cuda_device)
+    w = torch.rand((n,), device=cuda_device)
+    w /= w.sum()
+    if groups:
+        k = fedavg_agg.fedavg_aggregate_grouped(x, w, groups)
+        p = fedavg_agg.fedavg_grouped_plain(x, w, groups)
+    else:
+        k = fedavg_agg.fedavg_aggregate_tree(x, w, fanout=0)
+        p = fedavg_agg.fedavg_tree_plain(x, w, fanout=0)
+    assert torch.equal(k.view(torch.int32), p.view(torch.int32))
+
+
+@pytest.mark.parametrize("extra", [
+    {"resources": {"round_fusion": "off"}, "client": {"compression": "stc"}},
+    {"resources": {"round_fusion": "off"}, "client": {"compression": "int8"}},
+    {"resources": {"aggregation_topology": "hierarchical"},
+     "client": {"compression": "stc"}},
+    {"tracking": {"round_sync": False}, "client": {"compression": "int8"}},
+], ids=["staged-stc", "staged-int8", "hierarchical-stc", "deferred-int8"])
+def test_batched_paths_on_card_match_cpu(cuda_device, extra):
+    base = {"model": "linear",
+            "data": {"dataset": "synthetic", "num_clients": 10,
+                     "batch_size": 32},
+            "server": {"rounds": 3, "clients_per_round": 5},
+            "client": {"local_epochs": 2, "lr": 0.1},
+            "resources": {"execution": "batched",
+                          "aggregation_kernel": True}}
+    for key, val in extra.items():
+        base[key] = dict(base.get(key, {}), **val)
+    cfg = Config.make(base)
     p0 = convert.params_to_numpy(
         get_model("linear").init(torch.Generator().manual_seed(0)))
     out = {}
@@ -315,6 +372,14 @@ def test_sequential_compression_stage_on_card_matches_cpu(cuda_device):
     CPU, bit for bit: ``chip_smoke.check_sequential_stage``, phase 4e's
     check."""
     _chip_smoke().check_sequential_stage(repro_torch, cuda_device)
+
+
+def test_staged_stages_on_card_match_cpu(cuda_device):
+    """The staged path's compress_stacked (two rounds, STC and int8) and
+    aggregate_stacked (flat and tree) on one stacked femnist cohort update,
+    card against CPU bit for bit: ``chip_smoke.check_staged_stages``,
+    phase 4f's check."""
+    _chip_smoke().check_staged_stages(repro_torch, cuda_device)
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "glm4-9b"])

@@ -130,6 +130,8 @@ def test_stc_targets_count_real_segment_elements():
 
 @pytest.mark.parametrize("fn", [
     lambda x: fedavg_agg.fedavg_aggregate(x, torch.ones(2, device=x.device)),
+    lambda x: fedavg_agg.fedavg_aggregate_grouped(
+        x, torch.ones(2, device=x.device), 2),
     lambda x: stc_topk.stc_compress_batched(x, 0.01),
     lambda x: quant.rowmax(x),
     lambda x: quant.qdq(x, torch.ones(2, device=x.device)),
@@ -150,6 +152,7 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     ops.reset_launch_counts()
     x = torch.from_numpy(_updates(7, 1000))
     ops.fedavg_aggregate(x, torch.full((7,), 1 / 7))
+    ops.fedavg_aggregate_tree(x, torch.full((7,), 1 / 7), fanout=2)
     ops.stc_compress_batched(x, 0.01)
     ops.int8_roundtrip_batched(x)
     q = x[:6, :64].reshape(1, 2, 3, 64).requires_grad_()
@@ -158,7 +161,8 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     ops.dequantize(*ops.quantize(x), x.shape)
     r = x[:4, :64].reshape(1, 64, 1, 4)
     ops.wkv6(r, r, r, -r.abs(), x[0, :4].reshape(1, 4), torch.zeros(1, 1, 4, 4))
-    assert ops.launch_counts() == {"fedavg_agg": 0, "stc_batched": 0,
+    assert ops.launch_counts() == {"fedavg_agg": 0, "fedavg_agg_tree": 0,
+                                   "stc_batched": 0,
                                    "int8_rowmax": 0, "int8_qdq": 0,
                                    "flash_fwd": 0, "flash_dq": 0,
                                    "flash_dkv": 0, "stc_dense": 0,

@@ -142,18 +142,27 @@ class _PortTrainOverride(PortClient):
 
 @pytest.mark.parametrize("stage", ["compression", "encryption", "upload"])
 def test_post_train_overrides_raise_under_batched_only(stage):
+    """A post-train stage override runs under both engines (batched: the
+    gathering path, with the one round_fusion warning) to the same
+    params."""
     cls = type("Override", (PortClient,),
                {stage: lambda self, result: result})
-    for execution, raises in (("batched", True), ("sequential", False)):
+    params = {}
+    for execution in ("batched", "sequential"):
         repro_torch.reset()
         repro_torch.init(_merge(LINEAR, {"resources":
                                          {"execution": execution}}))
         repro_torch.register_client(cls)
-        if raises:
-            with pytest.raises(NotImplementedError, match="M5.4"):
-                repro_torch.run()
+        if execution == "batched":
+            with pytest.warns(UserWarning, match="stage overrides"):
+                res = repro_torch.run()
         else:
-            assert len(repro_torch.run()["history"]) == 3
+            res = repro_torch.run()
+        assert len(res["history"]) == 3
+        params[execution] = tree_leaves(res["params"])
+    for a, b in zip(params["batched"], params["sequential"]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                   atol=1e-5)
     repro_torch.register_client(_PortTrainOverride)
     res = repro_torch.run()
     task = repro_torch.tracker().get_task(res["task_id"])

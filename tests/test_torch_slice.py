@@ -1,7 +1,8 @@
 """The ported slice end to end: the fused batched FedAvg round of
 ``repro_torch`` against the reference's fused batched round, from the
 reference's initial parameters, plus the round counters and the loud
-errors for every configuration outside the slice."""
+errors for every configuration outside the port (configurations that
+raised before their port landed now run against the reference)."""
 import jax
 import numpy as np
 import pytest
@@ -159,27 +160,67 @@ def test_one_dispatch_and_one_host_sync_per_round():
     assert batched.round_trace_count() - b0 == 1     # one bucket, one build
 
 
+# item: the ROADMAP item the port names when it refuses the setting, or
+# None once the setting is ported (it then runs against the reference)
 UNPORTED = [
     ({"resources": {"execution": "sequential"}, "client": {"finetune": "lora"}},
      "M8"),
     ({"resources": {"execution": "async"}}, "M7"),
-    ({"resources": {"round_fusion": "off"}}, "M5"),
-    ({"resources": {"distributed": "data"}}, "M5"),
-    ({"resources": {"aggregation_topology": "hierarchical"}}, "M5"),
+    ({"resources": {"round_fusion": "off"}}, None),
+    ({"resources": {"distributed": "data"}}, "M5.7"),
+    ({"resources": {"aggregation_topology": "hierarchical"}}, None),
     ({"faults": {"dropout_prob": 0.2}}, "M6"),
     ({"resources": {"round_deadline": 1.0}}, "M6"),
     ({"checkpoint": {"every": 1}}, "M6"),
-    ({"tracking": {"round_sync": False}}, "M5"),
+    ({"tracking": {"round_sync": False}}, None),
     ({"client": {"finetune": "lora"}, "resources": {"execution": "async"}},
      "M7"),
-    ({"server": {"compression": "int8", "aggregation": "median"}}, "M5.4"),
+    ({"server": {"compression": "int8", "aggregation": "median"}}, None),
     ({"server": {"aggregation": "fedbuff"}}, "M7"),
 ]
 
 
+def _median(apply_delta, to_numpy, from_numpy):
+    """A registered non-FedAvg aggregator: the coordinate-wise median of
+    the updates (numpy's, so both packages take the same one)."""
+    def agg(global_params, updates, num_samples, server_lr=1.0, **kw):
+        delta = [from_numpy(np.median(np.stack(
+            [to_numpy(u)[i] for u in updates]), axis=0))
+            for i in range(len(to_numpy(updates[0])))]
+        return apply_delta(global_params, delta, server_lr)
+    return agg
+
+
+def _register_median(monkeypatch):
+    from repro.core import aggregation as ref_agg
+    from repro_torch.core import aggregation as port_agg
+    from repro_torch.utils.tree import tree_flatten, tree_unflatten
+
+    def ref_apply(g, leaves, lr):
+        return ref_agg.apply_delta(g, jax.tree_util.tree_unflatten(
+            jax.tree_util.tree_structure(g), leaves), lr)
+
+    def port_apply(g, leaves, lr):
+        return port_agg.apply_delta(g, tree_unflatten(tree_flatten(g)[1],
+                                                      leaves), lr)
+    monkeypatch.setitem(ref_agg.AGGREGATORS, "median", _median(
+        ref_apply,
+        lambda u: [np.asarray(x, np.float32)
+                   for x in jax.tree_util.tree_leaves(u)],
+        jax.numpy.asarray))
+    monkeypatch.setitem(port_agg.AGGREGATORS, "median", _median(
+        port_apply, lambda u: [x.numpy() for x in tree_leaves(u)],
+        torch.from_numpy))
+
+
 @pytest.mark.parametrize("extra,item", UNPORTED,
                          ids=[str(e)[:50] for e, _ in UNPORTED])
-def test_configs_outside_the_slice_raise(extra, item):
+def test_configs_outside_the_slice_raise(extra, item, monkeypatch):
+    if item is None:               # ported since: it runs as the reference
+        _register_median(monkeypatch)
+        cfg = _merge(_merge(LINEAR, {"server": {"rounds": 2}}), extra)
+        _assert_parity(*_run_both(cfg), rounds=2)
+        return
     repro_torch.reset()
     repro_torch.init(_merge(LINEAR, extra))
     with pytest.raises(NotImplementedError, match=item):
@@ -223,8 +264,14 @@ def test_stage_overrides_and_remote_and_resume_raise():
     repro_torch.reset()
     repro_torch.init(LINEAR)
     repro_torch.register_server(_ApplyOverride)
-    with pytest.raises(NotImplementedError, match="M5.4"):
-        repro_torch.run()
+    # the override runs on the staged path (one warning): it ignores every
+    # delta, so the params stay at their init
+    with pytest.warns(UserWarning, match="apply_delta override"):
+        res = repro_torch.run()
+    init = port_get_model("linear").init(torch.Generator().manual_seed(0),
+                                         torch.device("cpu"))
+    for a, b in zip(tree_leaves(res["params"]), tree_leaves(init)):
+        assert torch.equal(a, b)
     repro_torch.reset()
     for fn in (repro_torch.start_server, repro_torch.start_client):
         with pytest.raises(NotImplementedError, match="M10"):
