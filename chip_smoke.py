@@ -106,6 +106,22 @@ Phases, in order; any failed check raises, so the script exits non-zero:
    ``compress_stacked`` (two rounds) and ``aggregate_stacked`` (flat and
    tree) on one stacked cohort update on the card against the CPU, bit
    for bit (``check_staged_stages``);
+4g. drive phase 4's configuration under faults (``FAULTS_4G``: dropout
+   0.2, crash 0.1, straggler 0.2 x 4, NaN uploads 0.1, a fixed seed; the
+   norm bound 100x above the largest update norm of phase 4's round-0
+   cohort, printed): fused stc, staged int8, hierarchical stc, sequential
+   none, each round's dropped / crashed / straggled / rejected /
+   reselections / survivors equal to a host replay of the selection RNG
+   and ``FaultInjector.plan`` (``host_accounting``), one program built and
+   one host sync a fused round, steady round walls printed against the
+   same mode's fault-free run; then ``round_deadline=1e-12``: no client
+   survives and the params stay bit for bit at their init; then, in a
+   child process in deterministic mode (``--resume-check``), an all-zero
+   ``faults`` block against none (bit for bit, same counters and
+   launches) and kill-and-resume of fused stc with dropout and sequential
+   int8 with crashes (EF device tier cut to 8 rows), final params and the
+   step-4 checkpoint bit for bit, with the checkpoint's bytes and save and
+   load seconds;
 5. run the same port for 2 rounds of 4 clients from one set of injected
    parameters on the card and on the CPU and compare them, once per
    engine: train losses within 1e-4; parameters printed against 1e-4 and
@@ -138,7 +154,7 @@ reset, so the ``launches`` reported are those of the main-path runs alone
 (K1-K3 from phase 4, K1's tree route from phase 4f's hierarchical run,
 the flash kernels from the flash-on run of phase 4b, K8 from phase 4c,
 K4/K5 from phase 4d); K1-K3 also carry ``launches_sequential``, from phase
-4e.
+4e, and K1-K3 and K1's tree ``launches_faults``, from phase 4g.
 
 ``python3 chip_smoke.py --profile`` instead profiles one steady-state round
 per compression mode and engine (phases 4 and 4e), one steady LoRA round
@@ -347,8 +363,16 @@ def main():
     for row in kernels:
         if row.get("counter") == "fedavg_agg_tree":
             row["launches"] = tree_launches
-        row.pop("counter", None)
     check_staged_stages(repro_torch, dev)
+
+    phase("4g. faults, round deadline and checkpoint/resume: femnist_cnn "
+          "through init/run")
+    faulty = run_faults(repro_torch, ops, dev, smi)
+    for row in kernels:          # K1-K3 and the K1 tree, the rows of phase 3
+        if row.get("counter") in faulty:
+            row["launches_faults"] = faulty[row["counter"]]
+        row.pop("counter", None)
+    check_resume(smi)
 
     phase("5. card against CPU")
     for execution in ("batched", "sequential"):
@@ -1431,15 +1455,21 @@ def conditioning_gap(repro_torch, cfg, init, final, seeds=(1, 2, 3)):
     return worst
 
 
+WALLS = {}    # run tag -> steady round walls (rounds 1-2), for phase 4g
+
+
 def run_slice(repro_torch, ops, mode, execution="batched", resources=None,
-              tracking=None, tag=None, k1="fedavg_agg", per_round=None):
-    """femnist_cnn through ``init``/``run`` (phases 4, 4e and 4f) ->
+              tracking=None, tag=None, k1="fedavg_agg", per_round=None,
+              faults=None, history=None):
+    """femnist_cnn through ``init``/``run`` (phases 4, 4e, 4f and 4g) ->
     (launch counts of the run, final params on the CPU).  ``resources``
     and ``tracking`` override the configuration's; ``k1`` is the FedAvg kernel's counter
     that must count one launch a tier a round (``fedavg_agg``: flat, one
     tier; ``fedavg_agg_tree``: two tiers), the other none; ``per_round``
     the dispatches and host syncs a round (default: the fused round's one
-    each, none for the sequential engine)."""
+    each, none for the sequential engine); ``faults`` the ``cfg.faults``
+    block (a round no client survives has a NaN ``train_loss``);
+    ``history``, a list, receives the run's history."""
     import math
 
     from repro_torch.core import batched
@@ -1450,6 +1480,8 @@ def run_slice(repro_torch, ops, mode, execution="batched", resources=None,
     cfg["resources"].update(resources or {})
     if tracking:
         cfg["tracking"] = tracking
+    if faults:
+        cfg["faults"] = faults
     repro_torch.reset()
     repro_torch.init(cfg)
     d0, h0 = batched.dispatch_count(), batched.host_sync_count()
@@ -1487,8 +1519,11 @@ def run_slice(repro_torch, ops, mode, execution="batched", resources=None,
         require(count - n == want_n, f"[{tag}] {what} {count - n} != "
                 f"{want_n}")
     for h in hist:
-        require(math.isfinite(h["train_loss"]) and math.isfinite(h["loss"]),
+        require((math.isfinite(h["train_loss"]) or h.get("survivors") == 0)
+                and math.isfinite(h["loss"]),
                 f"[{tag}] non-finite loss in {h}")
+    if history is not None:
+        history.extend(hist)
     from repro_torch.models.small import femnist_cnn
     from repro_torch.utils.tree import tree_leaves
     ref_shapes = [t.shape for t in tree_leaves(
@@ -1498,6 +1533,7 @@ def run_slice(repro_torch, ops, mode, execution="batched", resources=None,
     require(all(bool(torch.isfinite(t).all()) for t in out),
             f"[{tag}] non-finite params")
     walls = [h["wall_time"] for h in hist]
+    WALLS[tag] = walls[1:]
     print(f"[{tag}] round wall s: round0 {walls[0]:.4f} "
           f"(first-use setup included), later {[round(x, 4) for x in walls[1:]]};"
           f" run total {total:.3f} s; peak device memory {peak:.2f} GiB "
@@ -1613,6 +1649,318 @@ def check_staged_stages(repro_torch, dev):
               f"{sum(card[7])}")
     repro_torch.set_device(None)
     repro_torch.reset()
+
+
+FAULTS_4G = {"dropout_prob": 0.2, "crash_prob": 0.1, "straggler_prob": 0.2,
+             "straggler_slowdown": 4.0, "nan_update_prob": 0.1, "seed": 20}
+
+
+def update_norm_bound(repro_torch, dev):
+    """Phase 4g's ``faults.max_update_norm``: 100 x the largest L2 norm of
+    a sent update row of phase 4's round-0 cohort (10 clients from seed 0,
+    trained on the card; for stc and int8 after the compression stage, each
+    with an empty EF store) -> (bound, {mode: largest norm})."""
+    from repro_torch.core import api
+    from repro_torch.core.batched import BatchedExecutor
+    from repro_torch.core.rounds import Trainer
+    from repro_torch.utils.tree import tree_leaves
+
+    repro_torch.reset()
+    repro_torch.set_device(dev)
+    repro_torch.init(femnist_config("none", "batched"))
+    ctx = api._ctx
+    trainer = Trainer(ctx.config, ctx.model, ctx.fed_data,
+                      tracker=ctx.tracker)
+    params = ctx.model.init(torch.Generator().manual_seed(ctx.config.seed),
+                            dev)
+    clients = [trainer.client(c) for c in trainer.server.selection(
+        ctx.fed_data.client_ids, 0)]
+    st = trainer.engine.run_cohort_stacked(clients, params, 0)
+    norms = {}
+    for mode in ("none", "stc", "int8"):
+        s = st if mode == "none" else BatchedExecutor(
+            ctx.model, dev).compress_stacked(st, clients, mode, 0.01)
+        flat = torch.cat([t.reshape(t.shape[0], -1)
+                          for t in tree_leaves(s["updates"])], 1)
+        norms[mode] = float(torch.linalg.vector_norm(
+            flat[: len(clients)], dim=1).max())
+    repro_torch.set_device(None)
+    repro_torch.reset()
+    return 100.0 * max(norms.values()), norms
+
+
+def nested(cfg):
+    """``femnist_config``'s flat ``dataset`` key in its section, as
+    ``Config.make`` takes it (``init`` folds it itself)."""
+    out = {k: v for k, v in cfg.items() if k != "dataset"}
+    out["data"] = dict(cfg.get("data", {}), dataset=cfg["dataset"])
+    return out
+
+
+def host_accounting(cfg, rounds, ids):
+    """The fault accounting a run of ``cfg`` must report, from the host
+    alone: each round's cohort replayed from the selection RNG (``cfg.seed``;
+    the cohort re-drawn while fewer than ``min_clients_per_round`` would
+    survive dropout and crash) and ``FaultInjector.plan`` of each (client,
+    round).  NaN-injected survivors are the only rejections: the norm bound
+    sits far above every update."""
+    from repro_torch.core.config import Config
+    from repro_torch.core.server import Server
+    from repro_torch.simulation.heterogeneity import FaultInjector
+
+    c = Config.make(nested(cfg))
+    server = Server(None, c)
+    inj = FaultInjector(c.faults)
+    out = []
+    for r in range(rounds):
+        sel, resel = server.selection(ids, r), 0
+        floor = min(c.faults.min_clients_per_round, len(sel))
+        while sum(not inj.plan(x, r).fails for x in sel) < floor:
+            resel += 1
+            sel = server.selection(ids, r)
+        plans = [inj.plan(x, r) for x in sel]
+        row = {"clients": len(sel), "reselections": resel,
+               "dropped": sum(p.dropout for p in plans),
+               "crashed": sum(p.crash for p in plans),
+               "straggled": sum(p.straggler for p in plans),
+               "rejected": sum(p.nan_update for p in plans),
+               "deadline_missed": 0}
+        row["survivors"] = (row["clients"] - row["dropped"] - row["crashed"]
+                            - row["rejected"])
+        out.append(row)
+    return out
+
+
+def run_faults(repro_torch, ops, dev, smi):
+    """Phase 4g: phase 4's configuration under ``FAULTS_4G`` (dropout 0.2,
+    crash 0.1, straggler 0.2 x 4, NaN uploads 0.1, fixed seed) and a norm
+    bound 100x above phase 4's update norms, through ``init``/``run``: (1)
+    fused stc, (2) staged int8, (3) hierarchical stc, (4) sequential none,
+    each round's accounting equal to the host's replay
+    (``host_accounting``), finite params, the fused runs building one
+    program and syncing once a round; then (5) ``round_deadline=1e-12``
+    (none; the staged path): every client misses, none survives, and the
+    params stay bit for bit at their init.  Steady round walls are printed
+    against the same mode's run of phase 4, 4e or 4f.  -> the kernels'
+    launches over the five runs."""
+    from repro_torch.core import batched
+    from repro_torch.core.config import Config
+    from repro_torch.data.fed_data import build_federated_data
+    from repro_torch.models.small import femnist_cnn
+    from repro_torch.utils.tree import tree_leaves
+
+    bound, norms = update_norm_bound(repro_torch, dev)
+    print(f"[faults] max_update_norm {bound:.6g} = 100 x the largest update "
+          f"norm of phase 4's round-0 cohort (none {norms['none']:.6g}, stc "
+          f"{norms['stc']:.6g}, int8 {norms['int8']:.6g}): margin 100x")
+    faults = dict(FAULTS_4G, max_update_norm=bound)
+    ids = build_federated_data(Config.make(nested(
+        femnist_config("none", "batched"))).data).client_ids
+    runs = [("faults fused stc", "stc", "batched", {}, "fedavg_agg",
+             (1, 1), "stc"),
+            ("faults staged int8", "int8", "batched",
+             {"round_fusion": "off"}, "fedavg_agg", (3, 1), "staged int8"),
+            ("faults hierarchical stc", "stc", "batched",
+             {"aggregation_topology": "hierarchical"}, "fedavg_agg_tree",
+             (1, 1), "hierarchical stc"),
+            ("faults sequential none", "none", "sequential", {},
+             "fedavg_agg", None, "sequential none")]
+    total = {k: 0 for k in ops.launch_counts()}
+    seen = set()
+    for tag, mode, execution, res, k1, per_round, base in runs:
+        hist = []
+        b0 = batched.round_trace_count()
+        used, _ = run_slice(repro_torch, ops, mode, execution=execution,
+                            resources=res, tag=tag, k1=k1,
+                            per_round=per_round, faults=faults, history=hist)
+        for k, v in used.items():
+            total[k] += v
+        if per_round == (1, 1):       # fused: one program for every round
+            built = batched.round_trace_count() - b0
+            require(built == 1, f"[{tag}] {built} round programs built, "
+                    f"expected 1 (a fault pattern is a tensor input)")
+        cfg = femnist_config(mode, execution)
+        cfg["resources"].update(res)
+        cfg["faults"] = faults
+        want = host_accounting(cfg, 3, ids)
+        got = [{k: h[k] for k in want[0]} for h in hist]
+        print(f"[{tag}] accounting per round {got}")
+        require(got == want, f"[{tag}] fault accounting {got} != the host's "
+                f"plans {want}")
+        steady = np.mean(WALLS[tag]) / np.mean(WALLS[base])
+        print(f"[{tag}] steady round walls {WALLS[tag]} s against "
+              f"{WALLS[base]} s of the fault-free {base} run: x{steady:.4f} "
+              f"({smi})")
+        seen |= {k for h in got for k in ("dropped", "crashed", "straggled",
+                                          "rejected", "reselections") if h[k]}
+    print(f"[faults] fault kinds seen over the four runs: {sorted(seen)}")
+    require({"dropped", "crashed", "straggled", "rejected"} <= seen,
+            f"[faults] a fault kind never occurred: {sorted(seen)}")
+
+    tag = "faults deadline 1e-12"
+    hist = []
+    init = [t.cpu() for t in tree_leaves(femnist_cnn().init(
+        torch.Generator().manual_seed(Config().seed), dev))]
+    used, params = run_slice(repro_torch, ops, "none",
+                             resources={"round_deadline": 1e-12}, tag=tag,
+                             per_round=(2, 1), history=hist)
+    for k, v in used.items():
+        total[k] += v
+    require(all(h["deadline_missed"] == h["clients"] and h["survivors"] == 0
+                for h in hist), f"[{tag}] some client met the deadline")
+    require(same_bits_tree(params, init),
+            f"[{tag}] params moved without survivors")
+    print(f"[{tag}] every client missed every round, no survivor; params "
+          f"bit for bit at their init")
+    out = {k: total[k] for k in ("fedavg_agg", "fedavg_agg_tree",
+                                 "stc_batched", "int8_rowmax", "int8_qdq")}
+    print(f"[faults] launches of phase 4g: {out} ({smi})")
+    return out
+
+
+def check_resume(smi):
+    """Phase 4g's deterministic half, in a child process
+    (``chip_smoke.py --resume-check``) that sets
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, ``torch.use_deterministic_algorithms
+    (True)`` and ``cudnn.deterministic``: an all-zero ``faults`` block
+    against no block (bit for bit, same counters and launches), and
+    kill-and-resume (``resume_check``)."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--resume-check"], capture_output=True, text=True,
+                         env=env, timeout=600)
+    print(out.stdout, end="")
+    if out.returncode != 0:
+        print(out.stderr[-8000:], file=sys.stderr)
+    require(out.returncode == 0, f"--resume-check exited {out.returncode}")
+    print(f"[resume] child process took {time.perf_counter() - t0:.1f} s "
+          f"({smi})")
+
+
+def resume_check():
+    """The child of :func:`check_resume`, deterministic throughout.
+
+    (a) Phase 4's fused stc configuration with no ``faults`` block and with
+    an all-zero one: params bit for bit, the same program builds,
+    dispatches, host syncs and launches.  (b) Kill-and-resume for fused
+    stc with dropout and sequential int8 with crashes, the EF store's device
+    tier cut to 8 rows (some rows sit on the host tier when saved): run A
+    trains 4 rounds through ``init``/``run`` with a checkpoint every 2; run
+    B trains 2 rounds and saves; a fresh ``Trainer`` resumes B.  A's and
+    the resumed run's final params and step-4 checkpoints must be equal bit
+    for bit.  Prints the step-2 checkpoint's bytes and its save and load
+    seconds."""
+    import shutil
+
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import repro_torch
+    from repro_torch.checkpoint import store
+    from repro_torch.core import api, batched
+    from repro_torch.core.batched import BatchedExecutor
+    from repro_torch.core.rounds import Trainer
+    from repro_torch.kernels import ops
+    from repro_torch.utils.tree import tree_leaves
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    quiet = {"tracking": {"enabled": False}}
+
+    def counted_run(cfg):
+        repro_torch.reset()
+        repro_torch.init(cfg)
+        ops.reset_launch_counts()
+        n0 = (batched.round_trace_count(), batched.dispatch_count(),
+              batched.host_sync_count())
+        res = repro_torch.run()
+        torch.cuda.synchronize()
+        n1 = (batched.round_trace_count(), batched.dispatch_count(),
+              batched.host_sync_count())
+        return ([t.cpu() for t in tree_leaves(res["params"])],
+                [b - a for a, b in zip(n0, n1)], ops.launch_counts())
+
+    cfg = dict(femnist_config("stc", "batched"), **quiet)
+    p0, n0, l0 = counted_run(cfg)
+    p1, n1, l1 = counted_run(dict(cfg, faults={
+        "dropout_prob": 0.0, "crash_prob": 0.0, "straggler_prob": 0.0,
+        "nan_update_prob": 0.0, "max_update_norm": 0.0, "seed": 7}))
+    require(same_bits_tree(p0, p1), "all-zero faults block: params differ "
+            "from the run with no faults block")
+    require(n0 == n1 and l0 == l1, f"all-zero faults block: builds, "
+            f"dispatches, syncs {n1} launches {l1} != {n0} {l0}")
+    print(f"[resume] fused stc, deterministic: an all-zero faults block = "
+          f"no faults block bit for bit; builds, dispatches, host syncs "
+          f"{n0}; launches {l0}")
+
+    BatchedExecutor.EF_MAX_CLIENTS = 8
+    root = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    cases = [("fused stc, dropout", "batched", "stc",
+              {"dropout_prob": 0.3, "seed": 5}),
+             ("sequential int8, crash", "sequential", "int8",
+              {"crash_prob": 0.3, "seed": 2})]
+    try:
+        for tag, execution, mode, faults in cases:
+            shutil.rmtree(root, ignore_errors=True)
+            base = dict(femnist_config(mode, execution, rounds=4),
+                        faults=faults, **quiet)
+
+            def config(name):
+                return dict(base, checkpoint={
+                    "every": 2, "dir": os.path.join(root, name)})
+
+            repro_torch.reset()
+            repro_torch.init(config("A"))
+            ra = repro_torch.run()
+            repro_torch.reset()
+            repro_torch.init(config("B"))
+            ctx = api._ctx
+            tb = Trainer(ctx.config, ctx.model, ctx.fed_data,
+                         tracker=ctx.tracker)
+            tb.server.params = ctx.model.init(
+                torch.Generator().manual_seed(ctx.config.seed), tb.device)
+            for r in range(2):                 # ... killed after round 2
+                tb.run_round(r)
+            t0 = time.perf_counter()
+            tb.save_checkpoint(2)
+            save_s = time.perf_counter() - t0
+            spilled = (len(tb.engine._ef.spilled_ids())
+                       if tb.engine is not None else 0)
+            nbytes = os.path.getsize(store._path(config("B")["checkpoint"]
+                                                 ["dir"], 2))
+            t0 = time.perf_counter()
+            store.load_checkpoint(config("B")["checkpoint"]["dir"], 2)
+            load_s = time.perf_counter() - t0
+            del tb
+            repro_torch.reset()
+            repro_torch.init(config("B"))
+            ctx = api._ctx
+            rc = Trainer(ctx.config, ctx.model, ctx.fed_data,
+                         tracker=ctx.tracker).resume()
+            final = same_bits_tree(tree_leaves(ra["params"]),
+                                   tree_leaves(rc["params"]))
+            cka = store.load_checkpoint(config("A")["checkpoint"]["dir"], 4)
+            ckb = store.load_checkpoint(config("B")["checkpoint"]["dir"], 4)
+            step4 = all(np.array_equal(a.view(np.int32), b.view(np.int32))
+                        for a, b in zip(tree_leaves(cka["server"]["params"]),
+                                        tree_leaves(ckb["server"]["params"])))
+            print(f"[resume] {tag}: final params bit for bit {final}, step-4 "
+                  f"checkpoint params bit for bit {step4}; step-2 checkpoint "
+                  f"{nbytes} bytes ({nbytes / 2**20:.1f} MiB), save "
+                  f"{save_s:.3f} s, load {load_s:.3f} s; EF rows on the host "
+                  f"tier when saved: {spilled} ({smi})")
+            require(final and step4, f"[resume] {tag}: the resumed run "
+                    f"differs from the uninterrupted one")
+            require(execution == "sequential" or spilled > 0,
+                    f"[resume] {tag}: no EF row on the host tier")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        repro_torch.reset()
 
 
 def same_bits_tree(a, b):
@@ -2063,8 +2411,13 @@ if __name__ == "__main__":
         if sys.argv[2:] != ["rwkv6"]:
             profile_rounds(_rt)
         profile_rwkv6()
+    elif sys.argv[1:] == ["--resume-check"]:
+        if not torch.cuda.is_available():
+            sys.exit("CUDA is not available; --resume-check needs a CUDA "
+                     "card")
+        resume_check()
     elif sys.argv[1:]:
-        sys.exit(f"usage: python3 chip_smoke.py [--profile [rwkv6]]; got "
-                 f"{sys.argv[1:]}")
+        sys.exit(f"usage: python3 chip_smoke.py [--profile [rwkv6] | "
+                 f"--resume-check]; got {sys.argv[1:]}")
     else:
         main()

@@ -9,7 +9,8 @@ the reference's ``jax.vmap`` around ``jax.lax.scan``.
 :func:`make_round_program` fuses the rest of the round behind that
 training: per-leaf error-feedback (EF) correction, in-program STC or int8
 compression with the EF residual update (hand-written CUDA kernels,
-``repro_torch.kernels``), the flat (N_b, D) update matrix, FedAvg (the
+``repro_torch.kernels``), the flat (N_b, D) update matrix, under faults
+the survival mask and the NaN/norm guard (:func:`_fault_weights`), FedAvg (the
 streaming CUDA kernel with ``resources.aggregation_kernel``, else
 ``torch.einsum``; the hierarchical tree of grouped K1 launches under
 ``resources.aggregation_topology="hierarchical"``) and the server apply
@@ -237,21 +238,52 @@ def _unflatten_delta(delta: torch.Tensor, leaves, treedef) -> PyTree:
     return tree_unflatten(treedef, out)
 
 
+def _fault_weights(flat: torch.Tensor, weights: torch.Tensor,
+                   mask: Optional[torch.Tensor], guard: bool,
+                   max_update_norm: float):
+    """The fault block ahead of FedAvg, in the reference's op order:
+    zero-weight the failed clients (``mask``), reject rows that are not
+    finite or whose L2 norm exceeds ``max_update_norm`` (> 0; f32
+    ``sqrt(sum(square))``) when ``guard``, zero the rejected rows in the
+    data too (0 x NaN is NaN) and renormalize the survivors' weights — a
+    round in which every client failed applies a zero delta.
+    -> (flat, weights, per-row verdict or None)."""
+    wj = weights if mask is None else weights * mask
+    ok = None
+    if guard:
+        ok = torch.isfinite(flat).all(dim=1)
+        if max_update_norm > 0:
+            norms = torch.sqrt(torch.sum(torch.square(flat), dim=1))
+            ok = ok & (norms <= max_update_norm)
+        wj = wj * ok.to(torch.float32)
+        flat = torch.where(ok[:, None], flat, 0.0)
+    wsum = torch.sum(wj)
+    return flat, torch.where(wsum > 0, wj / wsum, 0.0), ok
+
+
 @lru_cache(maxsize=16)
 def make_round_program(model: FLModel, optimizer: TracedOptimizer,
                        steps: int, use_prox: bool, use_clip: bool,
                        method: str = "none", stc_sparsity: float = 0.01,
-                       topology: str = "flat", fanout: int = 0,
-                       use_kernel: bool = False, server_lr: float = 1.0):
+                       use_faults: bool = False,
+                       max_update_norm: float = 0.0, topology: str = "flat",
+                       fanout: int = 0, use_kernel: bool = False,
+                       server_lr: float = 1.0):
     """The whole round as one function (``resources.round_fusion="auto"``).
 
     Signature of the returned function (N_b = bucketed cohort dim):
 
-        (global_params, x, y, idx, n_steps, vec, weights, ef_leaves,
-         ef_rows)
-            -> (new_global_params, loss, acc, nnz)
+        (global_params, x, y, idx, n_steps, vec, weights, mask, nan_mask,
+         ef_leaves, ef_rows)
+            -> (new_global_params, loss, acc, guard_ok, nnz)
 
     * ``weights`` — (N_b,) f32 normalized FedAvg weights (0 beyond N).
+    * ``mask`` / ``nan_mask`` — (N_b,) fault survival mask (f32 0/1) and
+      the rows to poison with NaN after compression (bool).  Both are
+      tensors, so a new fault pattern builds no new program; they are read
+      only when ``use_faults``, and then the fault block
+      (:func:`_fault_weights`) runs ahead of FedAvg and ``guard_ok`` is
+      the (N_b,) bool verdict of its NaN/norm guard (None otherwise).
     * ``ef_leaves`` / ``ef_rows`` — the EF store's hot-tier
       ``(alloc, leaf_size)`` matrices, updated in place, and the (N,) rows
       of the N real clients.  Padded clients are always the last N_b - N
@@ -266,8 +298,8 @@ def make_round_program(model: FLModel, optimizer: TracedOptimizer,
     _round_builds += 1
     cohort = _one_client_fn(model, optimizer, steps, use_prox, use_clip)
 
-    def round_fn(global_params, x, y, idx, n_steps, vec, weights, ef_leaves,
-                 ef_rows):
+    def round_fn(global_params, x, y, idx, n_steps, vec, weights, mask,
+                 nan_mask, ef_leaves, ef_rows):
         nb = x.shape[0]
         stacked = tree_map(
             lambda p: p.unsqueeze(0).expand((nb,) + tuple(p.shape)),
@@ -294,13 +326,21 @@ def make_round_program(model: FLModel, optimizer: TracedOptimizer,
             flat_leaves.append(flat)
         flat = (flat_leaves[0] if len(flat_leaves) == 1
                 else torch.cat(flat_leaves, dim=1)).contiguous()
+        ok = None
+        if use_faults:
+            # poison AFTER compression (the residuals stay clean), then
+            # the staged path's fault block on the sent values
+            flat = torch.where(nan_mask[:, None], float("nan"), flat)
+            flat, weights, ok = _fault_weights(flat, weights, mask, True,
+                                               max_update_norm)
+            flat = flat.contiguous()
         delta = _aggregate(flat, weights, use_kernel, topology, fanout)
         delta_tree = _unflatten_delta(delta, leaves, treedef)
         # the server apply (aggregation.apply_delta), in-program
         new_global = tree_map(
             lambda p, d: (p.to(torch.float32) + server_lr * d).to(p.dtype),
             global_params, delta_tree)
-        return new_global, loss, acc, tuple(nnz_list)
+        return new_global, loss, acc, ok, tuple(nnz_list)
 
     return round_fn
 
@@ -564,13 +604,21 @@ class BatchedExecutor:
                         round_id: int, *, method: str = "none",
                         stc_sparsity: float = 0.01, use_kernel: bool = False,
                         topology: str = "flat", fanout: int = 0,
+                        use_faults: bool = False,
+                        mask: Optional[np.ndarray] = None,
+                        nan_rows: Sequence[int] = (),
+                        max_update_norm: float = 0.0,
                         server_lr: float = 1.0, sync: bool = True):
         """Run the whole round as ONE dispatch (:func:`make_round_program`).
 
         Returns ``(st, new_global_params, fetch)``.  ``st`` holds
         ``n_steps``, ``num_samples`` and the per-leaf sizes; the round's
         single batched device->host transfer fills in host numpy ``loss``
-        / ``acc`` (N_b,) and the per-leaf STC ``nnz`` layout.  With
+        / ``acc`` (N_b,), the per-leaf STC ``nnz`` layout and, with
+        ``use_faults``, the guard's (N_b,) bool ``guard_ok``.  ``mask`` is
+        the (N,) survival mask of the cohort (dropped and crashed clients
+        0) and ``nan_rows`` the cohort rows whose upload is poisoned; they
+        enter the program as tensors.  With
         ``sync=True`` that fetch has happened, ``fetch`` is None and
         ``wall`` is the blocking round time (the virtual clock's
         boundary).  With ``sync=False`` (``tracking.round_sync``) the call
@@ -587,6 +635,14 @@ class BatchedExecutor:
                                  dtype=np.int64)
         w = np.zeros((Nb,), np.float32)
         w[:N] = fedavg_weights(num_samples)
+        m = nanm = None                 # the fault-free round copies none
+        if use_faults:
+            m = np.zeros((Nb,), np.float32)
+            m[:N] = 1.0 if mask is None else np.asarray(mask, np.float32)
+            nanm = np.zeros((Nb,), bool)
+            if len(nan_rows):
+                nanm[np.asarray(nan_rows, np.int64)] = True
+            m, nanm = self._put(m), self._put(nanm)
 
         sizes = [int(leaf.numel()) for leaf in tree_leaves(global_params)]
         if method != "none":
@@ -602,13 +658,15 @@ class BatchedExecutor:
             use_prox=bool((vec.mu > 0).any()),
             use_clip=bool((vec.max_norm > 0).any()),
             method=method, stc_sparsity=float(stc_sparsity),
+            use_faults=use_faults, max_update_norm=float(max_update_norm),
             topology=topology, fanout=int(fanout), use_kernel=use_kernel,
             server_lr=float(server_lr))
 
         t0 = time.perf_counter()
-        new_global, loss, acc, nnz = program(
+        new_global, loss, acc, ok, nnz = program(
             global_params, xd, yd, self._put(idx), self._put(n_steps),
-            self._vec(vec), self._put(w), ef_leaves, self._put(rows))
+            self._vec(vec), self._put(w), m, nanm, ef_leaves,
+            self._put(rows))
         _note_dispatch()
         st: Dict[str, Any] = {
             "n_steps": n_steps,
@@ -619,10 +677,13 @@ class BatchedExecutor:
 
         def fetch():
             # the round's ONE batched device->host transfer
-            fetched = torch.stack([loss, acc, *nnz]).cpu().numpy()
+            guard = [] if ok is None else [ok.to(loss.dtype)]
+            fetched = torch.stack([loss, acc, *guard, *nnz]).cpu().numpy()
             _note_host_sync()
-            counts = iter(fetched[2:])
+            counts = iter(fetched[2 + len(guard):])
             st["loss"], st["acc"] = fetched[0], fetched[1]
+            if guard:
+                st["guard_ok"] = fetched[2] > 0
             # one entry per leaf, None for leaves without an STC count
             st["nnz"] = [next(counts) if method == "stc"
                          and s >= DENSE_MIN_ELEMS else None for s in sizes]
@@ -657,6 +718,36 @@ class BatchedExecutor:
         res = self._ef_store(sizes).gather(
             ids, zero_shapes=[(s,) for s in sizes])
         return res, ids
+
+    # ------------------------------------------------------------------
+    def ef_state(self) -> Dict[str, Any]:
+        """Checkpoint snapshot of the EF residual store (format 2): every
+        client's rows as host tensors, from both tiers (hot rows leave the
+        device in one batched fetch per leaf), so a resume reproduces each
+        residual bit for bit whichever tier held it.  Client ids are
+        sorted, so the snapshot does not depend on which slot or tier held
+        a row."""
+        if self._ef is None:
+            return {"format": 2, "clients": {}}
+        return {"clients": dict(sorted(self._ef.state()["clients"].items())),
+                "format": 2}
+
+    def load_ef_state(self, state: Dict[str, Any]) -> None:
+        """Restore :meth:`ef_state` into the warm tier (rows re-heat onto
+        the device at their next gather).  Takes the legacy dense
+        ``{"rows", "store"}`` snapshot too."""
+        from repro_torch.core.tiered_store import TieredRowStore
+
+        self._ef = TieredRowStore(self.EF_MAX_CLIENTS, spill="host",
+                                  device=self.device, name="ef-store")
+        if "clients" in state:
+            self._ef.load_state(state)
+            return
+        rows = {str(k): int(v) for k, v in state.get("rows", {}).items()}
+        store = [np.asarray(m, np.float32) for m in state.get("store", [])]
+        self._ef.load_state(
+            {"clients": {cid: [m[r] for m in store]
+                         for cid, r in rows.items()}})
 
     # ------------------------------------------------------------------
     def compress_stacked(self, st: Dict[str, Any], clients: Sequence,
@@ -699,12 +790,22 @@ class BatchedExecutor:
 
     # ------------------------------------------------------------------
     def aggregate_stacked(self, st: Dict[str, Any], use_kernel: bool = False,
+                          mask: Optional[np.ndarray] = None,
+                          guard: bool = False, max_update_norm: float = 0.0,
                           topology: str = "flat",
                           fanout: int = 0) -> PyTree:
         """The staged aggregation stage: FedAvg of the stacked updates as
         one (N_b, D) matrix — flat (K1 under ``use_kernel``, else one
         einsum) or the hierarchical tree — with no per-client slicing.
-        Returns the (f32) delta as a tree shaped like the global params."""
+        Returns the (f32) delta as a tree shaped like the global params.
+
+        Faults (``cfg.faults``): ``mask`` zero-weights failed or
+        deadline-missing clients ((N,) 0/1 host array), ``guard`` adds the
+        NaN/Inf row check (and the ``max_update_norm`` bound when > 0),
+        and the survivors' weights renormalize (:func:`_fault_weights`,
+        the fused program's fault block); the guard's (N_b,) bool device
+        verdict lands in ``st["guard_ok"]``.  With both left at their
+        defaults the stage is the fault-free one."""
         from repro_torch.core.aggregation import fedavg_weights
 
         leaves, treedef = tree_flatten(st["updates"])
@@ -714,7 +815,18 @@ class BatchedExecutor:
         w[: len(num_samples)] = fedavg_weights(num_samples)
         flat = torch.cat([leaf.reshape(nb, -1).to(torch.float32)
                           for leaf in leaves], dim=1).contiguous()
-        delta = _aggregate(flat, self._put(w), use_kernel, topology, fanout)
+        w = self._put(w)
+        if mask is not None or guard:
+            m = None
+            if mask is not None:
+                m = np.zeros((nb,), np.float32)
+                m[: len(mask)] = np.asarray(mask, np.float32)
+                m = self._put(m)
+            flat, w, ok = _fault_weights(flat, w, m, guard, max_update_norm)
+            flat = flat.contiguous()
+            if guard:
+                st["guard_ok"] = ok
+        delta = _aggregate(flat, w, use_kernel, topology, fanout)
         _note_dispatch()               # the staged aggregation stage
         return _unflatten_delta(delta, leaves, treedef)
 

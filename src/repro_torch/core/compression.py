@@ -28,9 +28,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Tuple
 
-import numpy as np
 import torch
 
+from repro_torch.comm.serialize import array_nbytes
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import quant
 from repro_torch.kernels.stc_topk import BISECT_ITERS as STC_BISECT_ITERS
@@ -136,17 +136,6 @@ def stc_leaf_bytes(nnz):
     """STC wire format (per Sattler et al.): nnz * (4-byte index + 1 sign
     bit) + one float mean.  Elementwise on an integer array of counts."""
     return nnz * 4 + (nnz + 7) // 8 + 4
-
-
-def array_nbytes(arr) -> int:
-    """Raw payload bytes of a tensor or numpy array: the product of its
-    shape times its item size."""
-    size = 1
-    for d in arr.shape:
-        size *= int(d)
-    dtype = arr.dtype
-    return size * (dtype.itemsize if isinstance(dtype, torch.dtype)
-                   else np.dtype(dtype).itemsize)
 
 
 def payload_bytes(tree: PyTree) -> int:

@@ -246,6 +246,42 @@ class TieredRowStore:
             self._lru.pop(cid, None)
         self._host.pop(cid, None)
 
+    def reset(self) -> None:
+        """Drop every tier."""
+        self.leaves = []
+        self.rows = {}
+        self._lru = OrderedDict()
+        self._free = []
+        self._host = {}
+
+    # ------------------------------------------------------------------
+    def state(self) -> Dict[str, Dict[str, List[torch.Tensor]]]:
+        """Checkpoint snapshot: every client's rows from BOTH tiers, as host
+        tensors.  Hot rows leave the device in one batched fetch per leaf
+        (each client keeps views of it); spilled rows are already on the
+        host.  The snapshot is tier-agnostic: restored onto a device tier of
+        any size it gives the same values bit for bit."""
+        out: Dict[str, List[torch.Tensor]] = {}
+        if self.rows:
+            cids = list(self.rows)
+            idx = torch.as_tensor([self.rows[c] for c in cids],
+                                  device=self.device)
+            fetched = [leaf.index_select(0, idx).cpu() for leaf in self.leaves]
+            for i, cid in enumerate(cids):
+                out[cid] = [f[i] for f in fetched]
+        for cid, rows in self._host.items():
+            out[cid] = list(rows)         # host rows are never written
+        return {"clients": out}
+
+    def load_state(self, state: Dict[str, Dict[str, List]]) -> None:
+        """Restore :meth:`state` (host tensors or numpy rows) into the warm
+        tier: each row re-heats onto the device at its next gather."""
+        self.reset()
+        for cid, rows in state.get("clients", {}).items():
+            self._host[str(cid)] = [
+                r if isinstance(r, torch.Tensor) else torch.from_numpy(
+                    np.asarray(r)) for r in rows]
+
     # ------------------------------------------------------------------
     def pad_dim1(self, new_size: int) -> None:
         """Grow every leaf's axis 1 (the sample dim of pooled data rows),

@@ -203,6 +203,74 @@ def test_batched_paths_on_card_match_cpu(cuda_device, extra):
         [h["comm_up_bytes"] for h in out["cpu"]["history"]]
 
 
+@pytest.mark.parametrize("execution,resources,compression", [
+    ("batched", {}, "stc"),
+    ("batched", {"round_fusion": "off"}, "int8"),
+    ("batched", {"aggregation_topology": "hierarchical"}, "stc"),
+    ("sequential", {}, "none"),
+], ids=["fused-stc", "staged-int8", "hierarchical-stc", "sequential-none"])
+def test_faulty_rounds_on_card_match_cpu(cuda_device, execution, resources,
+                                         compression):
+    """Dropout, crash, stragglers and NaN uploads (the fused round's mask
+    and guard): the card gives the CPU's fault accounting every round, its
+    params within 1e-5 and its wire bytes exactly."""
+    cfg = Config.make({
+        "model": "linear",
+        "data": {"dataset": "synthetic", "num_clients": 8, "batch_size": 32},
+        "server": {"rounds": 3, "clients_per_round": 5},
+        "client": {"local_epochs": 2, "lr": 0.1, "compression": compression},
+        "resources": {"execution": execution, "aggregation_kernel": True,
+                      **resources},
+        "faults": {"dropout_prob": 0.2, "crash_prob": 0.2,
+                   "straggler_prob": 0.3, "nan_update_prob": 0.2,
+                   "max_update_norm": 100.0, "seed": 8}})
+    p0 = convert.params_to_numpy(
+        get_model("linear").init(torch.Generator().manual_seed(0)))
+    out = {}
+    for device in ("cuda", "cpu"):
+        repro_torch.set_device(device)
+        trainer = Trainer(cfg, get_model("linear"),
+                          build_federated_data(cfg.data))
+        trainer.server.params = convert.params_from_jax(p0)
+        out[device] = trainer.run()
+    keys = ("dropped", "crashed", "straggled", "rejected", "deadline_missed",
+            "reselections", "survivors", "clients", "comm_up_bytes")
+    assert [[h[k] for k in keys] for h in out["cuda"]["history"]] == \
+        [[h[k] for k in keys] for h in out["cpu"]["history"]]
+    assert sum(h["rejected"] for h in out["cpu"]["history"]) > 0
+    for a, b in zip(tree_leaves(out["cuda"]["params"]),
+                    tree_leaves(out["cpu"]["params"])):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_tiered_store_state_round_trips_bitwise_on_card(cuda_device):
+    """An EF store on the card whose rows span both tiers (device capacity
+    2 of 5 clients): ``state()`` through the checkpoint serializer and back
+    into stores of other capacities, every row bit for bit."""
+    from repro_torch.comm import serialize
+    from repro_torch.core.tiered_store import TieredRowStore
+
+    shapes = [(6603710,), (62,)]
+    s = TieredRowStore(2, spill="host", device=cuda_device, name="ef")
+    gen = torch.Generator().manual_seed(0)
+    vals = {f"c{i}": [torch.randn(sh, generator=gen) for sh in shapes]
+            for i in range(5)}
+    for cid, rows in vals.items():
+        s.ensure([cid], zero_shapes=shapes)
+        s.scatter([cid], [r[None].to(cuda_device) for r in rows])
+    assert len(s.spilled_ids()) == 3 and len(s.rows) == 2
+    snap = serialize.loads(serialize.dumps(s.state()))
+    for cap in (1, 8):
+        t = TieredRowStore(cap, spill="host", device=cuda_device, name="ef")
+        t.load_state(snap)
+        for cid, rows in vals.items():
+            got = t.gather([cid], zero_shapes=shapes)
+            assert all(torch.equal(g[0].cpu().view(torch.int32),
+                                   r.view(torch.int32))
+                       for g, r in zip(got, rows))
+
+
 # the LoRA path's shape (4 clients x 4 sequences x 32 heads, S 512, D 128),
 # ragged sequence lengths and head dims, a head dim that is not a power of
 # two, and the full head dim without the causal mask

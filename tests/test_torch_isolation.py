@@ -59,6 +59,17 @@ def test_no_file_of_the_port_imports_jax_or_repro(path):
         assert top not in ("jax", "jaxlib", "repro"), f"{path}: {name}"
 
 
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+                         + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_file_of_the_port_imports_msgpack_or_ml_dtypes(path):
+    """The card machine has neither: the checkpoint format is written and
+    read by ``repro_torch.comm.serialize`` alone."""
+    for name in _imports(path):
+        assert name.split(".")[0] not in ("msgpack", "ml_dtypes"), \
+            f"{path}: {name}"
+
+
 def test_entry_points_refuse_the_cpu_without_a_cuda_device():
     out = _run("""
         import repro_torch, torch
