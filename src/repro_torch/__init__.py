@@ -1,11 +1,12 @@
 """repro_torch — EasyFL (Zhuang et al., 2021) in PyTorch for an NVIDIA H100.
 
 The PyTorch/CUDA port of the ``repro`` package: the same low-code API,
-config tree and history, with the fused batched FedAvg round
-(``resources.execution="batched"``) on hand-written CUDA kernels for
-FedAvg, STC and int8 compression, and federated LoRA fine-tuning of decoder
-LMs (``client.finetune="lora"``) with hand-written flash-attention kernels
-behind ``REPRO_FLASH_ATTN=1``.
+config tree and history; the sequential, batched and async (FedBuff)
+engines on hand-written CUDA kernels for FedAvg, STC and int8 compression;
+the paper's three benchmark models (``femnist_cnn``, ``shakespeare_lstm``,
+``cifar_resnet18``) and its strategy plugins (``core.strategies``); and
+federated LoRA fine-tuning of decoder LMs (``client.finetune="lora"``)
+with hand-written flash-attention kernels behind ``REPRO_FLASH_ATTN=1``.
 
     import repro_torch as easyfl
     easyfl.init({"model": "femnist_cnn", "dataset": "femnist",

@@ -70,6 +70,27 @@ def weighted_average(updates: List[PyTree], weights: np.ndarray,
     return tree_map(avg, *updates)
 
 
+def staleness_weighted_delta(updates: List[PyTree],
+                             num_samples: Sequence[int],
+                             staleness: Sequence[float],
+                             power: float = 0.5,
+                             use_kernel: bool = False,
+                             topology: str = "flat",
+                             fanout: int = 0) -> PyTree:
+    """FedBuff aggregate (Nguyen et al., AISTATS'22): the sample-weighted
+    mean with each update discounted by ``1/(1+s)^power``, ``staleness[i]``
+    the server aggregations between update i's dispatch and now.  The
+    discount only transforms the weights
+    (``kernels.fedavg_agg.fold_staleness``), so K1, the tree and the einsum
+    run unchanged."""
+    from repro_torch.kernels.fedavg_agg import fold_staleness
+    w = fold_staleness(torch.as_tensor(fedavg_weights(num_samples)),
+                       torch.as_tensor(np.asarray(staleness, np.float32)),
+                       power).numpy()
+    return weighted_average(updates, w, use_kernel=use_kernel,
+                            topology=topology, fanout=fanout)
+
+
 def apply_delta(global_params: PyTree, delta: PyTree,
                 server_lr: float = 1.0) -> PyTree:
     """Apply an aggregated update delta to the global params."""

@@ -117,8 +117,7 @@ def init(configs: Optional[Dict[str, Any]] = None) -> Config:
             into it; a leaf owned by several sections raises ``KeyError``.
             When ``"model"`` is omitted it is derived from the dataset.
             Unknown keys raise ``KeyError``; an unregistered model raises
-            ``KeyError`` and a model that is not ported yet
-            ``NotImplementedError``, here rather than at ``run()``.
+            ``KeyError`` here rather than at ``run()``.
 
     Returns:
         The merged, immutable :class:`repro_torch.core.config.Config`.
@@ -194,18 +193,21 @@ def register_model(model) -> None:
 
 def register_server(server_cls) -> None:
     """Use ``server_cls`` (a :class:`repro_torch.core.server.Server`
-    subclass) for subsequent ``run()`` calls.  Both engines run its stage
-    overrides; under ``"batched"`` an ``apply_delta`` override takes the
-    staged path and an ``aggregation`` override the gathering path."""
+    subclass, e.g. ``FedBuffServer``) for subsequent ``run()`` calls.  The
+    synchronous engines run its stage overrides; under ``"batched"`` an
+    ``apply_delta`` override takes the staged path and an ``aggregation``
+    override the gathering path.  The async event loop aggregates itself:
+    an ``aggregation`` override needs ``buffered_apply`` there, else it
+    raises."""
     _ctx.server_cls = server_cls
 
 
 def register_client(client_cls) -> None:
     """Use ``client_cls`` (a :class:`repro_torch.core.client.Client`
     subclass) for subsequent runs.  The sequential engine (the default
-    ``execution``) runs every stage override; under ``"batched"`` a
-    ``train`` override raises, as in the reference, and compression /
-    encryption / upload overrides take the gathering path."""
+    ``execution``) runs every stage override; under ``"batched"`` and
+    ``"async"`` a ``train`` override raises, as in the reference, and
+    compression / encryption / upload overrides take the gathering path."""
     _ctx.client_cls = client_cls
 
 
@@ -217,12 +219,18 @@ def register_client(client_cls) -> None:
 def run(callback: Optional[Callable] = None) -> Dict[str, Any]:
     """Start training per the active config (``init`` is implied).
 
+    ``resources.execution`` selects the engine: per-client sequential
+    rounds, one-program batched cohorts, or the async FedBuff event loop
+    (one history entry per buffer aggregation instead of per round).
+
     Returns:
         Summary dict: ``task_id``, ``rounds``, ``final`` (last round's
-        metrics), ``history`` (one metrics dict per round: ``round_time``
-        virtual seconds, ``wall_time``, ``clients``, comm byte counters,
-        ``train_loss``, eval metrics every ``server.test_every``) and
-        ``params`` (the final global model, a dict of tensors).
+        metrics), ``history`` (one metrics dict per round or aggregation:
+        ``round_time`` virtual seconds, ``wall_time``, ``clients``, comm
+        byte counters, ``train_loss``, eval metrics every
+        ``server.test_every``; the async engine adds ``virtual_time``,
+        ``staleness_mean/max`` and ``in_flight``) and ``params`` (the
+        final global model, a dict of tensors).
     """
     if _ctx.config is None:
         init({})

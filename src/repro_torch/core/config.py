@@ -430,7 +430,14 @@ class ResourceConfig:
       (hand-written CUDA kernels + a device-resident error-feedback store)
       and aggregation consumes the stacked updates directly.
     * ``"async"`` — FedBuff-style overlapping cohorts on a virtual-clock
-      event loop (not ported yet: ROADMAP M7).
+      event loop (``repro_torch.core.async_engine``): up to
+      ``max_concurrency`` clients are in flight at once, each completion
+      frees a slot that is refilled at once with the *current* global
+      model, and the server aggregates every buffer of ``buffer_size``
+      completions with staleness-discounted weights
+      (``w_i ∝ n_i / (1+s_i)^staleness_power``).  Each dispatch wave runs
+      through the batched engine as one stacked micro-cohort.  Requires
+      ``distributed="none"``.
 
     ``aggregation_kernel`` switches the FedAvg weighted average onto the
     streaming CUDA kernel (``repro_torch.kernels.fedavg_agg``); the default

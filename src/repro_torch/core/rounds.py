@@ -11,9 +11,11 @@ of the device groups, Eq. 1:
 
     T_round = max_g  sum_{c in g} simulated_time(c)
 
-Two engines are ported.  ``resources.execution="sequential"`` (the
+Three engines are ported.  ``resources.execution="sequential"`` (the
 default) runs every stage of every selected client in turn — each stage
-overridable — then ``Server.aggregation``.  ``"batched"`` trains the
+overridable — then ``Server.aggregation``.  ``"async"`` replaces the round
+loop with the FedBuff event loop (``core/async_engine.py``), whose waves
+train on the batched engine.  ``"batched"`` trains the
 cohort as one stacked program (``core/batched.py``) and takes one of three
 paths, as the reference does: the fused round (``round_fusion="auto"``),
 the staged path (``"off"``, or a round with a ``Server.apply_delta``
@@ -22,10 +24,11 @@ override) and the gathering path (a non-FedAvg aggregator, a
 upload override: each client's own post-train stages, then
 ``Server.aggregation``).  Both engines run flat or hierarchical FedAvg;
 ``tracking.round_sync=False`` defers each round's metric fetch behind the
-next round's dispatch; LoRA runs under ``batched``.  Both engines take the
+next round's dispatch; LoRA runs under ``batched``.  Every engine takes the
 fault layer (``cfg.faults``: dropout, crash, straggler, NaN uploads, the
-NaN/norm guard and the survivor floor), ``resources.round_deadline`` and
-checkpoint/resume (``cfg.checkpoint``) as the reference does.  Every
+NaN/norm guard and the survivor floor; under async, retry with backoff),
+``resources.round_deadline`` and checkpoint/resume (``cfg.checkpoint``) as
+the reference does.  Every
 configuration outside that raises ``NotImplementedError`` naming the
 ROADMAP item that ports it — at construction, never as a silent detour.
 """
@@ -118,27 +121,12 @@ def unported_config(cfg: Config) -> List[str]:
     ROADMAP item that ports it (empty when they cover ``cfg``)."""
     res = cfg.resources
     out = []
-    if res.execution == "async":
-        out.append("resources.execution='async' (ROADMAP M7)")
-        # the async engine's own fault handling (retry, backoff, FedBuff
-        # state in checkpoints) comes with it
-        if cfg.faults.active:
-            out.append("fault injection under the async engine "
-                       "(ROADMAP M7)")
-        if res.round_deadline > 0:
-            out.append("resources.round_deadline > 0 under the async "
-                       "engine (ROADMAP M7)")
-        if cfg.checkpoint.every:
-            out.append("checkpointing under the async engine (ROADMAP M7)")
-    if res.execution == "sequential" and cfg.client.finetune == "lora":
-        out.append("client.finetune='lora' under resources.execution="
-                   "'sequential' (ROADMAP M8)")
+    if res.execution != "batched" and cfg.client.finetune == "lora":
+        out.append(f"client.finetune='lora' under resources.execution="
+                   f"{res.execution!r} (ROADMAP M8)")
     if res.execution == "batched" and res.distributed != "none":
         out.append(f"resources.distributed={res.distributed!r} "
                    f"(ROADMAP M5.7)")
-    if cfg.server.aggregation == "fedbuff":
-        out.append("server.aggregation='fedbuff', buffered asynchronous "
-                   "aggregation (ROADMAP M7)")
     return out
 
 
@@ -200,10 +188,11 @@ class Trainer:
                 f"only server.clients_per_round="
                 f"{config.server.clients_per_round} clients are selected "
                 f"per round")
-        # the sequential engine needs no data pool or EF store on the device
+        # the sequential engine needs no data pool or EF store on the
+        # device; async waves run through the batched executor
         self.engine = (BatchedExecutor(
             model, self.device, distributed=config.resources.distributed)
-            if config.resources.execution == "batched" else None)
+            if config.resources.execution in ("batched", "async") else None)
         self.het = SystemHeterogeneity(config.system_heterogeneity)
         self.scheduler = GreedyAda(
             num_devices=max(1, config.resources.num_devices),
@@ -344,7 +333,14 @@ class Trainer:
         0; on the gathering path its post-train stages are skipped, so its
         residual stays untouched.  NaN uploads are poisoned after
         compression.  The pre-train stages run once, through the first
-        client, as in the reference."""
+        client, as in the reference.
+
+        An async wave (``execution="async"``) never fuses: with default
+        stages and built-in stc / int8 it compresses in-program
+        (``run_cohort_stacked`` -> ``compress_stacked``, residuals keyed by
+        client id across waves) and hands back each client's sent update;
+        otherwise it takes the gathering path.  Either way ``aggregated``
+        is False: the event loop buffers the updates."""
         clients = [self.client(c) for c in selected]
         for stage in ("download", "decompression", "train"):
             impls = {getattr(type(c), stage) for c in clients}
@@ -361,7 +357,8 @@ class Trainer:
             type(c).compression is Client.compression
             and type(c).encryption is Client.encryption
             and type(c).upload is Client.upload for c in clients)
-        fuse_agg = (default_post
+        is_async = res_cfg.execution == "async"
+        fuse_agg = (not is_async and default_post
                     and self.cfg.server.aggregation == "fedavg"
                     and type(self.server).aggregation is Server.aggregation)
         # a deadline needs the round's own measured time, which does not
@@ -369,7 +366,8 @@ class Trainer:
         fuse_round = (fuse_agg and res_cfg.round_fusion == "auto"
                       and res_cfg.round_deadline == 0
                       and type(self.server).apply_delta is Server.apply_delta)
-        if not fuse_round and res_cfg.round_fusion == "auto" \
+        if not is_async and not fuse_round \
+                and res_cfg.round_fusion == "auto" \
                 and not self._fusion_warned:
             reasons = []
             if not default_post:
@@ -512,6 +510,18 @@ class Trainer:
                 label_rejected(results, labels,
                                st["guard_ok"].cpu().numpy())
             return results, True, None
+        if is_async and default_post and method in ("stc", "int8"):
+            # async wave: compress in-program, hand back each client's sent
+            # (dense) update for the FedBuff buffer
+            st = self.engine.compress_stacked(
+                self.engine.run_cohort_stacked(clients, global_params,
+                                               round_id),
+                clients, method, self.cfg.client.stc_sparsity)
+            results = self.engine.per_client_results(clients, st)
+            for client, res, pb in zip(clients, results, payloads(st)):
+                res["client_id"] = client.client_id
+                res["payload_bytes"] = pb
+            return results, False, None
 
         results = []
         for client, res in zip(clients, self.engine.run_cohort(
@@ -587,6 +597,10 @@ class Trainer:
         fetch), accounts bytes, tests ``server.params`` as this round left
         them, tracks and appends the history entry.  ``_run`` defers it
         behind the next dispatch under ``tracking.round_sync=False``."""
+        if self.cfg.resources.execution == "async":
+            raise ValueError(
+                'resources.execution="async" replaces the synchronous round '
+                "loop with an event loop; call Trainer.run()")
         server = self.server
         f = self.cfg.faults
         deadline = self.cfg.resources.round_deadline
@@ -720,7 +734,9 @@ class Trainer:
     def save_checkpoint(self, completed: int) -> str:
         """Atomically persist everything a fresh ``Trainer`` needs to
         continue from round ``completed``, in the reference's format 1:
-        server params and selection RNG, round index, history, the
+        server params and selection RNG (and a FedBuff server's buffer,
+        decompressed), round index (under async: the model version, the
+        aggregations completed), history, the
         heterogeneity speed assignments, the scheduler profiles, and the
         error-feedback residuals of both engines (the sequential clients'
         and the batched executor's store, both tiers; residuals a resume
@@ -764,7 +780,11 @@ class Trainer:
         uninterrupted run (every source of randomness is either restored —
         selection RNG, speed assignments, EF residuals — or deterministic:
         data shuffles, the fault sampler), except under a
-        ``round_deadline``, whose misses depend on measured wall time."""
+        ``round_deadline``, whose misses depend on measured wall time.
+        The async engine resumes its remaining buffer aggregations from the
+        checkpointed model and version; work in flight at the kill is
+        dispatched anew, so its trajectory is value-correct, not
+        bit-identical."""
         from repro_torch.checkpoint.store import load_checkpoint
 
         state = load_checkpoint(self.cfg.checkpoint.dir, step)
@@ -800,6 +820,27 @@ class Trainer:
             self.tracker.create_task(self.cfg.task_id, to_dict(self.cfg))
         return self._run(callback, start_round=completed)
 
+    def _run_rounds(self, start_round: int) -> None:
+        """The synchronous round loop of :meth:`_run`."""
+        defer = not self.cfg.tracking.round_sync
+        ck = self.cfg.checkpoint
+        te = self.cfg.server.test_every
+        pending: Optional[Callable[[], Dict[str, float]]] = None
+        for r in range(start_round, self.cfg.server.rounds):
+            fin = self._dispatch_round(r)
+            if pending is not None:
+                pending()
+                pending = None
+            eager = (ck.every and (r + 1) % ck.every == 0) or \
+                    (te and (r + 1) % te == 0)
+            if defer and not eager:
+                pending = fin
+            else:
+                fin()
+                self._maybe_checkpoint(r + 1)
+        if pending is not None:
+            pending()
+
     # ------------------------------------------------------------------
     def run(self, callback: Optional[Callable] = None) -> Dict[str, Any]:
         """Train for ``server.rounds`` rounds.  Parameters already set on
@@ -821,25 +862,14 @@ class Trainer:
         finalize (its metric fetch) waits until round R+1 is dispatched,
         so the card never idles on that sync.  Checkpoint and test rounds
         finalize at once: a checkpoint must hold the round's history, and
-        a test must see the params the round produced."""
-        defer = not self.cfg.tracking.round_sync
-        ck = self.cfg.checkpoint
-        te = self.cfg.server.test_every
-        pending: Optional[Callable[[], Dict[str, float]]] = None
-        for r in range(start_round, self.cfg.server.rounds):
-            fin = self._dispatch_round(r)
-            if pending is not None:
-                pending()
-                pending = None
-            eager = (ck.every and (r + 1) % ck.every == 0) or \
-                    (te and (r + 1) % te == 0)
-            if defer and not eager:
-                pending = fin
-            else:
-                fin()
-                self._maybe_checkpoint(r + 1)
-        if pending is not None:
-            pending()
+        a test must see the params the round produced.  Under async the
+        event loop runs instead; it appends each aggregation to
+        ``self.history`` itself and sizes its remaining budget from it."""
+        if self.cfg.resources.execution == "async":
+            from repro_torch.core.async_engine import AsyncEngine
+            AsyncEngine(self).run()
+        else:
+            self._run_rounds(start_round)
         self.server.finalize()
         summary = {
             "task_id": self.cfg.task_id,

@@ -22,11 +22,16 @@ call (bit-equal to it), and under ``use_kernel`` the rows pad to a
 power-of-two multiple of ``TILE_N`` and a group is
 ``bucket_clients(fanout)`` rows.  :func:`fedavg_tree_plain` is the same
 tree with :func:`fedavg_plain` per group, bit for bit the kernel's.
+
+Asynchronous (FedBuff) aggregation takes both entry points unchanged: its
+staleness discount is a transform of the weight vector
+(:func:`fold_staleness`, plain f32 arithmetic in the reference's op order)
+ahead of the same K1 launch.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -78,12 +83,30 @@ def _check(updates: torch.Tensor, weights: torch.Tensor) -> None:
                              "share one device")
 
 
-def fedavg_aggregate(updates: torch.Tensor,
-                     weights: torch.Tensor) -> torch.Tensor:
-    """Weighted sum of the rows of ``updates`` with ``weights``.
+def fold_staleness(weights: torch.Tensor, staleness: torch.Tensor,
+                   power: float = 0.5) -> torch.Tensor:
+    """Fold the FedBuff staleness discount into a weight vector: each
+    weight scaled by ``(1 + s) ** -power`` (``s`` the model versions that
+    elapsed since the update's dispatch; ``power = 0`` disables the
+    discount), then renormalized to sum to 1.  (N,), (N,) -> (N,) f32."""
+    w = weights.to(torch.float32)
+    s = staleness.to(device=w.device, dtype=torch.float32)
+    w = w * (1.0 + s) ** torch.tensor(-power, dtype=torch.float32,
+                                      device=w.device)
+    return w / torch.sum(w)
+
+
+def fedavg_aggregate(updates: torch.Tensor, weights: torch.Tensor,
+                     staleness: Optional[torch.Tensor] = None,
+                     staleness_power: float = 0.5) -> torch.Tensor:
+    """Weighted sum of the rows of ``updates`` with ``weights``, the
+    weights first discounted by ``staleness`` (:func:`fold_staleness`)
+    when it is given.
 
     A CPU tensor goes to :func:`fedavg_plain`; a CUDA tensor to the CUDA
     kernel (contiguous f32 required); any other device raises."""
+    if staleness is not None:
+        weights = fold_staleness(weights, staleness, staleness_power)
     if updates.device.type == "cpu":
         return fedavg_plain(updates, weights)
     if updates.device.type != "cuda":
@@ -180,8 +203,9 @@ def _einsum_tier(u: torch.Tensor, w: torch.Tensor, g: int) -> torch.Tensor:
 
 
 def fedavg_aggregate_tree(updates: torch.Tensor, weights: torch.Tensor,
-                          fanout: int = 0,
-                          use_kernel: bool = True) -> torch.Tensor:
+                          fanout: int = 0, use_kernel: bool = True,
+                          staleness: Optional[torch.Tensor] = None,
+                          staleness_power: float = 0.5) -> torch.Tensor:
     """Hierarchical (edge -> region -> global) weighted sum of the rows of
     ``updates``: (N, D), (N,) -> (D,) f32.
 
@@ -189,7 +213,10 @@ def fedavg_aggregate_tree(updates: torch.Tensor, weights: torch.Tensor,
     kernel on a CUDA tensor, its plain version on a CPU tensor), the flat
     short cut :func:`fedavg_aggregate`; otherwise each tier is
     ``torch.einsum("gf,gfd->gd")`` and the short cut ``"n,nd->d"``, as in
-    the reference."""
+    the reference.  ``staleness`` folds into the weights as on the flat
+    path."""
+    if staleness is not None:
+        weights = fold_staleness(weights, staleness, staleness_power)
     if use_kernel:
         return _tree(updates, weights, fanout, True, fedavg_aggregate,
                      fedavg_aggregate_grouped)

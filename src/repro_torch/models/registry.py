@@ -1,27 +1,22 @@
-"""Model registry backing the ``register_model`` API (paper Table II).
-
-Ported models: ``femnist_cnn``, ``linear`` and ``tiny_lm``.  The
-reference's other built-in names raise ``NotImplementedError`` naming the
-ROADMAP item that ports them, instead of resolving to something else.
-"""
+"""Model registry backing the ``register_model`` API (paper Table II):
+the reference's built-in names, ``resnet18`` an alias of
+``cifar_resnet18``."""
 from __future__ import annotations
 
 from typing import Callable, Dict
 
 from repro_torch.models.llm import tiny_lm
-from repro_torch.models.small import FLModel, femnist_cnn, linear_model
+from repro_torch.models.small import (
+    FLModel, cifar_resnet18, femnist_cnn, linear_model, shakespeare_lstm,
+)
 
 _FACTORIES: Dict[str, Callable[[], FLModel]] = {
     "femnist_cnn": femnist_cnn,
+    "shakespeare_lstm": shakespeare_lstm,
+    "cifar_resnet18": cifar_resnet18,
+    "resnet18": cifar_resnet18,
     "linear": linear_model,
     "tiny_lm": tiny_lm,
-}
-
-#: built-in reference models that are not ported yet -> ROADMAP item
-UNPORTED = {
-    "shakespeare_lstm": "M3",
-    "cifar_resnet18": "M3",
-    "resnet18": "M3",
 }
 
 # sensible default model per built-in dataset (init({"model": ...}) optional)
@@ -52,10 +47,6 @@ def register_model(name_or_model, model=None) -> None:
 
 def get_model(name: str) -> FLModel:
     if name not in _FACTORIES:
-        if name in UNPORTED:
-            raise NotImplementedError(
-                f"model {name!r} is not ported to repro_torch yet (ROADMAP "
-                f"{UNPORTED[name]}); ported: {sorted(_FACTORIES)}")
         raise KeyError(f"unknown model {name!r}; registered: {sorted(_FACTORIES)}")
     return _FACTORIES[name]()
 

@@ -334,11 +334,14 @@ def test_unported_settings_still_name_their_roadmap_items():
     assert missing(faults={"dropout_prob": 0.1},
                    resources={"round_deadline": 1.0},
                    checkpoint={"every": 1}) == []
-    msg = "; ".join(missing(resources={"execution": "async"},
-                            faults={"dropout_prob": 0.1},
-                            checkpoint={"every": 1}))
-    assert "fault injection under the async engine (ROADMAP M7)" in msg
-    assert "checkpointing under the async engine (ROADMAP M7)" in msg
+    # the async engine takes faults, the deadline and checkpoints too
+    assert missing(resources={"execution": "async", "round_deadline": 1.0},
+                   faults={"dropout_prob": 0.1},
+                   checkpoint={"every": 1}) == []
+    assert missing(resources={"execution": "async"},
+                   client={"finetune": "lora"}) == [
+        "client.finetune='lora' under resources.execution='async' "
+        "(ROADMAP M8)"]
     assert missing(resources={"execution": "batched",
                               "distributed": "data"}) == [
         "resources.distributed='data' (ROADMAP M5.7)"]

@@ -49,6 +49,18 @@ from repro_torch.utils.tree import tree_leaves  # noqa: E402
 
 repro_torch.set_device("cpu")
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: its tensors are small, and
+    under a loaded parallel test run torch's thread pool made these runs
+    many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ATTN = ("attn",)
 
 

@@ -49,6 +49,31 @@ from repro_torch.utils.tree import tree_leaves  # noqa: E402
 
 repro_torch.set_device("cpu")
 
+
+_THREADS = []     # the intra-op thread count the module started with
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: its tensors are small, and
+    under a loaded parallel test run torch's thread pool made these runs
+    many times slower."""
+    n = torch.get_num_threads()
+    _THREADS.append(n)
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture
+def _default_threads():
+    """The default thread pool for one test: a trajectory whose STC flips
+    depend on how the CPU's convolutions round (see the test)."""
+    torch.set_num_threads(_THREADS[-1])
+    yield
+    torch.set_num_threads(1)
+
+
 LINEAR = {
     "model": "linear",
     "data": {"dataset": "synthetic", "num_clients": 10, "batch_size": 32},
@@ -148,6 +173,7 @@ def test_femnist_cnn_none_matches_reference_sequential():
     _both(_merge(FEMNIST, {"client": {"compression": "none"}}), rounds=2)
 
 
+@pytest.mark.usefixtures("_default_threads")
 def test_femnist_cnn_stc_matches_reference_sequential():
     """At femnist's width the two packages' convolutions round differently
     (client updates differ by up to ~1e-5), and STC turns an element that

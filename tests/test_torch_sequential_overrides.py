@@ -29,6 +29,17 @@ from test_torch_sequential import (  # noqa: E402
 repro_torch.set_device("cpu")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: its tensors are small, and
+    under a loaded parallel test run torch's thread pool made these runs
+    many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("compression", ["none", "stc", "int8"])
 def test_sequential_matches_batched(compression):
     cfg = _merge(LINEAR, {"client": {"compression": compression}})

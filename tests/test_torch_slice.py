@@ -26,6 +26,18 @@ from repro_torch.utils.tree import tree_leaves  # noqa: E402
 
 repro_torch.set_device("cpu")
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: its tensors are small, and
+    under a loaded parallel test run torch's thread pool made these runs
+    many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 LINEAR = {
     "model": "linear",
     "data": {"dataset": "synthetic", "num_clients": 10, "batch_size": 32},
@@ -160,12 +172,13 @@ def test_one_dispatch_and_one_host_sync_per_round():
     assert batched.round_trace_count() - b0 == 1     # one bucket, one build
 
 
-# item: the ROADMAP item the port names when it refuses the setting, or
-# None once the setting is ported (it then runs against the reference)
+# item: the ROADMAP item the port names when it refuses the setting, None
+# once the setting is ported (it then runs against the reference), or the
+# exception both packages raise for a setting the reference refuses too
 UNPORTED = [
     ({"resources": {"execution": "sequential"}, "client": {"finetune": "lora"}},
      "M8"),
-    ({"resources": {"execution": "async"}}, "M7"),
+    ({"resources": {"execution": "async"}}, None),
     ({"resources": {"round_fusion": "off"}}, None),
     ({"resources": {"distributed": "data"}}, "M5.7"),
     ({"resources": {"aggregation_topology": "hierarchical"}}, None),
@@ -176,9 +189,10 @@ UNPORTED = [
     ({"checkpoint": {"every": 1}}, None),
     ({"tracking": {"round_sync": False}}, None),
     ({"client": {"finetune": "lora"}, "resources": {"execution": "async"}},
-     "M7"),
+     "M8"),
     ({"server": {"compression": "int8", "aggregation": "median"}}, None),
-    ({"server": {"aggregation": "fedbuff"}}, "M7"),
+    # not an aggregator name in either package (FedBuff is FedBuffServer)
+    ({"server": {"aggregation": "fedbuff"}}, KeyError),
 ]
 
 
@@ -225,6 +239,17 @@ def test_configs_outside_the_slice_raise(extra, item, monkeypatch,
         cfg = _merge(_merge(LINEAR, {"server": {"rounds": 2}}), extra)
         _assert_parity(*_run_both(cfg), rounds=2)
         return
+    if not isinstance(item, str):  # refused by both packages alike
+        cfg = _merge(LINEAR, extra)
+        with pytest.raises(item) as ref_err:
+            _run_both(cfg)
+        repro_torch.reset()
+        repro_torch.init(cfg)
+        with pytest.raises(item) as port_err:
+            repro_torch.run()
+        repro_torch.reset()
+        assert str(port_err.value) == str(ref_err.value)
+        return
     repro_torch.reset()
     repro_torch.init(_merge(LINEAR, extra))
     with pytest.raises(NotImplementedError, match=item):
@@ -239,13 +264,21 @@ def test_unknown_compression_raises_the_reference_error(section):
         PortTrainer(cfg, port_get_model("linear"), port_build(cfg.data))
 
 
-@pytest.mark.parametrize("model,item", [("shakespeare_lstm", "M3"),
-                                        ("cifar_resnet18", "M3"),
-                                        ("resnet18", "M3")])
+@pytest.mark.parametrize("model,item", [("shakespeare_lstm", None),
+                                        ("cifar_resnet18", None),
+                                        ("resnet18", None)])
 def test_unported_models_raise_at_init(model, item):
+    """Every built-in model name of the reference resolves since ROADMAP
+    M3 (item None); an unported one would raise naming its item."""
     repro_torch.reset()
-    with pytest.raises(NotImplementedError, match=item):
-        repro_torch.init({"model": model, "dataset": "synthetic"})
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            repro_torch.init({"model": model, "dataset": "synthetic"})
+        return
+    cfg = repro_torch.init({"model": model, "dataset": "synthetic"})
+    assert cfg.model == model
+    assert port_get_model(model).name == ref_get_model(model).name
+    repro_torch.reset()
 
 
 class _TrainOverride(Client):
