@@ -71,8 +71,12 @@ Phases, in order; any failed check raises, so the script exits non-zero:
    attention projections, 8 clients, 4 per round, batch 4, 2 rounds, once
    with the flash flag on and once off; the flash kernels must launch in
    the first run only and the final adapters of the two runs agree within
-   1e-4; then a probe of the repo's default init (flash on, off, and off
-   from a 1e-7-perturbed start) prints how far each gap reaches;
+   1e-4; then LoRA beyond the batched engine, flash on: the sequential
+   engine (eager per-client steps) and the async engine (2 aggregations of
+   4, uniform speeds: the degenerate case) held against the batched
+   flash-on run within max(1e-4, 2 x how far that run moves from a
+   1e-7-perturbed start), and batched LoRA with STC and with int8; round
+   walls and peak memory (under 70 GB) of each;
 4c. drive the RWKV6 serving path at full width and depth:
    ``rwkv6-1.6b`` (24 layers, bf16 activations, f32 parameters, 1.6 B
    parameters from seed 0) through ``make_prefill_step`` at 16 x 512
@@ -141,6 +145,21 @@ Phases, in order; any failed check raises, so the script exits non-zero:
    aggregations) against phase 4's fused stc run at phase 5's bar; K1 one
    launch an aggregation, no fused round program; waves, buckets,
    staleness and the wall per aggregation printed;
+4j. drive the sharded cohort (``resources.distributed="data"``) on phase
+   4's configuration: (a) on the default devices (the one card, 1 shard)
+   fused none / stc / int8 (and, in phase 4g's deterministic child, fused
+   stc on 1 shard bit for bit the unsharded run); (b) on 2 and 4 shards of
+   the card (``set_devices([cuda:0] * k)``): fused stc, hierarchical stc
+   at ``aggregation_fanout=2``, staged int8, fused stc under phase 4g's
+   faults, and fused stc at 20 clients a round (bucket 32, beside an
+   unsharded run of it); each against the unsharded run of its mode,
+   printed against 1e-4 and held within max(1e-4, 2 x that run's
+   1e-7-perturbed reach), round walls beside the unsharded ones; K1 once
+   a shard a round (flat, or one tier of the tree), K2 / K3 once a leaf a
+   shard a round; (c) the sharded routes of K1-K3 at (16, 6,603,710) over
+   2 and 4 shards against the unsharded kernels (K2 / K3 bit for bit, K1
+   at fanout 0 and 2 within 1e-6 relative), timed beside their plain
+   versions and bounded;
 5. run the same port for 2 rounds of 4 clients from one set of injected
    parameters on the card and on the CPU and compare them, once per
    engine: train losses within 1e-4; parameters printed against 1e-4 and
@@ -150,7 +169,8 @@ Phases, in order; any failed check raises, so the script exits non-zero:
    turn any rounding difference into a gap of 1e-5 to 3e-4 in either
    engine, the CPU's thread count included, so 1e-4 alone measures which
    roundings the host and the libraries happened to pick;
-5b. the same for ``tiny_lm`` LoRA with the flash flag on;
+5b. the same for ``tiny_lm`` LoRA with the flash flag on, under the
+   batched and the sequential engine;
 5c. RWKV6 agreement on the card, at full width and depth in f32: the
    no-grad prefill (K8) against the grad-mode forward (``wkv6_chunked``,
    nothing recorded), and stepwise decode against the full-sequence
@@ -174,7 +194,8 @@ reset, so the ``launches`` reported are those of the main-path runs alone
 the flash kernels from the flash-on run of phase 4b, K8 from phase 4c,
 K4/K5 from phase 4d); K1-K3 also carry ``launches_sequential``, from phase
 4e, ``launches_models``, from phase 4h, and ``launches_async``, from phase
-4i, and K1-K3 and K1's tree ``launches_faults``, from phase 4g.
+4i, and K1-K3 and K1's tree ``launches_faults``, from phase 4g, and
+``launches_sharded``, from phase 4j (a) and (b).
 
 ``python3 chip_smoke.py --profile`` instead profiles one steady-state round
 per compression mode and engine (phases 4 and 4e), one steady round of each
@@ -183,6 +204,9 @@ of phase 4b's configuration,
 and one ``rwkv6-1.6b`` prefill and 8 decode steps of phase 4c's
 configuration, with ``torch.profiler`` (device time by operator and the
 device's busy share); ``--profile rwkv6`` profiles the last alone.
+
+``python3 chip_smoke.py --cards`` instead runs the sharded cohort over
+two or more distinct cards, one shard a card (:func:`cards_check`).
 """
 import contextlib
 import dataclasses
@@ -208,7 +232,8 @@ T_START = time.perf_counter()
 
 
 def phase(name):
-    print(f"\n=== {name}", flush=True)
+    print(f"\n=== {name} (at {time.perf_counter() - T_START:.1f} s)",
+          flush=True)
 
 
 def cuda_ms(fn, reps=REPS, warmup=3):
@@ -330,7 +355,7 @@ def main():
     print(f"[lora] flash on vs off: max |adapter diff| {diff:.3g} "
           f"(bar 1e-4)")
     require(diff <= 1e-4, f"flash on vs off adapters differ by {diff}")
-    lora_default_init_probe(repro_torch)
+    lora_engines(repro_torch, ops, on, smi)
     for row in flash_rows:
         row["launches"] = on["launches"][row["counter"]]
         del row["counter"]
@@ -405,14 +430,24 @@ def main():
         if row.get("counter") in models:
             row["launches_models"] = models[row["counter"]]
             row["launches_async"] = asynced[row["counter"]]
+
+    phase("4j. the sharded cohort: femnist_cnn through init/run with "
+          "resources.distributed='data', 1, 2 and 4 shards of the card")
+    sharded = run_sharded(repro_torch, ops, smi, fused, gaps, init)
+    check_sharded_routes(dev, fedavg_agg, stc_topk, quant, smi)
+    for row in kernels:          # K1-K3 and the K1 tree, the rows of phase 3
+        if row.get("counter") in sharded:
+            row["launches_sharded"] = sharded[row["counter"]]
         row.pop("counter", None)
 
     phase("5. card against CPU")
     for execution in ("batched", "sequential"):
         card_vs_cpu(repro_torch, execution)
 
-    phase("5b. card against CPU: tiny_lm LoRA, flash on")
-    lora_card_vs_cpu(repro_torch)
+    phase("5b. card against CPU: tiny_lm LoRA, flash on, batched and "
+          "sequential")
+    for execution in ("batched", "sequential"):
+        lora_card_vs_cpu(repro_torch, execution)
 
     phase("5c. RWKV6 agreement: K8 vs wkv6_chunked and decode vs forward at "
           "full width; reduced decode card vs CPU")
@@ -1451,14 +1486,14 @@ def check_stc(out, plain, what):
 
 
 # ---------------------------------------------------------------------------
-def femnist_config(mode, execution, rounds=3):
+def femnist_config(mode, execution, rounds=3, clients=10):
     """Phases 4 and 4e: femnist_cnn at its published width, 10 clients a
-    round, 1 local epoch, K1 on."""
+    round (phase 4j also 20), 1 local epoch, K1 on."""
     return {"model": "femnist_cnn", "dataset": "femnist",
             "resources": {"execution": execution,
                           "aggregation_kernel": True},
             "client": {"local_epochs": 1, "compression": mode},
-            "server": {"rounds": rounds, "clients_per_round": 10}}
+            "server": {"rounds": rounds, "clients_per_round": clients}}
 
 
 #: phase 4h: the paper's other two models -> their datasets (the models
@@ -1519,7 +1554,8 @@ WALLS = {}    # run tag -> steady round walls (rounds 1-2), for phase 4g
 
 def run_slice(repro_torch, ops, mode, execution="batched", resources=None,
               tracking=None, tag=None, k1="fedavg_agg", per_round=None,
-              faults=None, history=None, model="femnist_cnn"):
+              faults=None, history=None, model="femnist_cnn", clients=10,
+              shards=None):
     """femnist_cnn (phases 4, 4e, 4f and 4g) or another model on its
     dataset's defaults (``model_config``, phase 4h) through ``init``/``run``
     -> (launch counts of the run, final params on the CPU).  ``resources``
@@ -1529,14 +1565,18 @@ def run_slice(repro_torch, ops, mode, execution="batched", resources=None,
     the dispatches and host syncs a round (default: the fused round's one
     each, none for the sequential engine); ``faults`` the ``cfg.faults``
     block (a round no client survives has a NaN ``train_loss``);
-    ``history``, a list, receives the run's history."""
+    ``history``, a list, receives the run's history; ``clients`` the
+    cohort a round; ``shards`` (phase 4j) the client mesh's size under
+    ``resources.distributed="data"``: the sharded K1 route launches once
+    (flat, or one tier of the tree) a shard a round."""
     import math
 
     from repro_torch.core import batched
 
     rounds = 3
     tag = tag or (mode if execution == "batched" else f"{execution} {mode}")
-    cfg = (femnist_config(mode, execution, rounds) if model == "femnist_cnn"
+    cfg = (femnist_config(mode, execution, rounds, clients)
+           if model == "femnist_cnn"
            else model_config(model, mode, execution, rounds))
     cfg["resources"].update(resources or {})
     if tracking:
@@ -1558,7 +1598,11 @@ def run_slice(repro_torch, ops, mode, execution="batched", resources=None,
     used = ops.launch_counts()
     hist = res["history"]
     print(f"[{tag}] launches {used}")
-    tiers = 2 if k1 == "fedavg_agg_tree" else 1
+    engine = repro_torch.core.api._ctx.trainer.engine
+    mesh = None if engine is None else engine.mesh
+    require((None if mesh is None else mesh.size) == shards,
+            f"[{tag}] client mesh {mesh}, expected {shards} shards")
+    tiers = shards or (2 if k1 == "fedavg_agg_tree" else 1)
     for k in ("fedavg_agg", "fedavg_agg_tree"):
         want_k1 = rounds * tiers if k == k1 else 0
         require(used[k] == want_k1, f"[{tag}] {k} launched {used[k]} "
@@ -1714,6 +1758,9 @@ def check_staged_stages(repro_torch, dev):
 
 FAULTS_4G = {"dropout_prob": 0.2, "crash_prob": 0.1, "straggler_prob": 0.2,
              "straggler_slowdown": 4.0, "nan_update_prob": 0.1, "seed": 20}
+#: phase 4g's faults block (its norm bound included) and final params of
+#: each run by tag, for phase 4j
+FAULTY = {}
 
 
 def update_norm_bound(repro_torch, dev):
@@ -1828,12 +1875,13 @@ def run_faults(repro_torch, ops, dev, smi):
              "fedavg_agg", None, "sequential none")]
     total = {k: 0 for k in ops.launch_counts()}
     seen = set()
+    FAULTY["faults"] = faults
     for tag, mode, execution, res, k1, per_round, base in runs:
         hist = []
         b0 = batched.round_trace_count()
-        used, _ = run_slice(repro_torch, ops, mode, execution=execution,
-                            resources=res, tag=tag, k1=k1,
-                            per_round=per_round, faults=faults, history=hist)
+        used, FAULTY[tag] = run_slice(
+            repro_torch, ops, mode, execution=execution, resources=res,
+            tag=tag, k1=k1, per_round=per_round, faults=faults, history=hist)
         for k, v in used.items():
             total[k] += v
         if per_round == (1, 1):       # fused: one program for every round
@@ -2091,6 +2139,176 @@ def run_async(repro_torch, ops, smi, fused, gaps, init):
     return out
 
 
+# ---------------------------------------------------------------------------
+SHARDED_ROUTES = ("fedavg_agg", "fedavg_agg_tree", "stc_batched",
+                  "int8_rowmax", "int8_qdq")
+
+
+def run_sharded(repro_torch, ops, smi, fused, gaps, init):
+    """Phase 4j: the sharded cohort (``resources.distributed="data"``) on
+    phase 4's femnist configuration.  (a) the default devices (the one
+    card: 1 shard), fused none / stc / int8; (b) ``set_devices([cuda:0] *
+    k)`` for k = 2 and 4: fused stc, hierarchical stc at
+    ``aggregation_fanout=2``, staged int8, fused stc under phase 4g's
+    faults, and fused stc at 20 clients a round (bucket 32) beside an
+    unsharded run of it.  Each run's final params against the unsharded
+    run of its mode, printed against 1e-4 and held within max(1e-4, 2 x
+    that unsharded run's 1e-7-perturbed reach); its steady round walls
+    beside the unsharded run's.  K1 launches once (flat, or one tier of
+    the tree) a shard a round; K2 / K3 once a compressed leaf a shard a
+    round.  -> the launches of the phase."""
+    total = {k: 0 for k in SHARDED_ROUTES}
+    faults = FAULTY["faults"]
+
+    def run(tag, mode, vs, walls, base, reach, shards, **kw):
+        used, params = run_slice(
+            repro_torch, ops, mode, tag=tag, shards=shards,
+            resources=dict(kw.pop("resources", {}), distributed="data"),
+            **kw)
+        for k in SHARDED_ROUTES:
+            total[k] += used[k]
+        leaves = 3 * shards * sum(          # rounds x shards x leaves
+            1 for _, size in femnist_shapes() if size >= 64)
+        for k in ("stc_batched", "int8_rowmax", "int8_qdq"):
+            require(used[k] in (0, leaves), f"[{tag}] {k} launched "
+                    f"{used[k]} times, expected {leaves} or 0")
+        diff = max_diff(params, base)
+        bar = max(1e-4, 2 * reach)
+        print(f"[{tag}] final params vs the unsharded {vs}: max |diff| "
+              f"{diff:.4g} ({'within' if diff <= 1e-4 else 'above'} 1e-4); "
+              f"that run from 1e-7-perturbed inits moves up to {reach:.4g}; "
+              f"bar {bar:.4g}; steady round walls {WALLS[tag]} s against "
+              f"{WALLS[walls]} s of the unsharded {walls} run ({smi})")
+        require(diff <= bar, f"[{tag}] vs unsharded: {diff} > {bar}")
+
+    repro_torch.set_devices(None)        # the default: every CUDA device
+    require(repro_torch.get_devices() == [torch.device("cuda", 0)],
+            f"default devices {repro_torch.get_devices()}")
+    for mode in ("none", "stc", "int8"):
+        run(f"sharded 1 {mode}", mode, f"fused {mode} run of phase 4", mode,
+            fused[mode], gaps[mode], 1)
+
+    tag20 = "stc 20 clients"
+    _, base20 = run_slice(repro_torch, ops, "stc", tag=tag20, clients=20)
+    reach20 = conditioning_gap(
+        repro_torch, femnist_config("stc", "batched", clients=20), init,
+        base20, seeds=(1, 2))
+    base_faulty = FAULTY["faults fused stc"]
+    reach_faulty = conditioning_gap(
+        repro_torch, dict(femnist_config("stc", "batched"), faults=faults),
+        init, base_faulty, seeds=(1, 2))
+    try:
+        for k in (2, 4):
+            repro_torch.set_devices([torch.device("cuda", 0)] * k)
+            p4 = "fused stc run of phase 4"
+            run(f"sharded {k} stc", "stc", p4, "stc", fused["stc"],
+                gaps["stc"], k)
+            run(f"sharded {k} hierarchical stc fanout 2", "stc", p4,
+                "hierarchical stc", fused["stc"], gaps["stc"], k,
+                resources={"aggregation_topology": "hierarchical",
+                           "aggregation_fanout": 2}, k1="fedavg_agg_tree")
+            run(f"sharded {k} staged int8", "int8",
+                "fused int8 run of phase 4", "staged int8", fused["int8"],
+                gaps["int8"], k, resources={"round_fusion": "off"},
+                per_round=(3, 1))
+            run(f"sharded {k} faults stc", "stc",
+                "faults fused stc run of phase 4g", "faults fused stc",
+                base_faulty, reach_faulty, k, faults=faults)
+            run(f"sharded {k} stc 20 clients", "stc", f"{tag20} run", tag20,
+                base20, reach20, k, clients=20)
+    finally:
+        repro_torch.set_devices(None)
+    print(f"[sharded] launches of phase 4j (a) and (b): {total} ({smi})")
+    return total
+
+
+def check_sharded_routes(dev, fedavg_agg, stc_topk, quant, smi):
+    """Phase 4j (c): the sharded routes of K1-K3 at the whole femnist update
+    matrix (16, 6,603,710) f32 over k = 2 and 4 shards of the one card,
+    against the unsharded kernels: K2 (out, nnz) and K3 (sent, scale) bit
+    for bit, K1 at fanout 0 and 2 within 1e-6 relative of flat K1, given
+    the whole matrix or its k row blocks.  Each route timed on the row
+    blocks, as the round calls it (median of CUDA events, through the
+    wrapper; the whole-matrix form adds the gather of the results), beside
+    its plain version and the unsharded kernel, and bounded: K1's flat
+    bytes plus the k (D,) f32 partials; K2 / K3 those of the unsharded
+    call."""
+    from repro_torch.core.batched import build_client_mesh
+
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    n, d = N_BUCKET, sum(s for _, s in femnist_shapes())
+    x = update_rows(gen, n, d)
+    w = torch.rand((n,), generator=gen, device=dev)
+    w /= w.sum()
+    flat = fedavg_agg.fedavg_aggregate(x, w)
+    so, sn = stc_topk.stc_compress_batched(x, 0.01)
+    qs, qsc = quant.int8_roundtrip_batched(x)
+    base_ms = {"fedavg_agg": cuda_ms(lambda: fedavg_agg.fedavg_aggregate(x, w)),
+               "stc": cuda_ms(lambda: stc_topk.stc_compress_batched(x, 0.01)),
+               "int8": cuda_ms(lambda: quant.int8_roundtrip_batched(x))}
+    stc_b = stc_bound(x, stc_topk)
+    int8_b = bound(4 * n * d + 4 * n + 8 * n * d + 4 * n, 7 * n * d)
+    rows = []
+    for k in (2, 4):
+        mesh = build_client_mesh([dev] * k)
+        blocks = list(x.chunk(k))      # the round's row blocks, one a shard
+        for fanout in (0, 2):
+            out = fedavg_agg.fedavg_aggregate_sharded(x, w, mesh,
+                                                      fanout=fanout)
+            require(torch.equal(out, fedavg_agg.fedavg_aggregate_sharded(
+                blocks, w, mesh, fanout=fanout)), f"K1 sharded k={k}: "
+                f"row blocks and the whole matrix differ")
+            torch.cuda.synchronize()
+            rel = ((out - flat).abs().max()
+                   / flat.abs().max().clamp_min(1e-30)).item()
+            require(rel <= 1e-6, f"K1 sharded k={k} fanout {fanout}: rel "
+                    f"{rel} > 1e-6 from flat K1")
+            b, by = bound(4 * n * d + 4 * n + 4 * d + 4 * k * d, 2 * n * d)
+            rows.append(dict(
+                route=f"K1 sharded k={k} fanout {fanout}", rel=rel,
+                ms=cuda_ms(lambda: fedavg_agg.fedavg_aggregate_sharded(
+                    blocks, w, mesh, fanout=fanout)),
+                plain_ms=cuda_ms(lambda: fedavg_agg.fedavg_sharded_plain(
+                    x, w, k, fanout)),
+                unsharded_ms=base_ms["fedavg_agg"], bound_ms=b, bound_by=by,
+                library_ms=cuda_ms(lambda: w @ x)))
+        o, nn = stc_topk.stc_compress_batched_sharded(x, 0.01, mesh)
+        s, sc = quant.int8_roundtrip_batched_sharded(x, mesh)
+        lo, ln = stc_topk.stc_compress_batched_sharded(blocks, 0.01, mesh)
+        ls, lsc = quant.int8_roundtrip_batched_sharded(blocks, mesh)
+        torch.cuda.synchronize()
+        require(same_bits_tree([o, nn, s, sc], [so, sn, qs, qsc])
+                and same_bits_tree([torch.cat(t) for t in (lo, ln, ls, lsc)],
+                                   [so, sn, qs, qsc]),
+                f"K2/K3 sharded k={k}: not bit for bit the unsharded kernels")
+        rows.append(dict(
+            route=f"K2 sharded k={k}", rel=0.0,
+            ms=cuda_ms(lambda: stc_topk.stc_compress_batched_sharded(
+                blocks, 0.01, mesh)),
+            plain_ms=cuda_ms(lambda: [stc_topk.stc_plain(p, 0.01)
+                                      for p in x.chunk(k)], reps=3),
+            unsharded_ms=base_ms["stc"], bound_ms=stc_b[0],
+            bound_by=stc_b[1], library_ms=None))
+        rows.append(dict(
+            route=f"K3 sharded k={k}", rel=0.0,
+            ms=cuda_ms(lambda: quant.int8_roundtrip_batched_sharded(
+                blocks, mesh)),
+            plain_ms=cuda_ms(lambda: [
+                quant.qdq_plain(p, quant.int8_scale(quant.rowmax_plain(p)))
+                for p in x.chunk(k)]),
+            unsharded_ms=base_ms["int8"], bound_ms=int8_b[0],
+            bound_by=int8_b[1], library_ms=None))
+    for r in rows:
+        print(f"{r['route']} ({n}, {d}): route {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, unsharded kernel "
+              f"{r['unsharded_ms']:.4f} ms, library "
+              f"{'-' if r['library_ms'] is None else format(r['library_ms'], '.4f')}"
+              f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
+              f"{'bitwise' if r['rel'] == 0.0 else format(r['rel'], '.3g') + ' rel'}"
+              f" against the unsharded kernel ({smi})")
+    return rows
+
+
 def check_resume(smi):
     """Phase 4g's deterministic half, in a child process
     (``chip_smoke.py --resume-check``) that sets
@@ -2170,6 +2388,19 @@ def resume_check():
     print(f"[resume] fused stc, deterministic: an all-zero faults block = "
           f"no faults block bit for bit; builds, dispatches, host syncs "
           f"{n0}; launches {l0}")
+    # phase 4j's k = 1 rule: the sharded cohort on the default devices
+    # (the one card, 1 shard) is the unsharded run bit for bit
+    repro_torch.set_devices(None)
+    p2, n2, l2 = counted_run(dict(cfg, resources=dict(
+        cfg["resources"], distributed="data")))
+    require(len(repro_torch.get_devices()) == 1, "more than one card")
+    require(same_bits_tree(p0, p2), "distributed='data' on 1 shard: params "
+            "differ from the unsharded run")
+    require(n0 == n2 and l0 == l2, f"distributed='data' on 1 shard: builds, "
+            f"dispatches, syncs {n2} launches {l2} != {n0} {l0}")
+    print(f"[sharded 1] fused stc, deterministic: distributed='data' on the "
+          f"default devices (1 shard) = unsharded bit for bit; builds, "
+          f"dispatches, host syncs {n2}; launches equal")
 
     BatchedExecutor.EF_MAX_CLIENTS = 8
     root = os.path.join(ROOT, "build", "chip_smoke_ckpt")
@@ -2405,7 +2636,8 @@ def glm4_2layer(published_scale=True):
     repo's default init (the reference's) takes the head count as the
     fan-in of the (d, H, hd) leaves: q and k 11x larger at this width,
     attention scores of std ~128, a hard argmax under which LoRA training
-    is chaotic (``lora_default_init_probe`` shows it)."""
+    is chaotic (flash on and off then land 5.8e-3 apart, and a
+    1e-7-perturbed start moves the run 3.7e-3: PERF.md §6)."""
     import math
 
     from repro_torch.configs import get_arch
@@ -2436,7 +2668,7 @@ def glm4_2layer(published_scale=True):
                           model.is_sequence)
 
 
-def lora_config(model, rounds=2):
+def lora_config(model, rounds=2, execution="batched", compression="none"):
     """Phase 4b's configuration (registers ``model`` and the dataset).
     Evaluation is off: one full-vocabulary evaluation batch (256 x 512
     tokens x 151,552 logits) would need 79 GB."""
@@ -2451,29 +2683,52 @@ def lora_config(model, rounds=2):
             "data": {"num_clients": 8, "batch_size": 4},
             "server": {"rounds": rounds, "clients_per_round": 4,
                        "test_every": 0},
-            "client": LORA_CLIENT,
-            "resources": {"execution": "batched",
+            "client": dict(LORA_CLIENT, compression=compression),
+            "resources": {"execution": execution,
                           "aggregation_kernel": True}}
 
 
-def run_lora(repro_torch, ops, flash_on):
+def run_lora(repro_torch, ops, flash_on, execution="batched",
+             compression="none", perturb=None):
+    """Phase 4b's configuration through ``init``/``run`` (``perturb``: a
+    relative 1e-7-sized perturbation of the adapters' start, from that
+    seed, and ``Trainer.run`` instead of ``run``) -> the final adapters and
+    the launch counts."""
     import math
 
+    from repro_torch.core import api
+    from repro_torch.core.rounds import Trainer
     from repro_torch.models import attention as mattn
     from repro_torch.models.lora import adapter_param_count
-    from repro_torch.utils.tree import tree_leaves
+    from repro_torch.utils.tree import tree_leaves, tree_map
 
-    tag = f"[lora flash {'on' if flash_on else 'off'}]"
+    tag = (f"[lora flash {'on' if flash_on else 'off'}"
+           + ("" if execution == "batched" else f" {execution}")
+           + ("" if compression == "none" else f" {compression}")
+           + ("" if perturb is None else f" perturbed {perturb}") + "]")
     release(repro_torch)
-    cfg = lora_config(glm4_2layer())
+    cfg = lora_config(glm4_2layer(), execution=execution,
+                      compression=compression)
     repro_torch.init(cfg)
+    run = repro_torch.run
+    if perturb is not None:
+        ctx = api._ctx
+        trainer = Trainer(ctx.config, ctx.model, ctx.fed_data,
+                          tracker=ctx.tracker)
+        gen = torch.Generator().manual_seed(perturb)
+        trainer.server.params = tree_map(
+            lambda t: t * (1 + 1e-7 * torch.randn(
+                t.shape, generator=gen).to(t.device)),
+            trainer.model.init(torch.Generator().manual_seed(
+                ctx.config.seed), trainer.device))
+        run = trainer.run
     mattn.set_flash_attention(flash_on)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     try:
-        res = repro_torch.run()
+        res = run()
         torch.cuda.synchronize()
     finally:
         mattn.set_flash_attention(None)
@@ -2485,6 +2740,11 @@ def run_lora(repro_torch, ops, flash_on):
     rounds = cfg["server"]["rounds"]
     require(used["fedavg_agg"] == rounds, f"{tag} fedavg_agg launched "
             f"{used['fedavg_agg']} times, expected {rounds}")
+    want = {"none": (), "stc": ("stc_batched",),
+            "int8": ("int8_rowmax", "int8_qdq")}[compression]
+    for k in ("stc_batched", "int8_rowmax", "int8_qdq"):
+        require((used[k] > 0) == (k in want), f"{tag} {k} launched "
+                f"{used[k]} times under {compression}")
     for k in ("flash_fwd", "flash_dq", "flash_dkv"):
         if flash_on:
             require(used[k] > 0, f"{tag} {k} never launched")
@@ -2505,10 +2765,36 @@ def run_lora(repro_torch, ops, flash_on):
     print(f"{tag} round wall s {[round(w, 4) for w in walls]} (round 0 "
           f"includes first use); run total {total:.3f} s (base init "
           f"included); peak device memory {peak:.2f} GiB")
+    require(peak < 70, f"{tag} peak device memory {peak:.2f} GiB >= 70")
     print(f"{tag} train_loss {[round(h['train_loss'], 6) for h in hist]} "
           f"comm_up {[h['comm_up_bytes'] for h in hist]}")
     release(repro_torch)
     return {"params": res["params"], "launches": used}
+
+
+def lora_engines(repro_torch, ops, batched_on, smi):
+    """Phase 4b beyond the batched engine: the flash-on configuration
+    through the sequential engine (eager per-client steps, K6/K7 without
+    vmap) and the async engine (2 aggregations of 4, uniform speeds: the
+    degenerate case), held against the batched flash-on run
+    (``batched_on``) within max(1e-4, 2 x how far that run moves from a
+    1e-7-perturbed start); then batched LoRA with STC
+    and with int8 (K2 / K3 on the adapter leaves), finite and with their
+    launches."""
+    reach = max_param_diff(run_lora(repro_torch, ops, True, perturb=1)[
+        "params"], batched_on["params"])
+    bar = max(1e-4, 2 * reach)
+    for execution in ("sequential", "async"):
+        out = run_lora(repro_torch, ops, True, execution=execution)
+        diff = max_param_diff(out["params"], batched_on["params"])
+        print(f"[lora flash on {execution}] adapters vs the batched flash-on "
+              f"run: max |diff| {diff:.4g} ({'within' if diff <= 1e-4 else 'above'}"
+              f" 1e-4); the batched run from a 1e-7-perturbed start moves "
+              f"{reach:.4g}; bar {bar:.4g} ({smi})")
+        require(diff <= bar, f"[lora {execution}] vs batched: {diff} > "
+                f"{bar}")
+    for compression in ("stc", "int8"):
+        run_lora(repro_torch, ops, True, compression=compression)
 
 
 def release(repro_torch):
@@ -2520,45 +2806,10 @@ def release(repro_torch):
     torch.cuda.empty_cache()
 
 
-def lora_default_init_probe(repro_torch):
-    """Phase 4b's configuration with the repo's default init: flash on and
-    off from one start, and flash off from that start perturbed by 1e-7
-    (relative).  Prints both gaps: where the perturbation moves the result
-    as far as the kernels do, the training is chaotic and no two correct
-    f32 programs agree within 1e-4."""
-    from repro_torch.core import api
-    from repro_torch.core.rounds import Trainer
-    from repro_torch.models import attention as mattn
-    from repro_torch.utils.tree import tree_map
-
-    out = {}
-    for flash_on, perturb in ((True, 0.0), (False, 0.0), (False, 1e-7)):
-        release(repro_torch)
-        repro_torch.init(lora_config(glm4_2layer(published_scale=False)))
-        ctx = api._ctx
-        trainer = Trainer(ctx.config, ctx.model, ctx.fed_data,
-                          tracker=ctx.tracker)
-        start = trainer.model.init(torch.Generator().manual_seed(0),
-                                   trainer.device)
-        trainer.server.params = tree_map(lambda t: t * (1.0 + perturb),
-                                         start)
-        mattn.set_flash_attention(flash_on)
-        try:
-            out[(flash_on, perturb)] = trainer.run()["params"]
-        finally:
-            mattn.set_flash_attention(None)
-        del trainer
-    release(repro_torch)
-    kern = max_param_diff(out[(True, 0.0)], out[(False, 0.0)])
-    pert = max_param_diff(out[(False, 0.0)], out[(False, 1e-7)])
-    print(f"[lora default init] max |adapter diff|: flash on vs off {kern:.4g};"
-          f" flash off vs flash off from a 1e-7-perturbed start {pert:.4g}")
-
-
-def lora_card_vs_cpu(repro_torch):
+def lora_card_vs_cpu(repro_torch, execution="batched"):
     """``tiny_lm`` LoRA, flash on, 2 rounds of 4 clients on the card and on
-    the CPU.  Base and adapters are drawn from the CPU generator, so both
-    runs start from the same parameters."""
+    the CPU, under ``execution``.  Base and adapters are drawn from the CPU
+    generator, so both runs start from the same parameters."""
     from repro_torch.models import attention as mattn
 
     cfg = {"model": "tiny_lm", "dataset": "tiny_lm",
@@ -2567,7 +2818,7 @@ def lora_card_vs_cpu(repro_torch):
            "client": {"local_epochs": 1, "lr": 0.1, "finetune": "lora",
                       "lora_rank": 4, "lora_alpha": 8.0,
                       "lora_targets": ("attn",)},
-           "resources": {"execution": "batched"}}
+           "resources": {"execution": execution}}
     out = {}
     mattn.set_flash_attention(True)
     try:
@@ -2581,8 +2832,8 @@ def lora_card_vs_cpu(repro_torch):
         repro_torch.set_device(None)
         repro_torch.reset()
     diff = max_param_diff(out["cuda"]["params"], out["cpu"]["params"])
-    print(f"tiny_lm LoRA card vs CPU after 2 rounds (flash on): max |adapter "
-          f"diff| {diff:.3g} (bar 1e-4)")
+    print(f"tiny_lm LoRA {execution} card vs CPU after 2 rounds (flash on): "
+          f"max |adapter diff| {diff:.3g} (bar 1e-4)")
     require(diff <= 1e-4, f"LoRA card vs CPU adapter diff {diff} > 1e-4")
 
 
@@ -2706,6 +2957,196 @@ def profile_rwkv6():
                    f"rwkv6] 8 decode steps at batch {RWKV_BATCH}")
 
 
+def cards_ms(fn, reps=REPS, warmup=3):
+    """Median host time of ``fn`` in milliseconds, every card synchronized
+    before and after each call (the work spans cards, so one card's
+    events would miss the others')."""
+    def sync():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def cards_check():
+    """``--cards``: the sharded cohort over distinct cards, one shard a
+    card (the largest power-of-two count of the cards, at least 2).
+
+    (a) The sharded routes of K1-K3 at (16, 6,603,710) f32 with each row
+    block on its own card: bit for bit the same route over as many shards
+    of the first card, K1 (fanout 0 and 2) within 1e-6 relative of flat
+    K1, K2 / K3 bit for bit the unsharded kernels, each output block on
+    its card; timed on the host clock beside the one-card route.  (b)
+    Phase 4j's femnist runs on the default devices (every card): fused
+    stc, hierarchical stc at fanout 2, staged int8 and fused stc under
+    ``FAULTS_4G``, each against the unsharded run of its mode on the
+    first card within max(1e-4, 2 x that run's 1e-7-perturbed reach), and
+    printed against the same shards on the first card alone.  (c)
+    ``tiny_lm`` LoRA with the flash flag on (K6 / K7 on every card),
+    batched, against its unsharded run (1e-4).  Every card must have held
+    the run's tensors."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        sys.exit("--cards needs two or more CUDA cards")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(smi)
+    smi = smi.splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import repro_torch
+    from repro_torch.core.batched import build_client_mesh
+    from repro_torch.core.config import Config
+    from repro_torch.kernels import build, fedavg_agg, ops, quant, stc_topk
+    from repro_torch.models import attention as mattn
+    from repro_torch.models.small import femnist_cnn
+
+    secs = build.build_all()
+    print(f"built {sorted(secs)}")
+    repro_torch.set_devices(None)
+    cards = build_client_mesh()          # every card: the default devices
+    k = cards.size
+    dev = cards.devices[0]
+    one = build_client_mesh([dev] * k)
+    print(f"[cards] {k} shards on {[str(d) for d in cards.devices]}")
+
+    phase(f"cards (a). the sharded routes, one row block a card, k = {k}")
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    n, d = N_BUCKET, sum(sz for _, sz in femnist_shapes())
+    x = update_rows(gen, n, d)
+    w = torch.rand((n,), generator=gen, device=dev)
+    w /= w.sum()
+    mine = list(x.chunk(k))
+    spread = [b.to(c) for b, c in zip(mine, cards.devices)]
+    flat = fedavg_agg.fedavg_aggregate(x, w)
+    for fanout in (0, 2):
+        got = fedavg_agg.fedavg_aggregate_sharded(spread, w, cards,
+                                                  fanout=fanout)
+        want = fedavg_agg.fedavg_aggregate_sharded(mine, w, one,
+                                                   fanout=fanout)
+        rel = ((got - flat).abs().max()
+               / flat.abs().max().clamp_min(1e-30)).item()
+        require(got.device == dev and torch.equal(got, want),
+                f"K1 sharded fanout {fanout}: the cards' route differs from "
+                f"the one-card route")
+        require(rel <= 1e-6, f"K1 sharded fanout {fanout}: rel {rel}")
+        print(f"K1 sharded k={k} fanout {fanout}: one card a shard = one "
+              f"card for all, bit for bit; {rel:.3g} relative from flat K1; "
+              f"{cards_ms(lambda: fedavg_agg.fedavg_aggregate_sharded(spread, w, cards, fanout=fanout)):.4f}"
+              f" ms over the cards, {cards_ms(lambda: fedavg_agg.fedavg_aggregate_sharded(mine, w, one, fanout=fanout)):.4f}"
+              f" ms on one card (host clock; {smi})")
+    base = [*stc_topk.stc_compress_batched(x, 0.01),
+            *quant.int8_roundtrip_batched(x)]
+    for name, fn in (
+            ("K2", lambda b, m: stc_topk.stc_compress_batched_sharded(
+                b, 0.01, m)),
+            ("K3", lambda b, m: quant.int8_roundtrip_batched_sharded(b, m))):
+        out, aux = fn(spread, cards)
+        require([t.device for t in out] == list(cards.devices),
+                f"{name} sharded: output blocks off their cards")
+        got = [torch.cat([t.to(dev) for t in out]),
+               torch.cat([t.to(dev) for t in aux])]
+        require(same_bits_tree(got, base[:2] if name == "K2" else base[2:]),
+                f"{name} sharded over the cards: not bit for bit the "
+                f"unsharded kernel")
+        print(f"{name} sharded k={k}: bit for bit the unsharded kernel; "
+              f"{cards_ms(lambda: fn(spread, cards)):.4f} ms over the cards,"
+              f" {cards_ms(lambda: fn(mine, one)):.4f} ms on one card (host "
+              f"clock; {smi})")
+    del x, mine, spread, base
+
+    phase(f"cards (b). femnist_cnn through init/run, distributed='data' "
+          f"over {k} cards")
+    init = femnist_cnn().init(torch.Generator().manual_seed(Config().seed))
+    faults = dict(FAULTS_4G,
+                  max_update_norm=update_norm_bound(repro_torch, dev)[0])
+    repro_torch.set_device(None)
+    bases = {}
+    for tag, mode, kw in (("stc", "stc", {}), ("int8", "int8", {}),
+                          ("faults stc", "stc", {"faults": faults})):
+        _, params = run_slice(repro_torch, ops, mode, tag=f"unsharded {tag}",
+                              **kw)
+        cfg = femnist_config(mode, "batched")
+        if "faults" in kw:
+            cfg["faults"] = faults
+        bases[tag] = (params, conditioning_gap(repro_torch, cfg, init, params,
+                                               seeds=(1, 2)))
+    runs = (("fused stc", "stc", "stc", {}, {}),
+            ("hierarchical stc fanout 2", "stc", "stc",
+             {"resources": {"aggregation_topology": "hierarchical",
+                            "aggregation_fanout": 2},
+              "k1": "fedavg_agg_tree"}, {}),
+            ("staged int8", "int8", "int8",
+             {"resources": {"round_fusion": "off"}, "per_round": (3, 1)}, {}),
+            ("faults stc", "stc", "faults stc", {}, {"faults": faults}))
+    try:
+        for tag, mode, vs, kw, extra in runs:
+            got = {}
+            for where, devices in (("cards", None), ("one card", [dev] * k)):
+                repro_torch.set_devices(devices)
+                _, got[where] = run_slice(
+                    repro_torch, ops, mode, tag=f"{where} {k} {tag}",
+                    shards=k, resources=dict(kw.get("resources", {}),
+                                             distributed="data"),
+                    **{a: b for a, b in kw.items() if a != "resources"},
+                    **extra)
+            params, reach = bases[vs]
+            diff = max_diff(got["cards"], params)
+            bar = max(1e-4, 2 * reach)
+            print(f"[cards {k} {tag}] final params vs the unsharded {vs} "
+                  f"run: max |diff| {diff:.4g} "
+                  f"({'within' if diff <= 1e-4 else 'above'} 1e-4; its "
+                  f"1e-7-perturbed reach {reach:.4g}; bar {bar:.4g}); vs "
+                  f"the same {k} shards on one card "
+                  f"{max_diff(got['cards'], got['one card']):.4g}; round "
+                  f"walls {WALLS[f'cards {k} {tag}']} s over the cards, "
+                  f"{WALLS[f'one card {k} {tag}']} s on one card ({smi})")
+            require(diff <= bar, f"[cards {tag}] {diff} > {bar}")
+    finally:
+        repro_torch.set_devices(None)
+
+    phase(f"cards (c). tiny_lm LoRA, flash on, batched over {k} cards")
+    lora = {"model": "tiny_lm", "dataset": "tiny_lm",
+            "data": {"num_clients": 8, "batch_size": 32},
+            "server": {"rounds": 2, "clients_per_round": 4},
+            "client": {"local_epochs": 1, "lr": 0.1, "finetune": "lora",
+                       "lora_rank": 4, "lora_alpha": 8.0,
+                       "lora_targets": ("attn",)}}
+    out = {}
+    mattn.set_flash_attention(True)
+    try:
+        for dist in ("none", "data"):
+            repro_torch.reset()
+            repro_torch.init(dict(lora, resources={
+                "execution": "batched", "distributed": dist}))
+            ops.reset_launch_counts()
+            out[dist] = repro_torch.run()
+            used = ops.launch_counts()
+            require(used["flash_fwd"] > 0, f"LoRA {dist}: no flash launch")
+    finally:
+        mattn.set_flash_attention(None)
+        repro_torch.reset()
+    diff = max_param_diff(out["data"]["params"], out["none"]["params"])
+    print(f"[cards {k} LoRA flash] adapters vs unsharded: max |diff| "
+          f"{diff:.3g} (bar 1e-4); flash launches of the sharded run "
+          f"{ {c: v for c, v in used.items() if c.startswith('flash')} }")
+    require(diff <= 1e-4, f"LoRA over the cards: {diff} > 1e-4")
+    held = [torch.cuda.max_memory_allocated(i) / 2**30 for i in range(k)]
+    print(f"[cards] peak memory a card, GiB: {[round(h, 2) for h in held]}")
+    require(all(h > 0 for h in held), "a card held no tensor")
+    print(f"chip_smoke.py --cards took {time.perf_counter() - T_START:.1f} s")
+    print(json.dumps({"ok": True, "cards": k}))
+
+
 if __name__ == "__main__":
     if sys.argv[1:] in (["--profile"], ["--profile", "rwkv6"]):
         if not torch.cuda.is_available():
@@ -2723,8 +3164,10 @@ if __name__ == "__main__":
             sys.exit("CUDA is not available; --resume-check needs a CUDA "
                      "card")
         resume_check()
+    elif sys.argv[1:] == ["--cards"]:
+        cards_check()
     elif sys.argv[1:]:
         sys.exit(f"usage: python3 chip_smoke.py [--profile [rwkv6] | "
-                 f"--resume-check]; got {sys.argv[1:]}")
+                 f"--resume-check | --cards]; got {sys.argv[1:]}")
     else:
         main()

@@ -15,11 +15,15 @@ with hand-written flash-attention kernels behind ``REPRO_FLASH_ATTN=1``.
 
 Entry points run on CUDA.  ``set_device("cpu")`` runs them on the CPU; with
 no CUDA device and no such call they raise instead of falling back.
+``set_devices([...])`` lists the devices that ``resources.distributed=
+"data"`` shards the batched cohort over, one shard an entry.
 """
 from repro_torch.core.api import (  # noqa: F401
     init, register_client, register_dataset, register_model, register_server,
     reset, run, start_client, start_server, tracker,
 )
-from repro_torch.kernels.ops import get_device, set_device  # noqa: F401
+from repro_torch.kernels.ops import (  # noqa: F401
+    get_device, get_devices, set_device, set_devices,
+)
 
 __version__ = "0.1.0"

@@ -10,7 +10,7 @@ the reference's ``jax.vmap`` around ``jax.lax.scan``.
 training: per-leaf error-feedback (EF) correction, in-program STC or int8
 compression with the EF residual update (hand-written CUDA kernels,
 ``repro_torch.kernels``), the flat (N_b, D) update matrix, under faults
-the survival mask and the NaN/norm guard (:func:`_fault_weights`), FedAvg (the
+the survival mask and the NaN/norm guard (:func:`_fault_block`), FedAvg (the
 streaming CUDA kernel with ``resources.aggregation_kernel``, else
 ``torch.einsum``; the hierarchical tree of grouped K1 launches under
 ``resources.aggregation_topology="hierarchical"``) and the server apply
@@ -28,6 +28,25 @@ cannot take) runs the same arithmetic in three stages —
 program uses, so the two agree bit for bit.  The gathering path
 (:meth:`~BatchedExecutor.run_cohort`) hands back per-client
 ``Client.train``-shaped results for the clients' own post-train stages.
+
+``resources.distributed = "data"`` (the sharded cohort) splits the cohort
+dimension over a 1-D client mesh (:func:`build_client_mesh`: one shard
+for each entry of ``repro_torch.get_devices()``, the counterpart of the
+reference's mesh over ``jax.devices()``; a device may repeat).  The whole
+round stays in one process: each shard's N_b / k rows train on its device
+with their own copy of the global params, compress there (the sharded K2
+/ K3 routes) and pass the fault block's row checks there, and FedAvg is
+the sharded K1 route (each shard reduces its own rows; the partials are
+summed in shard order), whatever ``aggregation_kernel`` says, as in the
+reference.  The bucket is at least the mesh size.  What moves between
+devices each round, where a shard's device is not the first one: to the
+shard, its rows of the gathered cohort data (the data pool and its
+gather stay on the first device; the reference re-shards the gathered
+cohort the same way), its batch indices, step counts and optimizer
+vectors, a copy of the global params and its clients' EF residual rows;
+back to the first device, the new residual rows, the (D,) K1 partial and
+the shard's (N_b / k,) loss, accuracy, nnz and guard verdicts.  Update
+rows never cross.  Shards that repeat the first device copy nothing.
 
 Under ``client.finetune = "lora"`` the model is the LoRA wrapper
 (``repro_torch.models.lora``): the stacked leaves are the adapter factors
@@ -57,14 +76,16 @@ the round program reads and updates in place.
 from __future__ import annotations
 
 import time
+import warnings
 from functools import lru_cache
-from typing import Any, Dict, List, NamedTuple, Optional, Sequence
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.local_train import client_grads, cyclic_batches
+from repro_torch.kernels.mesh import ClientMesh, current, gather_rows
 from repro_torch.models.small import FLModel
 from repro_torch.optim import (
     Optimizer, TracedOptimizer, adamw_traced, apply_updates,
@@ -200,26 +221,138 @@ def _one_client_fn(model: FLModel, optimizer: TracedOptimizer, steps: int,
     return cohort
 
 
-def _compress_rows(corrected: torch.Tensor, method: str,
-                   stc_sparsity: float):
-    """One error-corrected (N_b, size) leaf -> (sent, STC counts or None).
-    Leaves under ``DENSE_MIN_ELEMS`` elements stay dense."""
+def _row_blocks(mesh, nb: int, device) -> List[Tuple[int, int, Any]]:
+    """``(lo, hi, device)`` of each shard's cohort rows: one block on
+    ``device`` without a mesh, else N_b / k rows a shard on its device."""
+    if mesh is None:
+        return [(0, nb, device)]
+    r = nb // mesh.size
+    return [(s * r, (s + 1) * r, d) for s, d in enumerate(mesh.devices)]
+
+
+def _train_blocks(cohort, blocks, global_params, x, y, idx, n_steps, vec):
+    """Cohort training, one call of ``cohort`` a row block on the block's
+    device, each with its own copy of the global params (the block's rows
+    of the cohort data, indices and vectors are copied there when its
+    device is not theirs).  -> one ``(updates, loss, acc)`` a block."""
+    out = []
+    for lo, hi, dev in blocks:
+        def take(t, lo=lo, hi=hi, dev=dev):
+            return t[lo:hi].to(dev)
+        with current(dev):
+            gp = tree_map(lambda p, dev=dev: p.to(dev), global_params)
+            stacked = tree_map(
+                lambda p, n=hi - lo: p.unsqueeze(0).expand(
+                    (n,) + tuple(p.shape)), gp)
+            out.append(cohort(stacked, take(x), take(y), take(idx),
+                              take(n_steps), tree_map(take, vec), gp))
+    return out
+
+
+def _compress_rows(corrected: List[torch.Tensor], method: str,
+                   stc_sparsity: float, mesh=None):
+    """One error-corrected leaf as row blocks (one block, or one a shard
+    under ``mesh``) -> (sent blocks, STC counts per block or None): K2, or
+    K3a + K3b, through the sharded route under ``mesh``.  Leaves under
+    ``DENSE_MIN_ELEMS`` elements stay dense."""
     from repro_torch.core.compression import DENSE_MIN_ELEMS
     from repro_torch.kernels import ops as kops
 
-    if corrected.shape[1] < DENSE_MIN_ELEMS:
+    if corrected[0].shape[1] < DENSE_MIN_ELEMS:
         return corrected, None
+    x = corrected if mesh is not None else corrected[0]
     if method == "stc":
-        return kops.stc_compress_batched(corrected, stc_sparsity)
-    return kops.int8_roundtrip_batched(corrected)[0], None
+        sent, nnz = kops.stc_compress_batched(x, stc_sparsity, mesh=mesh)
+    else:
+        sent, nnz = kops.int8_roundtrip_batched(x, mesh=mesh)[0], None
+    if mesh is None:
+        return [sent], None if nnz is None else [nnz]
+    return sent, nnz
 
 
-def _aggregate(flat: torch.Tensor, weights: torch.Tensor, use_kernel: bool,
-               topology: str, fanout: int) -> torch.Tensor:
-    """FedAvg of the (N_b, D) update matrix: the tree of grouped K1
-    launches (``hierarchical``), K1 (``use_kernel``) or one einsum."""
+def _error_feedback(flats: List[torch.Tensor], res: torch.Tensor,
+                    method: str, stc_sparsity: float, mesh=None):
+    """One leaf's compression stage with error feedback over row blocks:
+    ``flats`` the blocks' (r, size) f32 update rows, ``res`` the (N, size)
+    stored residuals of the N real clients (the rows past N — bucket
+    padding, always the last — correct by 0).  Each block corrects and
+    compresses on its own device.  -> (sent blocks, the (N_b,) STC counts
+    or None, the (N, size) new residuals ``corrected - sent`` on
+    ``res``'s device)."""
+    n = res.shape[0]
+    corrected, real, lo = [], [], 0
+    for f in flats:
+        r = f.shape[0]
+        m = min(max(n - lo, 0), r)
+        blk = F.pad(res[lo:lo + m], (0, 0, 0, r - m)).to(f.device)
+        corrected.append((f + blk).contiguous())
+        real.append(m)
+        lo += r
+    sent, nnz = _compress_rows(corrected, method, stc_sparsity, mesh)
+    new = [(c - s)[:m].to(res.device) for c, s, m in zip(corrected, sent,
+                                                         real)]
+    return (sent, None if nnz is None else gather_rows(nnz),
+            new[0] if len(new) == 1 else torch.cat(new))
+
+
+def _per_block(t: torch.Tensor, flats: List[torch.Tensor]):
+    """``t``'s rows cut like the row blocks ``flats``, each on its block's
+    device."""
+    out, lo = [], 0
+    for f in flats:
+        out.append(t[lo:lo + f.shape[0]].to(f.device))
+        lo += f.shape[0]
+    return out
+
+
+def _fault_block(flats: List[torch.Tensor], weights: torch.Tensor,
+                 mask: Optional[torch.Tensor], guard: bool,
+                 max_update_norm: float):
+    """The fault block ahead of FedAvg, in the reference's op order, over
+    the update matrix's row blocks: zero-weight the failed clients
+    (``mask``), reject rows that are not finite or whose L2 norm exceeds
+    ``max_update_norm`` (> 0; f32 ``sqrt(sum(square))``) when ``guard`` —
+    each block on its own device —, zero the rejected rows in the data too
+    (0 x NaN is NaN) and renormalize the survivors' weights; the rows stay
+    on their devices and only the (N_b,) verdicts are gathered onto the
+    weights' device.  A round in which every
+    client failed applies a zero delta.
+    -> (row blocks, weights, (N_b,) verdict or None)."""
+    wj = weights if mask is None else weights * mask
+    ok = None
+    if guard:
+        oks = []
+        for i, flat in enumerate(flats):
+            okb = torch.isfinite(flat).all(dim=1)
+            if max_update_norm > 0:
+                norms = torch.sqrt(torch.sum(torch.square(flat), dim=1))
+                okb = okb & (norms <= max_update_norm)
+            flats[i] = torch.where(okb[:, None], flat, 0.0)
+            oks.append(okb)
+        ok = gather_rows(oks, weights.device)
+        wj = wj * ok.to(torch.float32)
+    wsum = torch.sum(wj)
+    return flats, torch.where(wsum > 0, wj / wsum, 0.0), ok
+
+
+def _aggregate(flats: List[torch.Tensor], weights: torch.Tensor,
+               use_kernel: bool, topology: str, fanout: int,
+               mesh=None) -> torch.Tensor:
+    """FedAvg of the (N_b, D) update matrix's row blocks.  Under ``mesh``
+    always the sharded K1 route — each shard's partial, flat or (under
+    ``hierarchical``) a tree of fanout ``fanout or ceil(sqrt(N_b))``, then
+    their sum — whatever ``use_kernel`` says, as the reference; else the
+    tree of grouped K1 launches (``hierarchical``), K1 (``use_kernel``) or
+    one einsum."""
     from repro_torch.kernels import ops as kops
 
+    if mesh is not None:
+        nb = sum(f.shape[0] for f in flats)
+        return kops.fedavg_aggregate_sharded(
+            flats, weights, mesh,
+            fanout=(fanout or int(np.ceil(np.sqrt(nb))))
+            if topology == "hierarchical" else 0)
+    (flat,) = flats
     if topology == "hierarchical":
         return kops.fedavg_aggregate_tree(flat, weights, fanout=fanout,
                                           use_kernel=use_kernel)
@@ -238,27 +371,11 @@ def _unflatten_delta(delta: torch.Tensor, leaves, treedef) -> PyTree:
     return tree_unflatten(treedef, out)
 
 
-def _fault_weights(flat: torch.Tensor, weights: torch.Tensor,
-                   mask: Optional[torch.Tensor], guard: bool,
-                   max_update_norm: float):
-    """The fault block ahead of FedAvg, in the reference's op order:
-    zero-weight the failed clients (``mask``), reject rows that are not
-    finite or whose L2 norm exceeds ``max_update_norm`` (> 0; f32
-    ``sqrt(sum(square))``) when ``guard``, zero the rejected rows in the
-    data too (0 x NaN is NaN) and renormalize the survivors' weights — a
-    round in which every client failed applies a zero delta.
-    -> (flat, weights, per-row verdict or None)."""
-    wj = weights if mask is None else weights * mask
-    ok = None
-    if guard:
-        ok = torch.isfinite(flat).all(dim=1)
-        if max_update_norm > 0:
-            norms = torch.sqrt(torch.sum(torch.square(flat), dim=1))
-            ok = ok & (norms <= max_update_norm)
-        wj = wj * ok.to(torch.float32)
-        flat = torch.where(ok[:, None], flat, 0.0)
-    wsum = torch.sum(wj)
-    return flat, torch.where(wsum > 0, wj / wsum, 0.0), ok
+def _flat_blocks(blocks: List[List[torch.Tensor]]) -> List[torch.Tensor]:
+    """Each block's per-leaf (r, size) rows side by side: its rows of the
+    flat (N_b, D) update matrix."""
+    return [(b[0] if len(b) == 1 else torch.cat(b, dim=1)).contiguous()
+            for b in blocks]
 
 
 @lru_cache(maxsize=16)
@@ -268,7 +385,7 @@ def make_round_program(model: FLModel, optimizer: TracedOptimizer,
                        use_faults: bool = False,
                        max_update_norm: float = 0.0, topology: str = "flat",
                        fanout: int = 0, use_kernel: bool = False,
-                       server_lr: float = 1.0):
+                       server_lr: float = 1.0, mesh=None):
     """The whole round as one function (``resources.round_fusion="auto"``).
 
     Signature of the returned function (N_b = bucketed cohort dim):
@@ -282,7 +399,7 @@ def make_round_program(model: FLModel, optimizer: TracedOptimizer,
       the rows to poison with NaN after compression (bool).  Both are
       tensors, so a new fault pattern builds no new program; they are read
       only when ``use_faults``, and then the fault block
-      (:func:`_fault_weights`) runs ahead of FedAvg and ``guard_ok`` is
+      (:func:`_fault_block`) runs ahead of FedAvg and ``guard_ok`` is
       the (N_b,) bool verdict of its NaN/norm guard (None otherwise).
     * ``ef_leaves`` / ``ef_rows`` — the EF store's hot-tier
       ``(alloc, leaf_size)`` matrices, updated in place, and the (N,) rows
@@ -293,6 +410,14 @@ def make_round_program(model: FLModel, optimizer: TracedOptimizer,
     * ``topology`` / ``fanout`` — flat FedAvg, or the hierarchical tree
       (``kernels.fedavg_agg.fedavg_aggregate_tree``).
     * ``nnz`` — per-STC-leaf (N_b,) non-zero counts (empty otherwise).
+    * ``mesh`` — the client mesh of ``resources.distributed="data"``
+      (:func:`build_client_mesh`): each shard trains its N_b / k rows on
+      its device with its own copy of the params, corrects and compresses
+      them there (the sharded K2 / K3 routes; the EF rows move to the
+      shard and back), runs the fault block's row checks there, and
+      FedAvg is always the sharded K1 route (:func:`_aggregate`); the
+      weights, the server apply and every output live on the params'
+      device.
     """
     global _round_builds
     _round_builds += 1
@@ -300,56 +425,88 @@ def make_round_program(model: FLModel, optimizer: TracedOptimizer,
 
     def round_fn(global_params, x, y, idx, n_steps, vec, weights, mask,
                  nan_mask, ef_leaves, ef_rows):
-        nb = x.shape[0]
-        stacked = tree_map(
-            lambda p: p.unsqueeze(0).expand((nb,) + tuple(p.shape)),
-            global_params)
-        updates, loss, acc = cohort(stacked, x, y, idx, n_steps, vec,
-                                    global_params)
-
-        leaves, treedef = tree_flatten(updates)
-        flat_leaves, nnz_list = [], []
+        home = weights.device
+        parts = _train_blocks(cohort, _row_blocks(mesh, x.shape[0], x.device),
+                              global_params, x, y, idx, n_steps, vec)
+        per_block = [tree_flatten(u)[0] for u, _, _ in parts]
+        leaves, treedef = tree_flatten(parts[0][0])
+        blocks: List[List[torch.Tensor]] = [[] for _ in parts]
+        nnz_list = []
         for li, leaf in enumerate(leaves):
-            flat = leaf.reshape(nb, leaf[0].numel()).to(torch.float32)
+            size = leaf[0].numel()
+            flats = [b[li].reshape(b[li].shape[0], size).to(torch.float32)
+                     for b in per_block]
             if method != "none":
                 ef = ef_leaves[li]
-                # error-correct by the stored residual (0 for padded rows)
-                res = F.pad(ef.index_select(0, ef_rows),
-                            (0, 0, 0, nb - ef_rows.shape[0]))
-                corrected = (flat + res).contiguous()
-                sent, nnz = _compress_rows(corrected, method, stc_sparsity)
+                flats, nnz, new = _error_feedback(
+                    flats, ef.index_select(0, ef_rows), method,
+                    stc_sparsity, mesh)
                 if nnz is not None:
-                    nnz_list.append(nnz)
-                ef.index_copy_(0, ef_rows,
-                               (corrected - sent)[: ef_rows.shape[0]])
-                flat = sent
-            flat_leaves.append(flat)
-        flat = (flat_leaves[0] if len(flat_leaves) == 1
-                else torch.cat(flat_leaves, dim=1)).contiguous()
+                    nnz_list.append(nnz.to(home))
+                ef.index_copy_(0, ef_rows, new)
+            for b, f in zip(blocks, flats):
+                b.append(f)
+        flats = _flat_blocks(blocks)
         ok = None
         if use_faults:
             # poison AFTER compression (the residuals stay clean), then
             # the staged path's fault block on the sent values
-            flat = torch.where(nan_mask[:, None], float("nan"), flat)
-            flat, weights, ok = _fault_weights(flat, weights, mask, True,
-                                               max_update_norm)
-            flat = flat.contiguous()
-        delta = _aggregate(flat, weights, use_kernel, topology, fanout)
+            flats = [torch.where(m[:, None], float("nan"), f)
+                     for f, m in zip(flats, _per_block(nan_mask, flats))]
+            flats, weights, ok = _fault_block(flats, weights, mask, True,
+                                              max_update_norm)
+        delta = _aggregate(flats, weights, use_kernel, topology, fanout,
+                           mesh).to(home)
         delta_tree = _unflatten_delta(delta, leaves, treedef)
         # the server apply (aggregation.apply_delta), in-program
         new_global = tree_map(
             lambda p, d: (p.to(torch.float32) + server_lr * d).to(p.dtype),
             global_params, delta_tree)
+        loss = gather_rows([p[1] for p in parts], home)
+        acc = gather_rows([p[2] for p in parts], home)
         return new_global, loss, acc, ok, tuple(nnz_list)
 
     return round_fn
+
+
+def build_client_mesh(devices: Optional[Sequence] = None) -> ClientMesh:
+    """1-D client mesh over the largest power-of-two prefix of ``devices``
+    (default: :func:`repro_torch.kernels.ops.get_devices`), one shard an
+    entry; a device may repeat.  The cohort dimension is bucket-padded to
+    powers of two, so a power-of-two mesh always divides it.  Raises
+    ``ValueError`` on an empty list."""
+    from repro_torch.kernels.ops import get_devices
+
+    devices = [torch.device(d) for d in
+               (get_devices() if devices is None else devices)]
+    if not devices:
+        raise ValueError(
+            'resources.distributed="data" needs at least one jax device to '
+            "build the client mesh, but none are available")
+    n = 1
+    while n * 2 <= len(devices):
+        n *= 2
+    if n < len(devices):
+        warnings.warn(
+            f"client mesh uses {n} of {len(devices)} devices (largest "
+            f"power of two); {len(devices) - n} device(s) stay idle",
+            stacklevel=2)
+    return ClientMesh(tuple(devices[:n]))
 
 
 class BatchedExecutor:
     """Runs a cohort of :class:`repro_torch.core.client.Client` objects on
     ``device``: as one round program (:meth:`run_round_fused`), as the
     staged path's three stages, or as per-client ``Client.train``-shaped
-    results for the clients' own post-train stages (:meth:`run_cohort`)."""
+    results for the clients' own post-train stages (:meth:`run_cohort`).
+
+    ``distributed="data"`` shards the cohort over a client mesh
+    (:func:`build_client_mesh` of ``devices``, default
+    ``repro_torch.get_devices()``): each shard trains, compresses and
+    guards its rows on its device and FedAvg takes the sharded K1 route.
+    Under a mesh the staged path's stacked ``updates`` are a list of
+    per-shard trees (``st["sharded"]``); :meth:`run_cohort` gathers each
+    client's rows from its shard."""
 
     #: bound on the *device-resident* tier of the per-client data pool
     #: (rows); evicted rows are recomputed from ``c.data``
@@ -360,14 +517,17 @@ class BatchedExecutor:
     EF_MAX_CLIENTS = 1024
 
     def __init__(self, model: FLModel, device: torch.device,
-                 distributed: str = "none"):
-        if distributed != "none":
-            raise NotImplementedError(
-                "resources.distributed='data' (the sharded cohort) is not "
-                "ported to repro_torch yet (ROADMAP M5.7)")
+                 distributed: str = "none",
+                 devices: Optional[Sequence] = None):
+        if distributed not in ("none", "data"):
+            raise ValueError(
+                f"unknown distributed {distributed!r}; expected 'none' or "
+                f"'data'")
         self.model = model
         self.device = device
         self.distributed = distributed
+        self.mesh = (build_client_mesh(devices)
+                     if distributed == "data" else None)
         self._pool = None              # lazily-built TieredRowStore
         self._pool_maxn = 0
         self._pool_sig = None          # (x tail shape/dtype, y ditto)
@@ -525,6 +685,8 @@ class BatchedExecutor:
 
         N = len(clients)
         Nb = bucket_pow2(N)
+        if self.mesh is not None:
+            Nb = max(Nb, self.mesh.size)   # equal shards: k divides Nb
         vec, optimizer = self.cohort_vectors(clients, Nb)
         idx_list = [self._batch_indices(c, round_id) for c in clients]
         S = bucket_pow2(max(len(ix) for ix in idx_list))
@@ -542,11 +704,8 @@ class BatchedExecutor:
     def _ef_store(self, sizes: List[int]):
         """The EF residual store (built at first use), checked against the
         update's leaf sizes."""
-        from repro_torch.core.tiered_store import TieredRowStore
-
         if self._ef is None:
-            self._ef = TieredRowStore(self.EF_MAX_CLIENTS, spill="host",
-                                      device=self.device, name="ef-store")
+            self._ef = self._new_ef_store()
         if self._ef.leaves and \
                 [m.shape[1] for m in self._ef.leaves] != sizes:
             raise ValueError(
@@ -555,6 +714,13 @@ class BatchedExecutor:
                 f"the update structure {sizes}; one executor serves one "
                 f"model")
         return self._ef
+
+    def _new_ef_store(self):
+        from repro_torch.core.tiered_store import TieredRowStore
+
+        return TieredRowStore(
+            self.EF_MAX_CLIENTS, spill="host", device=self.device,
+            name="ef-store")
 
     def _put(self, a):
         return torch.as_tensor(a, device=self.device)
@@ -567,30 +733,32 @@ class BatchedExecutor:
     def run_cohort_stacked(self, clients: Sequence, global_params: PyTree,
                            round_id: int) -> Dict[str, Any]:
         """Train the cohort and return the *stacked* results: ``updates``
-        (a tree of (N_b, ...) f32 device tensors), host ``loss`` / ``acc``
-        / ``n_steps`` (N_b,), ``num_samples`` (N,) and ``wall``, the
-        blocking training time, which ends with the one fetch of loss and
-        accuracy (one dispatch, one host sync)."""
+        (a tree of (N_b, ...) f32 device tensors; under a mesh a list of
+        per-shard trees on the shards' devices, with ``sharded`` True),
+        host ``loss`` / ``acc`` / ``n_steps`` (N_b,), ``num_samples`` (N,)
+        and ``wall``, the blocking training time, which ends with the one
+        fetch of loss and accuracy (one dispatch, one host sync)."""
         Nb, S, vec, optimizer, xd, yd, idx, n_steps = self._cohort_inputs(
             clients, round_id)
         # the fused program's own training body
         cohort = _one_client_fn(self.model, optimizer, S,
                                 use_prox=bool((vec.mu > 0).any()),
                                 use_clip=bool((vec.max_norm > 0).any()))
-        stacked = tree_map(
-            lambda p: p.unsqueeze(0).expand((Nb,) + tuple(p.shape)),
-            global_params)
         t0 = time.perf_counter()
-        updates, loss, acc = cohort(stacked, xd, yd, self._put(idx),
-                                    self._put(n_steps), self._vec(vec),
-                                    global_params)
+        parts = _train_blocks(cohort, _row_blocks(self.mesh, Nb, self.device),
+                              global_params, xd, yd, self._put(idx),
+                              self._put(n_steps), self._vec(vec))
         _note_dispatch()
         # the timing boundary: ``wall`` feeds the virtual clock
-        fetched = torch.stack([loss, acc]).cpu().numpy()
+        fetched = torch.stack([gather_rows([p[i] for p in parts],
+                                           self.device)
+                               for i in (1, 2)]).cpu().numpy()
         _note_host_sync()
         wall = time.perf_counter() - t0
+        sharded = self.mesh is not None
         return {
-            "updates": updates,
+            "updates": [p[0] for p in parts] if sharded else parts[0][0],
+            "sharded": sharded,
             "loss": fetched[0],
             "acc": fetched[1],
             "n_steps": n_steps,
@@ -660,7 +828,7 @@ class BatchedExecutor:
             method=method, stc_sparsity=float(stc_sparsity),
             use_faults=use_faults, max_update_norm=float(max_update_norm),
             topology=topology, fanout=int(fanout), use_kernel=use_kernel,
-            server_lr=float(server_lr))
+            server_lr=float(server_lr), mesh=self.mesh)
 
         t0 = time.perf_counter()
         new_global, loss, acc, ok, nnz = program(
@@ -736,10 +904,7 @@ class BatchedExecutor:
         """Restore :meth:`ef_state` into the warm tier (rows re-heat onto
         the device at their next gather).  Takes the legacy dense
         ``{"rows", "store"}`` snapshot too."""
-        from repro_torch.core.tiered_store import TieredRowStore
-
-        self._ef = TieredRowStore(self.EF_MAX_CLIENTS, spill="host",
-                                  device=self.device, name="ef-store")
+        self._ef = self._new_ef_store()
         if "clients" in state:
             self._ef.load_state(state)
             return
@@ -756,6 +921,7 @@ class BatchedExecutor:
         """The staged compression stage: each stacked leaf, flattened to
         (N_b, size) and error-corrected by the client's stored residual,
         goes through the batched kernel (K2 for STC, K3a + K3b for int8;
+        each shard's rows on its device, the sharded route, under a mesh;
         leaves under ``DENSE_MIN_ELEMS`` stay dense); the new residual
         (corrected - sent) is scattered back to the store.  Returns a copy
         of ``st`` whose ``updates`` are the sent values, with ``nnz`` (one
@@ -765,24 +931,27 @@ class BatchedExecutor:
             raise ValueError(
                 f"unknown in-program compression {method!r}; expected "
                 f"'stc' or 'int8'")
-        leaves, treedef = tree_flatten(st["updates"])
-        nb = leaves[0].shape[0]
-        n = len(clients)
+        per_block = [tree_flatten(u)[0] for u in self._blocks(st)]
+        leaves, treedef = tree_flatten(self._blocks(st)[0])
         residuals, ids = self._ef_gather(clients, leaves)
-        sent_leaves, new_res, nnz_list, sizes = [], [], [], []
-        for leaf, res in zip(leaves, residuals):
-            size = leaf[0].numel()
+        sent_blocks: List[List[torch.Tensor]] = [[] for _ in per_block]
+        new_res, nnz_list, sizes = [], [], []
+        for li, res in enumerate(residuals):
+            size = leaves[li][0].numel()
             sizes.append(size)
-            flat = leaf.reshape(nb, size).to(torch.float32)
-            corrected = (flat + F.pad(res, (0, 0, 0, nb - n))).contiguous()
-            sent, nnz = _compress_rows(corrected, method, stc_sparsity)
-            new_res.append((corrected - sent)[:n])
-            sent_leaves.append(sent.reshape(leaf.shape))
+            flats = [b[li].reshape(b[li].shape[0], size).to(torch.float32)
+                     for b in per_block]
+            sent, nnz, new = _error_feedback(flats, res, method, stc_sparsity,
+                                             self.mesh)
+            new_res.append(new)
+            for out_b, b, x in zip(sent_blocks, per_block, sent):
+                out_b.append(x.reshape(b[li].shape))
             nnz_list.append(nnz)
         self._ef.scatter(ids, new_res)
         _note_dispatch()               # the staged compression stage
         out = dict(st)
-        out["updates"] = tree_unflatten(treedef, sent_leaves)
+        out["updates"] = self._unblocks(
+            st, [tree_unflatten(treedef, b) for b in sent_blocks])
         out["nnz"] = nnz_list
         out["comp_sizes"] = sizes
         out["compression"] = method
@@ -796,25 +965,28 @@ class BatchedExecutor:
                           fanout: int = 0) -> PyTree:
         """The staged aggregation stage: FedAvg of the stacked updates as
         one (N_b, D) matrix — flat (K1 under ``use_kernel``, else one
-        einsum) or the hierarchical tree — with no per-client slicing.
+        einsum) or the hierarchical tree; under a mesh each shard's rows
+        on its device through the sharded K1 route — with no per-client
+        slicing.
         Returns the (f32) delta as a tree shaped like the global params.
 
         Faults (``cfg.faults``): ``mask`` zero-weights failed or
         deadline-missing clients ((N,) 0/1 host array), ``guard`` adds the
         NaN/Inf row check (and the ``max_update_norm`` bound when > 0),
-        and the survivors' weights renormalize (:func:`_fault_weights`,
-        the fused program's fault block); the guard's (N_b,) bool device
+        and the survivors' weights renormalize (:func:`_fault_block`, the
+        fused program's fault block); the guard's (N_b,) bool device
         verdict lands in ``st["guard_ok"]``.  With both left at their
         defaults the stage is the fault-free one."""
         from repro_torch.core.aggregation import fedavg_weights
 
-        leaves, treedef = tree_flatten(st["updates"])
-        nb = leaves[0].shape[0]
+        blocks = self._blocks(st)
+        flats = [torch.cat([leaf.reshape(leaf.shape[0], -1).to(torch.float32)
+                            for leaf in tree_leaves(b)], dim=1).contiguous()
+                 for b in blocks]
+        nb = sum(f.shape[0] for f in flats)
         num_samples = st["num_samples"]
         w = np.zeros((nb,), np.float32)
         w[: len(num_samples)] = fedavg_weights(num_samples)
-        flat = torch.cat([leaf.reshape(nb, -1).to(torch.float32)
-                          for leaf in leaves], dim=1).contiguous()
         w = self._put(w)
         if mask is not None or guard:
             m = None
@@ -822,13 +994,50 @@ class BatchedExecutor:
                 m = np.zeros((nb,), np.float32)
                 m[: len(mask)] = np.asarray(mask, np.float32)
                 m = self._put(m)
-            flat, w, ok = _fault_weights(flat, w, m, guard, max_update_norm)
-            flat = flat.contiguous()
+            flats, w, ok = _fault_block(flats, w, m, guard, max_update_norm)
             if guard:
                 st["guard_ok"] = ok
-        delta = _aggregate(flat, w, use_kernel, topology, fanout)
+        delta = _aggregate(flats, w, use_kernel, topology, fanout,
+                           self.mesh).to(self.device)
         _note_dispatch()               # the staged aggregation stage
-        return _unflatten_delta(delta, leaves, treedef)
+        return _unflatten_delta(delta, *tree_flatten(blocks[0]))
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _blocks(st: Dict[str, Any]) -> List[PyTree]:
+        """The stacked updates as row blocks: the per-shard trees under a
+        mesh, else the one tree."""
+        return st["updates"] if st.get("sharded") else [st["updates"]]
+
+    @staticmethod
+    def _unblocks(st: Dict[str, Any], blocks: List[PyTree]):
+        return blocks if st.get("sharded") else blocks[0]
+
+    @staticmethod
+    def _client_update(st: Dict[str, Any], i: int) -> PyTree:
+        """Cohort row ``i``'s update, gathered from its shard onto the first
+        shard's device under a mesh."""
+        if not st.get("sharded"):
+            return tree_map(lambda a: a[i], st["updates"])
+        blocks = st["updates"]
+        first = tree_leaves(blocks[0])[0]
+        r = first.shape[0]
+        return tree_map(lambda a: a[i % r].to(first.device), blocks[i // r])
+
+    @staticmethod
+    def poison_rows(st: Dict[str, Any], rows: Sequence[int]) -> None:
+        """Poison the stacked updates of cohort ``rows`` with NaN in place
+        of ``st["updates"]`` (NaN uploads, after compression)."""
+        blocks, lo = [], 0
+        for b in BatchedExecutor._blocks(st):
+            first = tree_leaves(b)[0]
+            local = [i - lo for i in rows if lo <= i < lo + first.shape[0]]
+            if local:
+                idx = torch.as_tensor(local, device=first.device)
+                b = tree_map(lambda a: a.index_fill(0, idx, float("nan")), b)
+            blocks.append(b)
+            lo += first.shape[0]
+        st["updates"] = BatchedExecutor._unblocks(st, blocks)
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -868,7 +1077,7 @@ class BatchedExecutor:
         shared wall time becomes per-client base times by step share (the
         virtual clock).  ``include_update=False`` leaves the updates out
         (the staged path aggregates them stacked)."""
-        updates, n_steps, wall = st["updates"], st["n_steps"], st["wall"]
+        n_steps, wall = st["n_steps"], st["wall"]
         total_steps = max(int(n_steps.sum()), 1)
         loss, acc = st["loss"].tolist(), st["acc"].tolist()
         steps_f = n_steps.astype(np.float64).tolist()
@@ -881,6 +1090,6 @@ class BatchedExecutor:
                 "train_time": wall * steps_f[i] / total_steps,
             }
             if include_update:
-                res["update"] = tree_map(lambda a, i=i: a[i], updates)
+                res["update"] = BatchedExecutor._client_update(st, i)
             results.append(res)
         return results

@@ -443,9 +443,18 @@ class ResourceConfig:
     streaming CUDA kernel (``repro_torch.kernels.fedavg_agg``); the default
     ``torch.einsum`` path computes the same sum.
 
-    ``distributed`` would shard the batched engine across devices
-    (``"data"``; not ported yet: ROADMAP M5.7); ``"none"`` runs the cohort on
-    one device.
+    ``distributed`` shards the batched engine across devices:
+
+    * ``"none"`` — the whole cohort program runs on the trainer's device.
+    * ``"data"`` — the stacked client dimension is split over a 1-D client
+      mesh, one shard for each entry of ``repro_torch.get_devices()``
+      (``repro_torch.set_devices``; a device may repeat), in one process:
+      each round copies the params and each shard's rows of the cohort
+      data to its device, where local training, compression and fault
+      checks run.  Requires ``execution="batched"``; FedAvg then sums
+      per-shard partial weighted sums (``repro_torch.kernels.fedavg_agg.
+      fedavg_aggregate_sharded``) instead of gathering all N updates on
+      one device.
     """
 
     num_devices: int = 1              # M simulated accelerators

@@ -24,13 +24,13 @@ override) and the gathering path (a non-FedAvg aggregator, a
 upload override: each client's own post-train stages, then
 ``Server.aggregation``).  Both engines run flat or hierarchical FedAvg;
 ``tracking.round_sync=False`` defers each round's metric fetch behind the
-next round's dispatch; LoRA runs under ``batched``.  Every engine takes the
+next round's dispatch; ``resources.distributed="data"`` shards the batched
+cohort over ``repro_torch.get_devices()`` on all three paths; LoRA
+(``client.finetune="lora"``) runs under every engine.  Every engine takes the
 fault layer (``cfg.faults``: dropout, crash, straggler, NaN uploads, the
 NaN/norm guard and the survivor floor; under async, retry with backoff),
 ``resources.round_deadline`` and checkpoint/resume (``cfg.checkpoint``) as
-the reference does.  Every
-configuration outside that raises ``NotImplementedError`` naming the
-ROADMAP item that ports it — at construction, never as a silent detour.
+the reference does.  Every configuration the reference accepts runs.
 """
 from __future__ import annotations
 
@@ -116,20 +116,6 @@ def dense_update_bytes(params) -> int:
     return sum(comp.array_nbytes(leaf) for leaf in tree_leaves(params))
 
 
-def unported_config(cfg: Config) -> List[str]:
-    """Every setting of ``cfg`` outside the ported engines, each with the
-    ROADMAP item that ports it (empty when they cover ``cfg``)."""
-    res = cfg.resources
-    out = []
-    if res.execution != "batched" and cfg.client.finetune == "lora":
-        out.append(f"client.finetune='lora' under resources.execution="
-                   f"{res.execution!r} (ROADMAP M8)")
-    if res.execution == "batched" and res.distributed != "none":
-        out.append(f"resources.distributed={res.distributed!r} "
-                   f"(ROADMAP M5.7)")
-    return out
-
-
 class Trainer:
     def __init__(self, config: Config, model, fed_data: FederatedDataset,
                  tracker: Optional[Tracker] = None,
@@ -140,10 +126,6 @@ class Trainer:
         for method in (config.client.compression, config.server.compression):
             if method not in ("none", "stc", "int8"):
                 raise ValueError(f"unknown compression {method!r}")
-        missing = unported_config(config)
-        if missing:
-            raise NotImplementedError(
-                "not ported to repro_torch yet: " + "; ".join(missing))
         self.device = get_device()
         if config.client.finetune == "lora":
             # Freeze the base model and train low-rank adapters only: the
@@ -489,10 +471,7 @@ class Trainer:
                 nan_rows = [i for i, c in enumerate(clients)
                             if plans[c.client_id].nan_update]
                 if nan_rows:
-                    idx = torch.as_tensor(nan_rows, device=self.device)
-                    st["updates"] = tree_map(
-                        lambda a: a.index_fill(0, idx, float("nan")),
-                        st["updates"])
+                    self.engine.poison_rows(st, nan_rows)
             self.server.apply_delta(self.engine.aggregate_stacked(
                 st, use_kernel=res_cfg.aggregation_kernel, mask=mask,
                 guard=plans is not None,

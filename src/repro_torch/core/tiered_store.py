@@ -21,7 +21,10 @@ bounded and everything else costs host bytes, or nothing:
 The device tier never evicts a row the *current* cohort pins, so a cohort
 larger than ``capacity`` grows the tier to the cohort size for that round
 (device memory is ``max(capacity, cohort)`` rows).  Row slots are recycled
-through a free list; allocation grows by power-of-two doubling.
+through a free list; allocation grows by power-of-two doubling.  Under
+the sharded cohort the store is the same: its rows stay on ``device``
+(the first shard's) and the batched engine moves each shard's rows to its
+device at use and back, so :meth:`state` is the same whatever the mesh.
 
 New rows come from one of two sources: ``make_row(cid)``, per-leaf host
 rows (the data pool, whose rows are real data), or, without it, zeros of

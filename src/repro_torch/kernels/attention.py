@@ -152,11 +152,9 @@ def _fwd_cuda(q, k, v, causal):
     o = torch.empty_like(q)
     lse = torch.empty((bh, s), dtype=torch.float32, device=q.device)
     lib = build.load("flash_attn")
-    stream = build.stream(q.device)
-    build.check(lib.flash_fwd_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), bh, s, d, 1.0 / math.sqrt(d), int(causal), stream),
-        "flash_fwd")
+    build.launch(q.device, "flash_fwd", lib.flash_fwd_launch,
+                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 lse.data_ptr(), bh, s, d, 1.0 / math.sqrt(d), int(causal))
     fwd_launches += 1
     return o, lse
 
@@ -168,11 +166,10 @@ def flash_dq(q, k, v, do, lse, delta, causal: bool) -> torch.Tensor:
     bh, s, d = q.shape
     dq = torch.empty_like(q)
     lib = build.load("flash_attn")
-    build.check(lib.flash_dq_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, s, d,
-        1.0 / math.sqrt(d), int(causal),
-        build.stream(q.device)), "flash_dq")
+    build.launch(q.device, "flash_dq", lib.flash_dq_launch,
+                 q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, s, d,
+                 1.0 / math.sqrt(d), int(causal))
     dq_launches += 1
     return dq
 
@@ -185,11 +182,10 @@ def flash_dkv(q, k, v, do, lse, delta, causal: bool
     bh, s, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = build.load("flash_attn")
-    build.check(lib.flash_dkv_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh,
-        s, d, 1.0 / math.sqrt(d), int(causal),
-        build.stream(q.device)), "flash_dkv")
+    build.launch(q.device, "flash_dkv", lib.flash_dkv_launch,
+                 q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), bh, s, d, 1.0 / math.sqrt(d), int(causal))
     dkv_launches += 1
     return dk, dv
 

@@ -147,6 +147,17 @@ def stream(device: torch.device) -> int:
     return torch._C._cuda_getCurrentRawStream(device.index)
 
 
+def launch(device: torch.device, what: str, fn, *args) -> None:
+    """Call the C launcher ``fn(*args, stream)`` with ``device`` (a CUDA
+    tensor's) the current device and ``stream`` its current stream, then
+    :func:`check` the result.  CUDA refuses a launch into a stream of
+    another device than the current one, and ``cudaFuncSetAttribute``
+    acts on the current device only, so a kernel on a shard's card
+    (``resources.distributed="data"``) needs that card current."""
+    with torch.cuda.device(device):
+        check(fn(*args, stream(device)), what)
+
+
 def check(err: int, what: str) -> None:
     """Raise when a launcher returned a non-zero ``cudaError_t``."""
     if err:

@@ -23,6 +23,13 @@ power-of-two multiple of ``TILE_N`` and a group is
 ``bucket_clients(fanout)`` rows.  :func:`fedavg_tree_plain` is the same
 tree with :func:`fedavg_plain` per group, bit for bit the kernel's.
 
+The sharded cohort (``resources.distributed = "data"``):
+:func:`fedavg_aggregate_sharded` reduces each shard's row block on its
+own device (K1, or the tree's grouped K1 under ``fanout > 0``) and sums
+the k (D,) partials in shard order in f32 on the first shard's device —
+the reference's per-shard partials and ``psum``.
+:func:`fedavg_sharded_plain` is the same with the plain versions.
+
 Asynchronous (FedBuff) aggregation takes both entry points unchanged: its
 staleness discount is a transform of the weight vector
 (:func:`fold_staleness`, plain f32 arithmetic in the reference's op order)
@@ -37,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
+from repro_torch.kernels.mesh import CLIENT_AXIS, Rows, check_mesh
 
 #: the reference's client-chunk tile: the kernel tree's padding and group
 #: granularity (``src/repro/kernels/fedavg_agg.py::TILE_N``)
@@ -117,10 +125,8 @@ def fedavg_aggregate(updates: torch.Tensor, weights: torch.Tensor,
     n, d = updates.shape
     out = torch.empty((d,), dtype=torch.float32, device=updates.device)
     lib = build.load("fedavg_agg")
-    stream = build.stream(updates.device)
-    build.check(lib.fedavg_agg_launch(updates.data_ptr(), weights.data_ptr(),
-                                      out.data_ptr(), n, d, stream),
-                "fedavg_agg")
+    build.launch(updates.device, "fedavg_agg", lib.fedavg_agg_launch,
+                 updates.data_ptr(), weights.data_ptr(), out.data_ptr(), n, d)
     launches += 1
     return out
 
@@ -143,10 +149,9 @@ def fedavg_aggregate_grouped(updates: torch.Tensor, weights: torch.Tensor,
     global grouped_launches
     out = torch.empty((groups, d), dtype=torch.float32, device=updates.device)
     lib = build.load("fedavg_agg")
-    stream = build.stream(updates.device)
-    build.check(lib.fedavg_agg_grouped_launch(
-        updates.data_ptr(), weights.data_ptr(), out.data_ptr(), groups,
-        n // groups, d, stream), "fedavg_agg_grouped")
+    build.launch(updates.device, "fedavg_agg_grouped",
+                 lib.fedavg_agg_grouped_launch, updates.data_ptr(),
+                 weights.data_ptr(), out.data_ptr(), groups, n // groups, d)
     grouped_launches += 1
     return out
 
@@ -230,3 +235,69 @@ def fedavg_tree_plain(updates: torch.Tensor, weights: torch.Tensor,
     :func:`fedavg_plain` per group and tier, in the kernel's order."""
     return _tree(updates, weights, fanout, True, fedavg_plain,
                  fedavg_grouped_plain)
+
+
+def _sharded(updates: Rows, weights: torch.Tensor, devices, fanout: int,
+             flat, tree) -> torch.Tensor:
+    """Each row block reduced on its shard's device as it comes (flat, or
+    the tree under ``fanout > 0``), the partials summed in shard order on
+    the first shard's device.  A whole matrix is first cut into k blocks
+    of as equal sizes as ``tensor_split`` makes; an empty block adds
+    nothing."""
+    if isinstance(updates, torch.Tensor):
+        updates = updates.tensor_split(len(devices))
+    elif len(updates) != len(devices):
+        raise ValueError(f"fedavg_aggregate_sharded: {len(updates)} row "
+                         f"blocks for a mesh of {len(devices)} shards")
+    out, lo = None, 0
+    for u, dev in zip(updates, devices):
+        r = u.shape[0]
+        w = weights[lo:lo + r].to(dev, torch.float32).contiguous()
+        lo += r
+        if not r:
+            continue
+        u = u.to(dev, torch.float32).contiguous()
+        part = tree(u, w, fanout) if fanout > 0 else flat(u, w)
+        out = part if out is None else out + part.to(out.device)
+    return out
+
+
+def fedavg_aggregate_sharded(updates: Rows, weights: torch.Tensor, mesh,
+                             axis: str = CLIENT_AXIS,
+                             staleness: Optional[torch.Tensor] = None,
+                             staleness_power: float = 0.5,
+                             fanout: int = 0) -> torch.Tensor:
+    """Weighted sum over a client mesh: per-shard partials, then their sum
+    (the reference's ``psum``) on the first shard's device -> (D,) f32.
+
+    ``updates`` is the whole (N, D) matrix or its row blocks in order (one
+    a shard, each on its shard's device: ``kernels.mesh``); ``weights``
+    (N,).  As in the reference, ``staleness`` folds into the weights first
+    (:func:`fold_staleness`); ``fanout > 0`` reduces each shard's rows
+    through the tree of grouped K1 launches (one K1 launch where
+    ``fanout`` covers the shard's rows), ``fanout = 0`` through one K1
+    launch a shard.  Unlike the reference, the rows are not padded to
+    ``TILE_N x k`` and re-cut: each shard reduces the rows it holds, so no
+    row crosses devices and only the (D,) partials do (the sum order
+    differs from the reference's by rounding only).  CPU shards take the
+    plain versions."""
+    check_mesh(mesh, axis, "fedavg_aggregate_sharded")
+    if staleness is not None:
+        weights = fold_staleness(weights, staleness, staleness_power)
+
+    def tree(u, w, f):
+        return _tree(u, w, f, True, fedavg_aggregate,
+                     fedavg_aggregate_grouped)
+    return _sharded(updates, weights, mesh.devices, int(fanout),
+                    fedavg_aggregate, tree)
+
+
+def fedavg_sharded_plain(updates: Rows, weights: torch.Tensor, k: int,
+                         fanout: int = 0) -> torch.Tensor:
+    """:func:`fedavg_aggregate_sharded` over k shards in plain PyTorch on
+    ``updates``' device: :func:`fedavg_plain` / :func:`fedavg_tree_plain`
+    a shard, the partials summed in shard order."""
+    dev = (updates if isinstance(updates, torch.Tensor)
+           else updates[0]).device
+    return _sharded(updates, weights, [dev] * k, int(fanout), fedavg_plain,
+                    fedavg_tree_plain)

@@ -6,15 +6,24 @@ twin of the reference's ``set_interpret``.  Without that call and without a
 CUDA device, :func:`get_device` raises instead of falling back quietly to
 the CPU.
 
-The kernel entry points re-exported here (``fedavg_aggregate``,
-``fedavg_aggregate_tree``, ``stc_compress_batched``, ``int8_roundtrip_batched``, ``stc_compress``,
-``quantize``, ``dequantize``, ``flash_attention``, ``wkv6``) take the device from their input tensors: a CUDA tensor launches the
-hand-written kernel, a CPU tensor takes the plain PyTorch version beside
-it, anything else raises.
+:func:`set_devices` sets the list of devices the sharded cohort
+(``resources.distributed = "data"``) spreads over, one shard an entry —
+the counterpart of the reference's ``jax.devices()``.  A device may
+repeat: ``set_devices(["cpu"] * 4)`` gives the CPU tests four shards, as
+the reference's tests get them from forced host devices, and
+``set_devices(["cuda:0"] * 2)`` two shards on one card.
+
+The kernel entry points here (``fedavg_aggregate``,
+``fedavg_aggregate_tree``, ``fedavg_aggregate_sharded``,
+``stc_compress_batched``, ``int8_roundtrip_batched`` — both with
+``mesh=`` for the sharded route —, ``stc_compress``, ``quantize``,
+``dequantize``, ``flash_attention``, ``wkv6``) take the device from their
+input tensors: a CUDA tensor launches the hand-written kernel, a CPU
+tensor takes the plain PyTorch version beside it, anything else raises.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -23,17 +32,31 @@ from repro_torch.kernels import (
 )
 from repro_torch.kernels.attention import flash_attention  # noqa: F401
 from repro_torch.kernels.fedavg_agg import (  # noqa: F401
-    fedavg_aggregate, fedavg_aggregate_tree,
+    fedavg_aggregate, fedavg_aggregate_sharded, fedavg_aggregate_tree,
 )
-from repro_torch.kernels.quant import (  # noqa: F401
-    dequantize, int8_roundtrip_batched, quantize,
-)
+from repro_torch.kernels.quant import dequantize, quantize  # noqa: F401
 from repro_torch.kernels.rwkv6_scan import wkv6  # noqa: F401
-from repro_torch.kernels.stc_topk import (  # noqa: F401
-    stc_compress, stc_compress_batched,
-)
+from repro_torch.kernels.stc_topk import stc_compress  # noqa: F401
 
 _DEVICE: Optional[torch.device] = None
+_DEVICES: Optional[List[torch.device]] = None
+
+
+def stc_compress_batched(x, keep_frac: float = 0.01, mesh=None):
+    """Stacked-cohort STC: (N, D) -> (sparsified (N, D), nnz (N,)); with
+    ``mesh`` each shard compresses its own rows (``kernels.mesh``)."""
+    if mesh is not None:
+        return stc_topk.stc_compress_batched_sharded(x, float(keep_frac),
+                                                     mesh)
+    return stc_topk.stc_compress_batched(x, float(keep_frac))
+
+
+def int8_roundtrip_batched(x, mesh=None):
+    """Stacked-cohort int8 round trip with per-client scales: (N, D) ->
+    (sent (N, D), scale (N,)); per shard's rows under ``mesh``."""
+    if mesh is not None:
+        return quant.int8_roundtrip_batched_sharded(x, mesh)
+    return quant.int8_roundtrip_batched(x)
 
 
 def set_device(device) -> None:
@@ -57,6 +80,33 @@ def get_device() -> torch.device:
             f"repro_torch.set_device({str(dev)!r}) but no CUDA device is "
             f"available")
     return dev
+
+
+def set_devices(devices) -> None:
+    """Shard the cohort of ``resources.distributed="data"`` over
+    ``devices`` (one shard an entry; an entry may repeat); ``None``
+    restores the default (:func:`get_devices`)."""
+    global _DEVICES
+    _DEVICES = None if devices is None else [torch.device(d)
+                                             for d in devices]
+
+
+def get_devices() -> List[torch.device]:
+    """The devices the sharded cohort spreads over: the list given to
+    :func:`set_devices`; else ``[get_device()]`` when :func:`set_device`
+    chose a device; else every CUDA device."""
+    if _DEVICES is not None:
+        if any(d.type == "cuda" for d in _DEVICES) and \
+                not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch.set_devices() names CUDA devices but no CUDA "
+                "device is available")
+        return list(_DEVICES)
+    if _DEVICE is not None:
+        return [get_device()]
+    get_device()                   # no CUDA and no choice: raises
+    return [torch.device("cuda", i)
+            for i in range(torch.cuda.device_count())]
 
 
 def launch_counts() -> Dict[str, int]:

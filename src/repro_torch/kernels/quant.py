@@ -16,7 +16,9 @@ and ``quant._qdq_kernel``:
 
 Every step is order-free, so the kernels and the plain versions
 (:func:`rowmax_plain`, :func:`qdq_plain`) agree bit for bit with each
-other and with the reference.
+other and with the reference.  :func:`int8_roundtrip_batched_sharded` is
+the route over a client mesh: each shard's rows through K3a + K3b on that
+shard's device, no collective.
 
 The dense pair (the port of ``quant._quant_kernel`` / ``_dequant_kernel``,
 reached through the reference's ``ops.quantize`` / ``ops.dequantize``):
@@ -41,12 +43,15 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from typing import List, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.mesh import (
+    CLIENT_AXIS, Rows, as_shards, check_mesh, gather_rows,
+)
 
 #: launches of each CUDA kernel in this process (see ``ops.launch_counts``)
 rowmax_launches = 0
@@ -93,9 +98,8 @@ def rowmax(x: torch.Tensor) -> torch.Tensor:
     n, d = x.shape
     m = torch.empty((n,), dtype=torch.float32, device=x.device)
     lib = build.load("quant")
-    stream = build.stream(x.device)
-    build.check(lib.int8_rowmax_launch(x.data_ptr(), m.data_ptr(), n, d,
-                                       stream), "int8_rowmax")
+    build.launch(x.device, "int8_rowmax", lib.int8_rowmax_launch,
+                 x.data_ptr(), m.data_ptr(), n, d)
     rowmax_launches += 1
     return m
 
@@ -118,12 +122,9 @@ def qdq(x: torch.Tensor, scale: torch.Tensor, with_q: bool = False):
     q = torch.empty((n, d), dtype=torch.int8, device=x.device) if with_q \
         else None
     lib = build.load("quant")
-    stream = build.stream(x.device)
-    build.check(lib.int8_qdq_launch(x.data_ptr(), scale.data_ptr(),
-                                    out.data_ptr(),
-                                    None if q is None else q.data_ptr(),
-                                    n, d, stream),
-                "int8_qdq")
+    build.launch(x.device, "int8_qdq", lib.int8_qdq_launch, x.data_ptr(),
+                 scale.data_ptr(), out.data_ptr(),
+                 None if q is None else q.data_ptr(), n, d)
     qdq_launches += 1
     return (out, q) if with_q else out
 
@@ -133,6 +134,23 @@ def int8_roundtrip_batched(x: torch.Tensor
     """Round-trip a stacked (N, D) update; returns ``(sent, scale)``."""
     scale = int8_scale(rowmax(x))
     return qdq(x, scale), scale
+
+
+def int8_roundtrip_batched_sharded(
+        x: Rows, mesh, axis: str = CLIENT_AXIS
+) -> Tuple[Union[torch.Tensor, List[torch.Tensor]],
+           Union[torch.Tensor, List[torch.Tensor]]]:
+    """:func:`int8_roundtrip_batched` of each shard's rows on its device:
+    ``x`` whole ((N, D), N divisible by the mesh size) -> ``(sent,
+    scale)`` gathered on the first shard's device; ``x`` as row blocks ->
+    lists of per-shard ``sent`` and ``scale``."""
+    check_mesh(mesh, axis, "int8_roundtrip_batched_sharded")
+    parts, whole = as_shards(x, mesh, "int8_roundtrip_batched_sharded")
+    outs = [int8_roundtrip_batched(p) for p in parts]
+    sent, scale = [o for o, _ in outs], [s for _, s in outs]
+    if whole:
+        return gather_rows(sent), gather_rows(scale)
+    return sent, scale
 
 
 # ---------------------------------------------------------------------------
@@ -219,10 +237,10 @@ def quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     q = torch.empty((tiles * TILE_R, TILE_C), dtype=torch.int8, device=dev)
     s = torch.empty((tiles, 1), dtype=torch.float32, device=dev)
     ptr = x.data_ptr()
-    build.check(build.load("quant").int8_quantize_launch(
-        ptr, q.data_ptr(), s.data_ptr(), n, code,
-        vector_head(ptr, x.element_size()), build.stream(dev)),
-        "int8_quantize")
+    build.launch(dev, "int8_quantize",
+                 build.load("quant").int8_quantize_launch, ptr, q.data_ptr(),
+                 s.data_ptr(), n, code,
+                 vector_head(ptr, x.element_size()))
     quantize_launches += 1
     return q, s
 
@@ -250,9 +268,9 @@ def dequantize(q: torch.Tensor, s: torch.Tensor, shape,
     global dequantize_launches
     out = torch.empty(tuple(shape), dtype=torch.float32, device=dev)
     ptr = q.data_ptr()
-    build.check(build.load("quant").int8_dequantize_launch(
-        ptr, s.data_ptr(), out.data_ptr(), n, vector_head(ptr, 1),
-        build.stream(dev)), "int8_dequantize")
+    build.launch(dev, "int8_dequantize",
+                 build.load("quant").int8_dequantize_launch, ptr,
+                 s.data_ptr(), out.data_ptr(), n, vector_head(ptr, 1))
     dequantize_launches += 1
     return out if dtype == torch.float32 else out.to(dtype)
 

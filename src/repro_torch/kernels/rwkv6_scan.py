@@ -143,12 +143,9 @@ def wkv6(r, k, v, logw, u, s0) -> Tuple[torch.Tensor, torch.Tensor]:
     y = torch.empty_like(r)
     sT = torch.empty_like(s0)
     lib = build.load("wkv6")
-    stream = build.stream(r.device)
-    build.check(lib.wkv6_launch(r.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                logw.data_ptr(), u.data_ptr(), s0.data_ptr(),
-                                y.data_ptr(), sT.data_ptr(), B, T, H, hd,
-                                stream),
-                "wkv6")
+    build.launch(r.device, "wkv6", lib.wkv6_launch, r.data_ptr(),
+                 k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(),
+                 s0.data_ptr(), y.data_ptr(), sT.data_ptr(), B, T, H, hd)
     launches += 1
     return y, sT
 

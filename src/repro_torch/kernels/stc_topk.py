@@ -15,7 +15,11 @@ barriers; :func:`stc_kernel_order_segment` models that order for the
 tests).
 
 :func:`stc_compress_batched` launches the kernel for a CUDA tensor and uses
-:func:`stc_plain` for a CPU tensor.
+:func:`stc_plain` for a CPU tensor.  :func:`stc_compress_batched_sharded`
+is its route over a client mesh (``resources.distributed = "data"``):
+each shard's rows through the same call on that shard's device, no
+collective — rows are independent, so the result is the unsharded one bit
+for bit.
 
 :func:`stc_compress` is the port of the reference's dense
 ``stc_topk._stc_kernel`` (its ``stc_compress``): the same per-8192-tile
@@ -30,13 +34,16 @@ correctly rounded mean of the kept magnitudes.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
+from repro_torch.kernels.mesh import (
+    CLIENT_AXIS, Rows, as_shards, check_mesh, gather_rows,
+)
 
 SEG = 8192            # elements per threshold segment (reference TILE_SEG)
 BISECT_ITERS = 16
@@ -175,10 +182,10 @@ def _launch(x: torch.Tensor, keep_frac: float, counts: bool = True
     nnz = (torch.empty((n,), dtype=torch.int32, device=x.device) if counts
            else None)
     lib = build.load("stc_topk")
-    stream = build.stream(x.device)
-    build.check(lib.stc_batched_launch(
-        x.data_ptr(), out.data_ptr(), None if nnz is None else nnz.data_ptr(),
-        n, d, float(keep_frac), stream), "stc_batched")
+    build.launch(x.device, "stc_batched", lib.stc_batched_launch,
+                 x.data_ptr(), out.data_ptr(),
+                 None if nnz is None else nnz.data_ptr(), n, d,
+                 float(keep_frac))
     return out, nnz
 
 
@@ -202,6 +209,23 @@ def stc_compress_batched(x: torch.Tensor, keep_frac: float = 0.01
     out, nnz = _launch(x, keep_frac)
     launches += 1
     return out, nnz.to(torch.float32)
+
+
+def stc_compress_batched_sharded(
+        x: Rows, keep_frac: float, mesh, axis: str = CLIENT_AXIS
+) -> Tuple[Union[torch.Tensor, List[torch.Tensor]],
+           Union[torch.Tensor, List[torch.Tensor]]]:
+    """:func:`stc_compress_batched` of each shard's rows on its device.
+    ``x`` whole ((N, D), N divisible by the mesh size) -> ``(out, nnz)``
+    gathered on the first shard's device; ``x`` as row blocks (one a
+    shard, ``kernels.mesh``) -> lists of per-shard ``out`` and ``nnz``."""
+    check_mesh(mesh, axis, "stc_compress_batched_sharded")
+    parts, whole = as_shards(x, mesh, "stc_compress_batched_sharded")
+    outs = [stc_compress_batched(p, keep_frac) for p in parts]
+    out, nnz = [o for o, _ in outs], [c for _, c in outs]
+    if whole:
+        return gather_rows(out), gather_rows(nnz)
+    return out, nnz
 
 
 def stc_dense_plain(x: torch.Tensor, keep_frac: float = 0.01

@@ -12,7 +12,8 @@ whose parameter tree holds only the low-rank adapter factors:
   ``W_eff = W + (alpha/rank) * (A @ B).reshape(W.shape)``;
 * the frozen base tree is closed over: under the cohort's ``vmap`` it is one
   set of tensors shared by every client (only the merged leaves are per
-  client), never a per-client copy.
+  client), never a per-client copy; under the sharded cohort each further
+  card gets one copy, at its first use.
 
 The adapter tree is ``{path: {"a": A, "b": B}}`` with the "/"-joined base
 path as key (``"segments/0/attn/wq"``), in ``jax.tree_util`` order (dict
@@ -30,7 +31,7 @@ import torch
 
 from repro_torch.models.layers import ParamDef, zeros_init
 from repro_torch.models.small import FLModel
-from repro_torch.utils.tree import tree_leaves
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 PyTree = Any
 
@@ -126,9 +127,19 @@ def lora_wrap(model: FLModel, base_params: PyTree, rank: int,
     defs = adapter_defs(model.defs, rank, targets)
     scale = float(alpha) / rank if rank else 0.0
     base_apply = model.apply
+    # one copy of the base a device: a shard of the sharded cohort on
+    # another card than the base's merges with its own copy, made once
+    leaves = tree_leaves(base_params)
+    copies = {leaves[0].device: base_params} if leaves else {}
+
+    def base_on(device):
+        if device not in copies:
+            copies[device] = tree_map(lambda t: t.to(device), base_params)
+        return copies[device]
 
     def apply(adapters, x):
-        return base_apply(merge_lora(base_params, adapters, scale), x)
+        base = base_on(x.device) if copies else base_params
+        return base_apply(merge_lora(base, adapters, scale), x)
 
     return FLModel(f"{model.name}+lora{rank}", defs, apply,
                    model.num_classes, model.input_shape,

@@ -11,7 +11,7 @@ on a virtual-clock event loop) against the reference's.
 * the knobs' defaults, the validation and refusal texts, ``run_round``
   refused, the FedBuff buffer, retries, the NaN guard, the failure cap
   and resume of the remaining aggregations;
-* async + LoRA is refused naming ROADMAP M8.
+* async LoRA: FedBuff waves of adapters, as the reference's.
 """
 import jax
 import numpy as np
@@ -498,14 +498,44 @@ def test_run_round_refused_under_async():
         trainer.run_round(0)
 
 
-def test_async_lora_is_refused_naming_m8():
-    repro_torch.reset()
-    repro_torch.init({"model": "tiny_lm", "dataset": "tiny_lm",
-                      "client": {"finetune": "lora"},
-                      "resources": {"execution": "async"}})
-    with pytest.raises(NotImplementedError, match="M8"):
-        repro_torch.run()
-    repro_torch.reset()
+def test_async_lora_matches_the_reference(monkeypatch):
+    """Async LoRA: FedBuff waves of adapters on the linear model (the
+    reference's base frozen in both packages), walls pinned, speeds 1x /
+    4x: the same adapters, virtual times, staleness and bytes."""
+    from repro.models import lora as ref_lora
+    from test_torch_lora import _InjectedBase
+
+    _pin_wall(monkeypatch)
+    res = {"execution": "async", "buffer_size": 3, "max_concurrency": 6}
+    cfg = _cfg(res, {"rounds": 4, "clients_per_round": 6}, (1.0, 4.0))
+    cfg["client"].update(finetune="lora", lora_rank=2, lora_alpha=4.0)
+    trainers = []
+    for config, model, build, make in (
+            (RefConfig, ref_get_model("linear"), ref_build, RefTrainer),
+            (Config, _InjectedBase(get_model("linear"), _p0()),
+             build_federated_data, Trainer)):
+        c = config.make(cfg)
+        fed = build(c.data)
+        t = make(c, model, fed)
+        _assign(t, fed, (1.0, 4.0))
+        trainers.append(t)
+    ref, port = trainers
+    adapters = jax.tree_util.tree_map(np.asarray, ref_lora.lora_wrap(
+        ref_get_model("linear"), _p0(), 2, 4.0, ()).init(
+            jax.random.PRNGKey(0)))
+    ref.server.params = jax.tree_util.tree_map(jax.numpy.asarray, adapters)
+    port.server.params = convert.params_from_jax(adapters)
+    rr, rp = ref.run(), port.run()
+    assert sorted(rp["params"]) == sorted(rr["params"])
+    _assert_params(rr["params"], rp["params"])
+    for key in ("round_time", "virtual_time", "staleness_mean",
+                "staleness_max", "clients", "comm_up_bytes"):
+        assert [h[key] for h in rp["history"]] == \
+            [h[key] for h in rr["history"]], key
+    np.testing.assert_allclose([h["train_loss"] for h in rp["history"]],
+                               [h["train_loss"] for h in rr["history"]],
+                               rtol=1e-4, atol=1e-5)
+    assert max(h["staleness_max"] for h in rp["history"]) > 0
 
 
 # ---------------------------------------------------------------------------

@@ -325,23 +325,32 @@ def test_checkpoint_keep_gc(tmp_path):
 
 
 def test_unported_settings_still_name_their_roadmap_items():
+    """No setting names a ROADMAP item any more: a trainer builds under
+    each setting that once did, and under faults, the deadline and
+    checkpoints in every engine."""
     from repro_torch.core.config import Config
-    from repro_torch.core.rounds import unported_config
+    from repro_torch.core.rounds import Trainer
+    from repro_torch.data.fed_data import build_federated_data
+    from repro_torch.models.registry import get_model
 
-    def missing(**kw):
-        return unported_config(Config.make(kw))
+    lora = {"finetune": "lora", "lora_rank": 2, "lora_alpha": 4.0,
+            "lora_targets": ("attn",)}
 
-    assert missing(faults={"dropout_prob": 0.1},
-                   resources={"round_deadline": 1.0},
-                   checkpoint={"every": 1}) == []
-    # the async engine takes faults, the deadline and checkpoints too
-    assert missing(resources={"execution": "async", "round_deadline": 1.0},
-                   faults={"dropout_prob": 0.1},
-                   checkpoint={"every": 1}) == []
-    assert missing(resources={"execution": "async"},
-                   client={"finetune": "lora"}) == [
-        "client.finetune='lora' under resources.execution='async' "
-        "(ROADMAP M8)"]
-    assert missing(resources={"execution": "batched",
-                              "distributed": "data"}) == [
-        "resources.distributed='data' (ROADMAP M5.7)"]
+    def builds(model="linear", dataset="synthetic", **kw):
+        cfg = Config.make(dict(kw, model=model, data={
+            "dataset": dataset, "num_clients": 2, "batch_size": 8}))
+        trainer = Trainer(cfg, get_model(model), build_federated_data(
+            cfg.data))
+        assert trainer.cfg is cfg
+        return trainer
+
+    builds(faults={"dropout_prob": 0.1}, resources={"round_deadline": 1.0},
+           checkpoint={"every": 1})
+    builds(resources={"execution": "async", "round_deadline": 1.0},
+           faults={"dropout_prob": 0.1}, checkpoint={"every": 1})
+    for execution in ("sequential", "async", "batched"):
+        builds("tiny_lm", "tiny_lm", resources={"execution": execution},
+               client=lora)
+    sharded = builds(resources={"execution": "batched",
+                                "distributed": "data"})
+    assert sharded.engine.mesh.size == 1

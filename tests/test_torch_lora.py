@@ -320,14 +320,19 @@ def test_lora_runs_through_the_public_api_and_counts_adapter_bytes():
     assert sum(t.numel() for t in tree_leaves(res["params"])) == n
 
 
-def test_lora_rejects_no_match_targets_and_the_sequential_engine():
+def test_lora_rejects_no_match_targets_and_runs_the_sequential_engine():
     repro_torch.reset()
     repro_torch.init({**SLICE, "client": {**SLICE["client"],
                                           "lora_targets": ("nothing",)}})
     with pytest.raises(ValueError, match="matched no eligible"):
         repro_torch.run()
     repro_torch.reset()
-    repro_torch.init({**SLICE, "resources": {"execution": "sequential"}})
-    with pytest.raises(NotImplementedError, match="M8"):
-        repro_torch.run()
+    repro_torch.init({**SLICE, "server": {"rounds": 1,
+                                          "clients_per_round": 2},
+                      "resources": {"execution": "sequential"}})
+    res = repro_torch.run()
     repro_torch.reset()
+    n = port_lora.adapter_param_count(port_tiny_lm(), 4, ATTN)
+    assert res["history"][0]["comm_up_bytes"] == n * 4 * 2
+    assert np.isfinite(res["history"][0]["train_loss"])
+    assert sum(t.numel() for t in tree_leaves(res["params"])) == n
