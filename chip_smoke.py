@@ -160,6 +160,19 @@ Phases, in order; any failed check raises, so the script exits non-zero:
    2 and 4 shards against the unsharded kernels (K2 / K3 bit for bit, K1
    at fanout 0 and 2 within 1e-6 relative), timed beside their plain
    versions and bounded;
+4k. drive remote training (``run_remote``): (a) femnist_cnn with 8
+   client services (``start_client``: threads of this process, sockets on
+   127.0.0.1), 4 a round, 3 rounds, through ``start_server().run()``;
+   final params against the ``init(); run()`` sequential run of the same
+   configuration at phase 4e's bar, train losses within 1e-3; K1 once a
+   round on the server; then 2 rounds under ``aggregation_topology=
+   "hierarchical"`` (one grouped K1 a round); (b) registry, tracker, 4
+   clients and the server as ``python -m repro_torch.launch.service``
+   processes on the card (2 rounds; the tracker's series, the devices
+   each names, the registry and tracker without CUDA, every child ended);
+   (c) the remote and sequential round walls, the transport's bytes and
+   latency a round, and the host costs of one 26.4 MB message (``dumps``,
+   send and receive, ``loads``, to the card and back);
 5. run the same port for 2 rounds of 4 clients from one set of injected
    parameters on the card and on the CPU and compare them, once per
    engine: train losses within 1e-4; parameters printed against 1e-4 and
@@ -195,7 +208,8 @@ the flash kernels from the flash-on run of phase 4b, K8 from phase 4c,
 K4/K5 from phase 4d); K1-K3 also carry ``launches_sequential``, from phase
 4e, ``launches_models``, from phase 4h, and ``launches_async``, from phase
 4i, and K1-K3 and K1's tree ``launches_faults``, from phase 4g, and
-``launches_sharded``, from phase 4j (a) and (b).
+``launches_sharded``, from phase 4j (a) and (b); K1 and K1's tree
+``launches_remote``, from phase 4k (a).
 
 ``python3 chip_smoke.py --profile`` instead profiles one steady-state round
 per compression mode and engine (phases 4 and 4e), one steady round of each
@@ -212,7 +226,9 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -438,6 +454,13 @@ def main():
     for row in kernels:          # K1-K3 and the K1 tree, the rows of phase 3
         if row.get("counter") in sharded:
             row["launches_sharded"] = sharded[row["counter"]]
+
+    phase("4k. remote training: femnist_cnn through start_client / "
+          "start_server and as the service CLI's processes")
+    remote = run_remote(repro_torch, ops, smi)
+    for row in kernels:          # K1 and the K1 tree, the rows of phase 3
+        if row.get("counter") in remote:
+            row["launches_remote"] = remote[row["counter"]]
         row.pop("counter", None)
 
     phase("5. card against CPU")
@@ -1569,8 +1592,6 @@ def run_slice(repro_torch, ops, mode, execution="batched", resources=None,
     cohort a round; ``shards`` (phase 4j) the client mesh's size under
     ``resources.distributed="data"``: the sharded K1 route launches once
     (flat, or one tier of the tree) a shard a round."""
-    import math
-
     from repro_torch.core import batched
 
     rounds = 3
@@ -2007,8 +2028,6 @@ def run_async_case(ops, trainer, tag, mode, smi, resume_step=None):
     """One phase-4i run (``trainer.run()``, or ``resume(step)``) with the
     launch counters set to 0 just before and read just after -> (launches,
     history, final params on the CPU)."""
-    import math
-
     from repro_torch.core import batched
     from repro_torch.utils.tree import tree_leaves
 
@@ -2529,6 +2548,333 @@ def check_sequential_stage(repro_torch, dev):
     repro_torch.reset()
 
 
+def remote_config(clients, per_round, rounds, topology="flat"):
+    """Phase 4k: femnist_cnn at its published width, ``clients`` client
+    services of phase 4's 360 samples each (``data_amount`` scaled from
+    the dataset's 100 clients to ``clients``), ``per_round`` a round, 1
+    local epoch, K1 on; ``execution="sequential"`` is the engine of the
+    ``init(); run()`` twin that the remote run is held against."""
+    return {"model": "femnist_cnn", "task_id": "chip_remote",
+            "data": {"dataset": "femnist", "num_clients": clients,
+                     "data_amount": clients / 100},
+            "resources": {"execution": "sequential",
+                          "aggregation_kernel": True,
+                          "aggregation_topology": topology},
+            "client": {"local_epochs": 1},
+            "server": {"rounds": rounds, "clients_per_round": per_round}}
+
+
+def remote_run(repro_torch, ops, cfg, n_clients):
+    """``cfg`` through ``start_client`` x ``n_clients`` (threads of this
+    process, sockets on 127.0.0.1) and ``start_server().run()`` -> (launch
+    counts of the run, final params on the CPU, history, host-clock walls
+    of each round with its ``synchronize``, the server's transport stats).
+    """
+    from repro_torch.deploy import Registry
+    from repro_torch.utils.tree import tree_leaves
+
+    repro_torch.reset()
+    repro_torch.init(cfg)
+    registry = Registry()
+    clients, server = [], None
+    try:
+        for i in range(n_clients):
+            clients.append(repro_torch.start_client(
+                {"client_id": f"client_{i:04d}", "registry": registry}))
+        server = repro_torch.start_server({"registry": registry})
+        devices = {str(c.device) for c in clients} | {str(server.device)}
+        require(all(d.startswith("cuda") for d in devices),
+                f"remote services on {devices}, expected the card")
+        walls, run_round = [], server.run_round
+
+        def timed(r):                  # run() calls it once a round
+            t0 = time.perf_counter()
+            out = run_round(r)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            return out
+
+        server.run_round = timed
+        ops.reset_launch_counts()
+        hist = server.run()
+        torch.cuda.synchronize()
+        used = ops.launch_counts()
+    finally:
+        if server is not None:
+            server.stop()
+        for c in clients:
+            c.stop()
+    out = tree_leaves(server.server.params)
+    require(all(t.device.type == "cuda" and bool(torch.isfinite(t).all())
+                for t in out), "remote params off the card or not finite")
+    stats = [t.stats for t in server.transports.values()]
+    repro_torch.reset()
+    return used, [t.cpu() for t in out], hist, walls, stats
+
+
+class Service:
+    """One ``python -m repro_torch.launch.service`` child process; a thread
+    reads its output lines (stderr merged) into a queue."""
+
+    def __init__(self, *args):
+        import queue
+        import threading
+
+        self.args = args
+        self.proc = subprocess.Popen(
+            [sys.executable, "-u", "-m", "repro_torch.launch.service",
+             *args], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
+            env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+        self.out, self.lines = [], queue.Queue()
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.out.append(line)
+            self.lines.put(line)
+        self.lines.put(None)
+
+    def wait_for(self, prefix, timeout):
+        """The first output line starting with ``prefix``; fails after
+        ``timeout`` seconds or when the child exits first."""
+        import queue
+
+        deadline = time.monotonic() + timeout
+        while True:
+            left = deadline - time.monotonic()
+            require(left > 0, f"{self.args[0]}: no {prefix!r} line in "
+                    f"{timeout} s:\n{''.join(self.out)[-3000:]}")
+            try:
+                line = self.lines.get(timeout=left)
+            except queue.Empty:
+                continue
+            if line is None:           # the child closed its output
+                raise AssertionError(
+                    f"{self.args[0]} exited with {self.proc.wait()} before "
+                    f"a {prefix!r} line:\n{''.join(self.out)[-3000:]}")
+            if line.startswith(prefix):
+                return line.strip()
+
+    def stop(self, timeout=60):
+        """Interrupt a serving child and wait for it -> its stop line."""
+        self.proc.send_signal(signal.SIGINT)
+        line = self.wait_for("stopped", timeout)
+        require(self.proc.wait(timeout) == 0,
+                f"{self.args[0]} exited with {self.proc.returncode}")
+        return line
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+
+
+def run_topology(smi):
+    """Phase 4k (b): registry, tracker, 4 clients and the server as
+    ``python -m repro_torch.launch.service`` processes on the one card
+    (femnist_cnn, 4 a round, 2 rounds, K1 on) -> the server's result."""
+    from repro_torch.launch.service import RemoteTracker, _parse_addr
+
+    gc.collect()
+    torch.cuda.empty_cache()           # the children need the card too
+    cfg = json.dumps(remote_config(4, 4, 2))
+    children = []
+    try:
+        addr = {}
+        for role in ("registry", "tracker"):
+            children.append(Service(role))
+            line = children[-1].wait_for(f"{role} listening on ", 120)
+            addr[role] = line.split()[3]
+            print(f"[topology] {line}")
+        clients = [Service("client", "--client-id", f"client_{i:04d}",
+                           "--registry", addr["registry"], "--config", cfg)
+                   for i in range(4)]
+        children += clients
+        for c in clients:
+            line = c.wait_for("client ", 300)
+            print(f"[topology] {line}")
+            require("(device: cuda" in line, f"client not on the card: "
+                    f"{line}")
+        t0 = time.perf_counter()
+        server = Service("server", "--registry", addr["registry"],
+                         "--tracker", addr["tracker"], "--config", cfg,
+                         "--rounds", "2")
+        children.append(server)
+        result = json.loads(server.wait_for("{", 600))
+        require(server.proc.wait(120) == 0,
+                f"server exited with {server.proc.returncode}")
+        wall = time.perf_counter() - t0
+        print(f"[topology] server: {result} ({wall:.1f} s from its start "
+              f"to its exit, CUDA context, data and 2 rounds)")
+        require(result["rounds"] == 2
+                and math.isfinite(result["final"]["accuracy"]),
+                f"server result {result}")
+        require(result["device"].startswith("cuda"),
+                f"server not on the card: {result}")
+        tracker = RemoteTracker(_parse_addr(addr["tracker"]))
+        series = tracker.round_series("chip_remote", "accuracy")
+        tracker.close()
+        print(f"[topology] tracker round_series accuracy {series}")
+        require(len(series) == 2, f"tracker has {len(series)} rounds")
+        for c in clients:                  # before the registry they leave
+            require("cuda initialized: True" in c.stop(),
+                    f"{c.args[:3]} never initialized CUDA")
+        for role, child in zip(("registry", "tracker"), children):
+            line = child.stop()
+            print(f"[topology] {role} {line}")
+            require("cuda initialized: False" in line,
+                    f"the {role} initialized CUDA")
+    finally:
+        for child in children:
+            child.kill()
+    require(all(c.proc.returncode is not None for c in children),
+            "a service child is still running")
+    print(f"[topology] {len(children)} children ended, exit codes "
+          f"{[c.proc.returncode for c in children]} ({smi})")
+    return result
+
+
+def wire_costs(params, dev):
+    """Host costs of one train request carrying ``params`` (a tree of
+    numpy arrays) on the remote path, each the median of 3 runs, in
+    seconds: ``serialize.dumps``, its send and ``transport._recv_msg``
+    over a local socket pair, ``serialize.loads``, the params onto ``dev``
+    (one copy a leaf, synchronized) and back to numpy -> (costs, message
+    bytes)."""
+    import socket
+    import threading
+
+    from repro_torch.comm import serialize
+    from repro_torch.comm.transport import _recv_msg, _send_msg
+    from repro_torch.core.remote import _to_device, _to_numpy
+
+    wire = {"method": "train", "payload": {
+        "payload": {"params": params, "payload_bytes": 0}, "round_id": 0}}
+    msg = serialize.dumps(wire)
+
+    def transfer():
+        a, b = socket.socketpair()
+        try:
+            th = threading.Thread(target=_send_msg, args=(a, msg))
+            th.start()
+            got = _recv_msg(b)
+            th.join(timeout=60)
+        finally:
+            a.close()
+            b.close()
+        require(got == msg, "a received message differs from the sent one")
+
+    def to_device():
+        out = _to_device(params, dev)
+        torch.cuda.synchronize()
+        return out
+
+    on_dev = to_device()
+    steps = {"dumps": lambda: serialize.dumps(wire),
+             "send + _recv_msg": transfer,
+             "loads": lambda: serialize.loads(msg),
+             "to device": to_device,
+             "to numpy": lambda: _to_numpy(on_dev)}
+    costs = {}
+    for name, fn in steps.items():
+        secs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            secs.append(time.perf_counter() - t0)
+        costs[name] = float(np.median(secs))
+    return costs, len(msg)
+
+
+def run_remote(repro_torch, ops, smi):
+    """Phase 4k: remote training (``start_client`` / ``start_server``, the
+    service CLI).  (a) In process: femnist_cnn, 8 client services, 4 a
+    round, 3 rounds; its final params against the ``init(); run()``
+    sequential run of the same configuration, printed against 1e-4 and
+    held within max(1e-4, 2 x that run's 1e-7-perturbed reach); K1 once a
+    round on the server; then 2 rounds under ``aggregation_topology=
+    "hierarchical"`` (4 rows pad to one group of 8: one grouped K1 a
+    round).  (b) The service topology's processes (``run_topology``).
+    (c) Round walls, transport bytes and latency a round, and the host
+    costs of one 26.4 MB message (``wire_costs``).  -> {K1 counter:
+    launches}."""
+    from repro_torch.core.config import Config
+    from repro_torch.models.small import femnist_cnn
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    rounds = 3
+    cfg = remote_config(8, 4, rounds)
+    repro_torch.reset()
+    repro_torch.init(cfg)
+    seq = repro_torch.run()
+    torch.cuda.synchronize()
+    seq_final = [t.cpu() for t in tree_leaves(seq["params"])]
+    seq_walls = [h["wall_time"] for h in seq["history"]]
+    repro_torch.reset()
+
+    used, final, hist, walls, stats = remote_run(repro_torch, ops, cfg, 8)
+    print(f"[remote] launches {used}")
+    for k, v in used.items():
+        want = rounds if k == "fedavg_agg" else 0
+        require(v == want, f"[remote] {k} launched {v} times, expected "
+                f"{want}")
+    require(len(hist) == rounds and all(
+        math.isfinite(h["train_loss"]) and math.isfinite(h["accuracy"])
+        for h in hist), f"[remote] history {hist}")
+    loss_gap = max(abs(a["train_loss"] - b["train_loss"])
+                   for a, b in zip(hist, seq["history"]))
+    require(loss_gap <= 1e-3, f"[remote] train losses {loss_gap} from the "
+            f"sequential run's")
+    diff = max_diff(final, seq_final)
+    init = femnist_cnn().init(torch.Generator().manual_seed(Config().seed))
+    gap = conditioning_gap(repro_torch, cfg, init, seq_final)
+    bar = max(1e-4, 2 * gap)
+    print(f"[remote] final params vs the sequential run: max |diff| "
+          f"{diff:.4g} ({'within' if diff <= 1e-4 else 'above'} 1e-4); the "
+          f"sequential run from 1e-7-perturbed inits moves them up to "
+          f"{gap:.4g}; bar max(1e-4, 2 x that) = {bar:.4g}; train losses "
+          f"within {loss_gap:.3g} (bar 1e-3)")
+    require(diff <= bar, f"remote vs sequential: {diff} > {bar}")
+
+    tree_used, _, tree_hist, _, _ = remote_run(
+        repro_torch, ops, remote_config(8, 4, 2, "hierarchical"), 8)
+    print(f"[remote hierarchical] launches {tree_used}")
+    for k, v in tree_used.items():
+        want = 2 if k == "fedavg_agg_tree" else 0
+        require(v == want, f"[remote hierarchical] {k} launched {v} "
+                f"times, expected {want}")
+    require(all(math.isfinite(h["accuracy"]) for h in tree_hist),
+            f"[remote hierarchical] history {tree_hist}")
+
+    # (c) figures
+    per = {k: sum(getattr(s, k) for s in stats) / rounds
+           for k in ("requests", "bytes_sent", "bytes_received",
+                     "total_latency")}
+    print(f"[remote] steady round wall s (rounds 1-2, evaluation "
+          f"included): {[round(w, 4) for w in walls[1:]]}, round 0 "
+          f"{walls[0]:.4f}; fan-out ('round_time') "
+          f"{[round(h['round_time'], 4) for h in hist]}; the sequential "
+          f"run's wall_time (evaluation excluded) "
+          f"{[round(w, 4) for w in seq_walls[1:]]}, round 0 "
+          f"{seq_walls[0]:.4f} ({smi})")
+    print(f"[remote] transport a round: {per['requests']:.0f} requests, "
+          f"{per['bytes_sent']:.0f} bytes sent, {per['bytes_received']:.0f} "
+          f"received, total_latency {per['total_latency']:.4f} s (summed "
+          f"over the clients' concurrent requests); history comm_down "
+          f"{hist[-1]['comm_down_bytes']}, comm_up {hist[-1]['comm_up_bytes']}")
+    costs, nbytes = wire_costs(
+        tree_map(lambda t: t.cpu().numpy(), seq["params"]),
+        repro_torch.get_device())
+    print(f"[remote] host costs of one {nbytes / 1e6:.1f} MB train request "
+          f"(median of 3, s): "
+          f"{ {k: round(v, 4) for k, v in costs.items()} } ({smi})")
+
+    run_topology(smi)
+    return {"fedavg_agg": used["fedavg_agg"],
+            "fedavg_agg_tree": tree_used["fedavg_agg_tree"]}
+
+
 def card_vs_cpu(repro_torch, execution, model="femnist_cnn"):
     """Phase 5 (femnist_cnn) and phase 4h's card-vs-CPU runs (the other
     models, ``M3_CPU_CUT``'s rounds and clients, evaluation off)."""
@@ -2638,8 +2984,6 @@ def glm4_2layer(published_scale=True):
     attention scores of std ~128, a hard argmax under which LoRA training
     is chaotic (flash on and off then land 5.8e-3 apart, and a
     1e-7-perturbed start moves the run 3.7e-3: PERF.md §6)."""
-    import math
-
     from repro_torch.configs import get_arch
     from repro_torch.models.llm import transformer_lm
     from repro_torch.models.small import FLModel
@@ -2694,8 +3038,6 @@ def run_lora(repro_torch, ops, flash_on, execution="batched",
     relative 1e-7-sized perturbation of the adapters' start, from that
     seed, and ``Trainer.run`` instead of ``run``) -> the final adapters and
     the launch counts."""
-    import math
-
     from repro_torch.core import api
     from repro_torch.core.rounds import Trainer
     from repro_torch.models import attention as mattn

@@ -14,8 +14,8 @@ Categories:
   initialization — ``init(configs)``
   registration   — ``register_dataset`` / ``register_model`` /
                    ``register_server`` / ``register_client``
-  execution      — ``run(callback)``; ``start_server`` / ``start_client``
-                   (remote training) are ROADMAP M10 and raise
+  execution      — ``run(callback)`` / ``start_server`` / ``start_client``
+                   (remote training over sockets, ``core/remote.py``)
 """
 from __future__ import annotations
 
@@ -243,17 +243,59 @@ def run(callback: Optional[Callable] = None) -> Dict[str, Any]:
 
 
 def start_server(args: Optional[Dict[str, Any]] = None):
-    """Remote training server (paper Example 2): ROADMAP M10."""
-    raise NotImplementedError(
-        "remote training (start_server) is not ported to repro_torch yet "
-        "(ROADMAP M10)")
+    """Start the server service for remote training (paper Example 2):
+    a :class:`repro_torch.core.remote.RemoteServer` of the registered
+    server class, its params initialized from ``cfg.seed`` on the device.
+    ``args`` are its keyword arguments (``registry``)."""
+    from repro_torch.core.remote import RemoteServer
+    if _ctx.config is None:
+        init({})
+    _refuse_compression("server")
+    args = dict(args or {})
+    server = _ctx.server_cls(_ctx.model, _ctx.config, _ctx.fed_data.test)
+    rs = RemoteServer(server, _ctx.config, tracker=_ctx.tracker, **args)
+    rs.start()
+    return rs
 
 
 def start_client(args: Optional[Dict[str, Any]] = None):
-    """Remote training client: ROADMAP M10."""
-    raise NotImplementedError(
-        "remote training (start_client) is not ported to repro_torch yet "
-        "(ROADMAP M10)")
+    """Start a client service for remote training: a
+    :class:`repro_torch.core.remote.RemoteClient` serving ``client_id``'s
+    data (or ``data``), registered with ``registry``.  Other ``args``:
+    ``host``, ``port``, ``latency``.
+
+    Raises ``ValueError`` for a built-in ``client.compression`` (``"stc"``,
+    ``"int8"``): the wire format has no encoding for compressed updates
+    (ROADMAP queue 3); the reference fails on them mid-round.
+    ``start_server`` refuses a built-in ``server.compression`` alike."""
+    from repro_torch.core.remote import RemoteClient
+    if _ctx.config is None:
+        init({})
+    _refuse_compression("client")
+    args = dict(args or {})
+    cid = args.pop("client_id", "client_0000")
+    data = args.pop("data", None)
+    if data is None:
+        data = _ctx.fed_data.clients[cid]
+    client = _ctx.client_cls(cid, _ctx.model, data, _ctx.config.client,
+                             batch_size=_ctx.config.data.batch_size)
+    rc = RemoteClient(client, **args)
+    rc.start()
+    return rc
+
+
+def _refuse_compression(section: str) -> None:
+    """Remote training sends numpy trees: a built-in compression of
+    ``section`` ("client": updates, "server": params) would put
+    ``CompressedTensor`` leaves on a wire that has no encoding for them,
+    and the reference then fails mid-round.  Raise at start instead."""
+    method = getattr(_ctx.config, section).compression
+    if method in ("stc", "int8"):
+        raise ValueError(
+            f"remote training with {section}.compression={method!r}: the "
+            f"reference's wire format has no encoding for compressed "
+            f"tensors, so they cannot be sent (ROADMAP queue 3); use "
+            f"{section}.compression='none' for remote training")
 
 
 def tracker() -> Tracker:

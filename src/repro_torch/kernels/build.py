@@ -22,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
@@ -60,6 +61,7 @@ SIGNATURES = {
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()     # one build and one load a library
 
 
 def build_dir() -> Path:
@@ -124,17 +126,22 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library ``name`` (built first if needed)."""
+    """The loaded library ``name`` (built first if needed).  Thread-safe:
+    threads that first use a library at once (the client services of
+    remote training) build and load it once."""
     lib = _LIBS.get(name)
     if lib is None:
-        path = library_path(name)
-        if not path.exists():
-            build_all([name])
-        lib = ctypes.CDLL(str(path))
-        for fn, argtypes in SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = list(argtypes)
-            getattr(lib, fn).restype = ctypes.c_int
-        _LIBS[name] = lib
+        with _LOAD_LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                path = library_path(name)
+                if not path.exists():
+                    build_all([name])
+                lib = ctypes.CDLL(str(path))
+                for fn, argtypes in SIGNATURES[name].items():
+                    getattr(lib, fn).argtypes = list(argtypes)
+                    getattr(lib, fn).restype = ctypes.c_int
+                _LIBS[name] = lib
     return lib
 
 

@@ -4,7 +4,7 @@ Three metric levels: **task** -> **rounds** -> **clients** — "a training task
 comprises metrics of rounds where a round contains metrics of clients".
 Two backends: in-memory (standalone/distributed training, *local tracking*)
 and JSONL (queryable on disk; a remote tracking service forwards metrics to
-one of these via API calls — not ported yet, ROADMAP M10).
+one of these via API calls: ``launch.service``'s tracker role).
 """
 from __future__ import annotations
 

@@ -71,21 +71,51 @@ def test_no_file_of_the_port_imports_msgpack_or_ml_dtypes(path):
 
 
 def test_entry_points_refuse_the_cpu_without_a_cuda_device():
+    """``init``, the remote entry points and the service CLI's server and
+    client roles raise without a card; its registry and tracker roles are
+    host code, run, and leave CUDA uninitialized."""
     out = _run("""
         import repro_torch, torch
+        from repro_torch.launch import service
         assert not torch.cuda.is_available()
-        for call in (lambda: repro_torch.init({"model": "linear",
-                                               "dataset": "synthetic"}),
+        cfg = {"model": "linear", "dataset": "synthetic"}
+        for call in (lambda: repro_torch.init(cfg),
                      repro_torch.get_device,
                      lambda: repro_torch.set_device("cuda")
-                     or repro_torch.get_device()):
+                     or repro_torch.get_device(),
+                     lambda: repro_torch.set_device(None)
+                     or repro_torch.start_server({}),
+                     lambda: repro_torch.start_client({}),
+                     lambda: service.main(["server", "--oneshot"]),
+                     lambda: service.main(["client", "--oneshot"])):
             try:
                 call()
             except RuntimeError as e:
                 print("RAISED", e)
             else:
                 print("RAN")
+        for role in ("registry", "tracker"):
+            service.main([role, "--oneshot"]).stop()
+        print("CUDA INITIALIZED", torch.cuda.is_initialized())
     """, CUDA_VISIBLE_DEVICES="")
     assert out.returncode == 0, out.stderr
-    assert out.stdout.count("RAISED") == 3, out.stdout
+    assert out.stdout.count("RAISED") == 7, out.stdout
+    assert "RAN" not in out.stdout, out.stdout
     assert "set_device('cpu')" in out.stdout
+    assert "registry listening on 127.0.0.1:" in out.stdout
+    assert "tracker listening on 127.0.0.1:" in out.stdout
+    assert "CUDA INITIALIZED False" in out.stdout
+
+
+def test_importing_the_deploy_package_needs_no_yaml():
+    """The card's machine has no PyYAML: only ``write_artifacts`` imports
+    it."""
+    out = _run("""
+        import sys
+        import repro_torch.deploy
+        from repro_torch.deploy import compose, dockerfile, k8s_manifests
+        compose(2), dockerfile(), k8s_manifests(2)
+        print("YAML", "yaml" in sys.modules)
+    """)
+    assert out.returncode == 0, out.stderr
+    assert "YAML False" in out.stdout, out.stdout

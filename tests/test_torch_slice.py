@@ -316,8 +316,12 @@ def test_stage_overrides_and_remote_and_resume_raise(tmp_path):
     for a, b in zip(tree_leaves(res["params"]), tree_leaves(init)):
         assert torch.equal(a, b)
     repro_torch.reset()
+    # remote training is ported (tests/test_torch_remote.py); what its wire
+    # cannot carry, a compressed tensor, raises at start
+    repro_torch.init(_merge(LINEAR, {"client": {"compression": "stc"},
+                                     "server": {"compression": "int8"}}))
     for fn in (repro_torch.start_server, repro_torch.start_client):
-        with pytest.raises(NotImplementedError, match="M10"):
+        with pytest.raises(ValueError, match="queue 3"):
             fn()
     # resume is ported: with no checkpoint to resume from it says so
     cfg = PortConfig.make(_merge(LINEAR, {"checkpoint": {
