@@ -24,6 +24,8 @@ Phases, in order; any failed check raises, so the script exits non-zero:
    (16, 6,603,710) (a tier of 2 groups of 8, then one of 8), one launch of
    2 groups of 8, and 10 rows padded to 12 in groups of 3 at D =
    1,000,003; the first tier timed beside ``einsum("gf,gfd->gd")``;
+   K2 and K3a / K3b on the federated round's largest row, glm4-9b's
+   embedding leaf as one (1, 620,756,992) row (``check_embed_row``);
 3b. print the three flash-attention kernels' resources at D = 128 as the
    runtime reads them (``cudaFuncGetAttributes``: registers, local memory
    = spills and stack, dynamic shared memory; CTAs per SM) and the count of
@@ -173,6 +175,27 @@ Phases, in order; any failed check raises, so the script exits non-zero:
    (c) the remote and sequential round walls, the transport's bytes and
    latency a round, and the host costs of one 26.4 MB message (``dumps``,
    send and receive, ``loads``, to the card and back);
+4l. (run right after 4b, while the card holds nothing else) drive LLM
+   training (``run_llm_training``): first the unembedding at
+   glm4-9b's width (B 2, S 512) as the port computed it before (a bf16
+   product cast to f32) and now (``einsum_f32``), timed and held against
+   the f32 product of the bf16 operands; then (a) ``python -m
+   repro_torch.launch.train``'s ``main`` on ``glm4-9b`` at its published
+   width (d 4096, 32 q over 2 KV heads, FFN 13696, vocab 151552; bf16
+   activations over f32 parameters) cut to 2 layers, 6 steps of 2 x 512
+   tokens, flash on, then off: finite losses, moved params, step walls,
+   tokens/s, peak memory, K6 twice a layer a step (remat recomputes the
+   forward) and K7a / K7b once; the step-1 loss flash on vs off within
+   max(1e-4, 2 x the flash-on run's reach from a 1e-7-perturbed init);
+   (b) ``qwen3-moe-30b-a3b`` (128 experts, top 8, FFN 768 an expert, 2
+   layers) 4 steps, with the aux a step and the share of assignments each
+   layer drops at capacity; (c) one step each of ``internlm2-20b`` (G 6)
+   and ``phi3-medium-14b`` (G 4); (d) the cross-pod federated round on
+   (a)'s model, 2 pods x 2 local steps of 2 x 512 tokens, SGD lr 0.05 /
+   momentum 0.9 (0 under int8_sync: its per-pod residual), flash on, 2
+   rounds each of none / stc (0.01) / int8 / int8_sync: pods bit for bit
+   equal, finite losses, K2 once a leaf a round under stc, K3a and K3b
+   under int8, round walls and peak memory;
 5. run the same port for 2 rounds of 4 clients from one set of injected
    parameters on the card and on the CPU and compare them, once per
    engine: train losses within 1e-4; parameters printed against 1e-4 and
@@ -198,6 +221,11 @@ Phases, in order; any failed check raises, so the script exits non-zero:
    distance); the reduced ``rwkv6-1.6b``
    prefill and the reduced ``rwkv6-1.6b`` and ``glm4-9b`` decode on the
    card against the CPU (1e-4);
+5d. the reduced ``glm4-9b`` and ``qwen3-moe-30b-a3b`` 3 train steps and
+   the reduced ``glm4-9b`` 2 federated rounds under stc, flash on, on the
+   card and on the CPU from the same well-conditioned params and batches:
+   params within max(1e-4, 2 x how far the card's run moves from a
+   1e-7-perturbed init);
 6. print the script's time, the kernel table as one JSON line, then the
    result line.
 
@@ -209,7 +237,9 @@ K4/K5 from phase 4d); K1-K3 also carry ``launches_sequential``, from phase
 4e, ``launches_models``, from phase 4h, and ``launches_async``, from phase
 4i, and K1-K3 and K1's tree ``launches_faults``, from phase 4g, and
 ``launches_sharded``, from phase 4j (a) and (b); K1 and K1's tree
-``launches_remote``, from phase 4k (a).
+``launches_remote``, from phase 4k (a); K6/K7 ``launches_train``, from
+phase 4l (a)-(c)'s flash-on runs, and K2/K3 ``launches_fed``, from phase
+4l (d).
 
 ``python3 chip_smoke.py --profile`` instead profiles one steady-state round
 per compression mode and engine (phases 4 and 4e), one steady round of each
@@ -342,6 +372,7 @@ def main():
 
     phase("3. kernels against their plain versions")
     kernels = check_kernels(dev, fedavg_agg, stc_topk, quant)
+    check_embed_row(dev, stc_topk, quant)
 
     phase("3b. flash-attention kernels against their plain versions")
     flash_rows = check_flash(dev, attention, build)
@@ -376,6 +407,20 @@ def main():
         row["launches"] = on["launches"][row["counter"]]
         del row["counter"]
     kernels += flash_rows
+
+    # phase 4l runs here, while the card holds nothing else: later phases
+    # keep the RWKV6 params (5.97 GiB, for 5c) and more, and the federated
+    # round needs ~64 GiB of the card's 79.18
+    phase("4l. LLM training: launch/train at full width (glm4-9b, "
+          "qwen3-moe-30b-a3b, internlm2-20b, phi3-medium-14b; 2 layers) and "
+          "the cross-pod federated round")
+    train_launches, fed_launches = run_llm_training(repro_torch, ops, dev,
+                                                    smi)
+    for row in kernels:
+        if row["name"] in train_launches:
+            row["launches_train"] = train_launches[row["name"]]
+        if row["name"] in fed_launches:
+            row["launches_fed"] = fed_launches[row["name"]]
 
     phase("4c. the RWKV6 serving path: rwkv6-1.6b at full width and depth")
     served, rwkv_params = run_rwkv6(repro_torch, ops, dev)
@@ -476,6 +521,10 @@ def main():
           "full width; reduced decode card vs CPU")
     rwkv6_agreement(rwkv_params, dev)
     del rwkv_params
+
+    phase("5d. card against CPU: reduced glm4-9b and qwen3-moe-30b-a3b "
+          "train steps, reduced glm4-9b federated rounds under stc")
+    llm_card_vs_cpu(smi)
 
     phase("6. result")
     print(f"chip_smoke.py took {time.perf_counter() - T_START:.1f} s")
@@ -1229,11 +1278,11 @@ def rwkv6_agreement(params, dev):
     with torch.no_grad():
         for li in range(seg.count):
             p = tfm._layer(params["segments"][0], li)
-            a = tfm._apply_layer(cfg, seg, p, x, positions)      # K8
+            a = tfm._apply_layer(cfg, seg, p, x, positions)[0]      # K8
             with torch.enable_grad():
-                b = tfm._apply_layer(cfg, seg, p, x, positions)  # chunked
+                b = tfm._apply_layer(cfg, seg, p, x, positions)[0]  # chunked
                 with float64_recurrence(rwkv_mod):
-                    w = tfm._apply_layer(cfg, seg, p, x, positions)
+                    w = tfm._apply_layer(cfg, seg, p, x, positions)[0]
             worst["k8"] = max(worst["k8"], scaled(a, b))
             worst["k8_f64"] = max(worst["k8_f64"], scaled(a, w))
             worst["chunked_f64"] = max(worst["chunked_f64"], scaled(b, w))
@@ -3177,6 +3226,427 @@ def lora_card_vs_cpu(repro_torch, execution="batched"):
     print(f"tiny_lm LoRA {execution} card vs CPU after 2 rounds (flash on): "
           f"max |adapter diff| {diff:.3g} (bar 1e-4)")
     require(diff <= 1e-4, f"LoRA card vs CPU adapter diff {diff} > 1e-4")
+
+
+# ---------------------------------------------------------------------------
+# Phase 4l: LLM training (launch/train and the federated round), phase 5d
+# ---------------------------------------------------------------------------
+
+LLM_CUT = ["--full", "--layers", "2", "--batch", "2", "--seq", "512"]
+LLM_TOKENS = 2 * 512                  # a step's tokens: batch x seq
+LLM_LAYERS = 2
+EMBED_ROW = 151552 * 4096             # glm4-9b's embedding leaf: 620,756,992
+
+
+def sample(params, n=4096):
+    """The first ``n`` elements of every leaf, on the host: enough to see
+    that the params moved without holding a second copy of them."""
+    from repro_torch.utils.tree import tree_leaves
+    return [t.detach().reshape(-1)[:n].float().cpu()
+            for t in tree_leaves(params)]
+
+
+def perturbed(params, seed):
+    """``params`` times 1 + 1e-7 N(0, 1) (f32 rounding's size), drawn on
+    the CPU from ``seed`` so that a card and a CPU run see the same."""
+    from repro_torch.utils.tree import tree_map
+    gen = torch.Generator().manual_seed(seed)
+    return tree_map(lambda t: t * (1 + 1e-7 * torch.randn(
+        t.shape, generator=gen)).to(t.device, t.dtype), params)
+
+
+def run_train(ops, arch, steps, flash_on, perturb=None, keep=False):
+    """``repro_torch.launch.train.main`` at ``arch``'s published width cut
+    to 2 layers (``LLM_CUT``), ``steps`` steps, flash on or off, on the
+    card.  Its train step is wrapped to synchronize and time each step and
+    to read its metrics; ``perturb``: the init times 1 + 1e-7 N(0, 1) from
+    that seed; ``keep``: keep the final params -> dict(losses, walls,
+    metrics, launches, peak GiB, first / last param samples[, params])."""
+    from repro_torch.launch import train
+    from repro_torch.models import attention as mattn
+
+    rec = {"walls": [], "metrics": []}
+    real = train.make_train_step
+
+    def make(model, opt, remat=True):
+        step = real(model, opt, remat)
+
+        def timed(state, batch):
+            if "first" not in rec:
+                if perturb is not None:
+                    state = dataclasses.replace(
+                        state, params=perturbed(state.params, perturb))
+                rec["first"] = sample(state.params)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            rec["walls"].append(time.perf_counter() - t0)
+            rec["metrics"].append({k: float(v) for k, v in metrics.items()})
+            rec["last"] = sample(state.params)
+            if keep:
+                rec["params"] = state.params
+            return state, metrics
+        return timed
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    train.make_train_step = make
+    mattn.set_flash_attention(flash_on)
+    try:
+        rec["losses"] = train.main(["--arch", arch, *LLM_CUT, "--steps",
+                                    str(steps), "--log-every", "1"])
+    finally:
+        train.make_train_step = real
+        mattn.set_flash_attention(None)
+    rec["launches"] = ops.launch_counts()
+    rec["peak"] = torch.cuda.max_memory_allocated() / 2**30
+    return rec
+
+
+def report_train(rec, arch, flash_on, smi):
+    """Print a train run's losses, step walls, tokens/s, peak memory and
+    flash launches; require finite losses, moved params and the flash
+    launches remat gives: K6 twice a layer a step (the forward, then the
+    backward's recompute), K7a and K7b once a layer a step."""
+    tag = f"[train {arch} flash {'on' if flash_on else 'off'}]"
+    steps = len(rec["losses"])
+    walls = rec["walls"]
+    steady = walls[1:] or walls
+    wall = float(np.mean(steady))
+    used = {k: rec["launches"][k] for k in ("flash_fwd", "flash_dq",
+                                            "flash_dkv")}
+    print(f"{tag} losses {[round(x, 6) for x in rec['losses']]}; step wall "
+          f"s {[round(w, 4) for w in walls]} (step 1 includes first use"
+          f"{'' if walls[1:] else '; the only step'}); steady "
+          f"{wall:.4f} s a step, {LLM_TOKENS / wall:.1f} tokens/s; peak "
+          f"device memory {rec['peak']:.2f} GiB; launches {used} ({smi})")
+    require(all(math.isfinite(x) for x in rec["losses"]),
+            f"{tag} non-finite loss {rec['losses']}")
+    require(any(not torch.equal(a, b) for a, b in zip(rec["first"],
+                                                      rec["last"])),
+            f"{tag} the params did not move")
+    want = ({"flash_fwd": 2 * LLM_LAYERS * steps,
+             "flash_dq": LLM_LAYERS * steps,
+             "flash_dkv": LLM_LAYERS * steps} if flash_on
+            else dict.fromkeys(used, 0))
+    require(used == want, f"{tag} flash launches {used}, expected {want}")
+    require(rec["peak"] < 76, f"{tag} peak device memory "
+            f"{rec['peak']:.2f} GiB")
+
+
+def unembed_timing(dev, smi):
+    """The unembedding at glm4-9b's width (B 2, S 512, d 4096, V 151,552),
+    bf16 activations over the f32 weight, as the port computed it before
+    (bf16 product, then cast) and now (``einsum_f32``: one bf16 GEMM with
+    an f32 output), each against the product of the upcast operands."""
+    from repro_torch.models.layers import einsum_f32
+
+    gen = torch.Generator(device=dev).manual_seed(99)
+    x = torch.randn((2, 512, 4096), generator=gen, device=dev).bfloat16()
+    w = torch.randn((4096, 151552), generator=gen, device=dev) * 0.02
+
+    def old():
+        return torch.einsum("bsd,dv->bsv", x, w.to(x.dtype)).to(
+            torch.float32)
+
+    def new():
+        return einsum_f32("bsd,dv->bsv", x, w.to(x.dtype))
+    want = torch.einsum("bsd,dv->bsv", x.float(), w.bfloat16().float())
+    scale = want.abs().max().item()
+    gaps = {f.__name__: (f() - want).abs().max().item() / scale
+            for f in (old, new)}
+    times = {f.__name__: cuda_ms(f) for f in (old, new, old, new)}
+    del want
+    print(f"[unembed] glm4-9b width, B 2, S 512: before (bf16 product, then "
+          f"f32) {times['old']:.4f} ms, {gaps['old']:.3g} of max |logit| "
+          f"{scale:.3g} from the f32 product of the bf16 operands; now "
+          f"(einsum_f32: one bf16 GEMM with an f32 output, aten::bmm.dtype) "
+          f"{times['new']:.4f} ms, {gaps['new']:.3g} ({smi})")
+    require(gaps["new"] <= 1e-5, f"einsum_f32 unembed {gaps['new']} > 1e-5")
+
+
+def moe_dropped(params, arch, dev):
+    """The share of (token, expert) assignments each MoE layer drops at
+    capacity in a no-grad forward of ``params`` on the run's first batch."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import synthetic_lm_batches
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.model import Model
+
+    cfg = dataclasses.replace(get_arch(arch), n_layers=LLM_LAYERS)
+    tokens = next(synthetic_lm_batches(cfg.vocab, 2, 512, 0, dev))["tokens"]
+    shares = []
+    real = moe_mod._dispatch_local
+
+    def spy(cfg, x_flat, top_w, top_ids, C):
+        buf, meta = real(cfg, x_flat, top_w, top_ids, C)
+        shares.append(1.0 - meta[-1].float().mean().item())
+        return buf, meta
+    moe_mod._dispatch_local = spy
+    try:
+        with torch.no_grad():
+            Model(cfg).forward(params, tokens)
+    finally:
+        moe_mod._dispatch_local = real
+    return shares
+
+
+def run_fed(ops, dev, smi):
+    """Phase 4l (d): the federated round on (a)'s model (glm4-9b, 2
+    layers), P 2 pods x E 2 local steps of 2 x 512 tokens, SGD lr 0.05
+    with momentum 0.9 (0 under int8_sync), flash on, 2 rounds under each
+    of none / stc (0.01) / int8 / int8_sync -> the K2 / K3 launches under
+    stc / int8."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import federated as fed
+    from repro_torch.launch.train import synthetic_lm_batches
+    from repro_torch.models import attention as mattn
+    from repro_torch.models.model import Model, init_train_state
+    from repro_torch.optim import sgd
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_arch("glm4-9b"), n_layers=LLM_LAYERS)
+    model = Model(cfg)
+    P, E, B, S = 2, 2, 2, 512
+    n_leaves = len(tree_leaves(model.defs()))
+    out = {}
+    for mode in ("none", "stc", "int8", "int8_sync"):
+        tag = f"[fed {mode}]"
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        # int8_sync carries a residual a pod (13.2 GB more): at momentum
+        # 0.9 its round peaked at 74.66 GiB (PERF.md, PR 24), so it runs
+        # at momentum 0, the first of the planned memory cuts
+        opt = sgd(0.05, momentum=0.0 if mode == "int8_sync" else 0.9)
+        state = init_train_state(model, opt, torch.Generator(
+            device=dev).manual_seed(0), dev)
+        fcfg = fed.FedRoundConfig(local_steps=E, compression=mode,
+                                  stc_sparsity=0.01)
+        f = fed.init_fed_state(state, P, fcfg)
+        first = sample(state.params)
+        del state
+        step = fed.make_fed_round_step(model, opt, fcfg, P)
+        data = synthetic_lm_batches(cfg.vocab, P * E * B, S, 0, dev)
+        walls, losses = [], []
+        ops.reset_launch_counts()
+        mattn.set_flash_attention(True)
+        try:
+            for _ in range(2):
+                batch = {"tokens": next(data)["tokens"].view(P, E, B, S)}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                f, metrics = step(f, batch)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                losses.append(metrics["local_losses"].tolist())
+        finally:
+            mattn.set_flash_attention(None)
+        used = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        leaves = tree_leaves(f.train.params)
+        synced = all(torch.equal(t[0], t[1]) for t in leaves)
+        moved = any(not torch.equal(a, b[0].reshape(-1)[:4096].float().cpu())
+                    for a, b in zip(first, leaves))
+        print(f"{tag} local losses a round {[[round(x, 6) for x in r] for r in losses]}; "
+              f"round wall s {[round(w, 4) for w in walls]} ({P * E} steps "
+              f"+ the sync; round 1 includes first use), "
+              f"{P * E * B * S / walls[-1]:.1f} tokens/s in round 2; peak "
+              f"device memory {peak:.2f} GiB (target < 70); pods bit for "
+              f"bit equal {synced}; launches "
+              f"{ {k: v for k, v in used.items() if v} } ({smi})")
+        require(all(math.isfinite(x) for r in losses for x in r),
+                f"{tag} non-finite loss {losses}")
+        require(synced, f"{tag} the pods ended unequal")
+        require(moved, f"{tag} the params did not move")
+        require(peak < 76, f"{tag} peak device memory {peak:.2f} GiB")
+        want = {"stc_batched": 2 * n_leaves if mode == "stc" else 0,
+                "int8_rowmax": 2 * n_leaves if mode == "int8" else 0,
+                "int8_qdq": 2 * n_leaves if mode == "int8" else 0,
+                "flash_fwd": 2 * P * E * 2 * LLM_LAYERS}
+        got = {k: used[k] for k in want}
+        require(got == want, f"{tag} launches {got}, expected {want}")
+        out[mode] = used
+        del f, step, leaves
+    return {k: out["stc"][k] if k == "stc_batched" else out["int8"][k]
+            for k in ("stc_batched", "int8_rowmax", "int8_qdq")}
+
+
+def run_llm_training(repro_torch, ops, dev, smi):
+    """Phase 4l -> the flash launches of (a)-(c)'s flash-on runs and the
+    K2 / K3 launches of (d)."""
+    release(repro_torch)
+    repro_torch.set_device(None)
+    print(f"[4l] device memory allocated at the start: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    unembed_timing(dev, smi)
+    train_launches = dict.fromkeys(("flash_fwd", "flash_dq", "flash_dkv"), 0)
+
+    def count(rec):
+        for k in train_launches:
+            train_launches[k] += rec["launches"][k]
+
+    # (a) glm4-9b, flash on and off, and the step-1 loss's rounding reach
+    on = run_train(ops, "glm4-9b", 6, True)
+    report_train(on, "glm4-9b", True, smi)
+    count(on)
+    off = run_train(ops, "glm4-9b", 6, False)
+    report_train(off, "glm4-9b", False, smi)
+    probe = run_train(ops, "glm4-9b", 1, True, perturb=1)
+    reach = abs(probe["losses"][0] - on["losses"][0])
+    gap = abs(on["losses"][0] - off["losses"][0])
+    bar = max(1e-4, 2 * reach)
+    print(f"[train glm4-9b] step-1 loss flash on {on['losses'][0]:.6f}, off "
+          f"{off['losses'][0]:.6f}: gap {gap:.4g}; flash on from a "
+          f"1e-7-perturbed init moves it {reach:.4g} (bf16 activations); "
+          f"bar max(1e-4, 2 x that) = {bar:.4g} ({smi})")
+    require(gap <= bar, f"[train glm4-9b] flash on vs off at step 1: {gap} "
+            f"> {bar}")
+    del on, off, probe
+    # (b) qwen3-moe-30b-a3b: 128 experts, top 8, FFN 768 an expert
+    moe = run_train(ops, "qwen3-moe-30b-a3b", 4, True, keep=True)
+    report_train(moe, "qwen3-moe-30b-a3b", True, smi)
+    count(moe)
+    shares = moe_dropped(moe.pop("params"), "qwen3-moe-30b-a3b", dev)
+    print(f"[train qwen3-moe-30b-a3b] aux a step "
+          f"{[round(m['aux'], 6) for m in moe['metrics']]}; dropped share "
+          f"of (token, expert) assignments a layer at capacity 1.25, final "
+          f"params, first batch: {[round(s, 4) for s in shares]}")
+    require(len(shares) == LLM_LAYERS and all(0 <= s < 1 for s in shares),
+            f"[train qwen3] dropped shares {shares}")
+    require(all(m["aux"] > 0 for m in moe["metrics"]),
+            "[train qwen3] aux is not positive")
+    del moe
+    # (c) one step of each other dense arch: G = 6 and G = 4
+    for arch in ("internlm2-20b", "phi3-medium-14b"):
+        rec = run_train(ops, arch, 1, True)
+        report_train(rec, arch, True, smi)
+        count(rec)
+    # (d) the cross-pod federated round
+    fed_launches = run_fed(ops, dev, smi)
+    release(repro_torch)
+    return train_launches, fed_launches
+
+
+def check_embed_row(dev, stc_topk, quant):
+    """Phase 3: K2 and K3a / K3b on the federated round's largest row,
+    glm4-9b's embedding leaf as one (1, 620,756,992) row, against their
+    plain versions (STC masks, signs and nnz bitwise, values within 1 ulp;
+    int8 bitwise), each timed once beside its plain version."""
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    x = update_rows(gen, 1, EMBED_ROW)
+    what = f"(1, {EMBED_ROW})"
+    ko, kn = stc_topk.stc_compress_batched(x, 0.01)
+    po, pn = stc_topk.stc_plain(x, 0.01)
+    torch.cuda.synchronize()
+    require(torch.equal(kn.to(pn.dtype), pn), f"stc {what}: nnz differ")
+    u = check_stc(ko, po, f"stc {what}")
+    del ko, po
+    km = quant.rowmax(x)
+    pm = quant.rowmax_plain(x)
+    require(torch.equal(km.view(torch.int32), pm.view(torch.int32)),
+            f"int8 rowmax {what}: not bitwise equal")
+    s = quant.int8_scale(pm)
+    kq, ki = quant.qdq(x, s, with_q=True)
+    pq, pi = quant.qdq_plain(x, s, with_q=True)
+    torch.cuda.synchronize()
+    require(torch.equal(kq.view(torch.int32), pq.view(torch.int32))
+            and torch.equal(ki, pi), f"int8 qdq {what}: not bitwise equal")
+    del kq, ki, pq, pi
+    ms = {"K2": cuda_ms(lambda: stc_topk.stc_compress_batched(x, 0.01),
+                        reps=5, warmup=1),
+          "K2 plain": cuda_ms(lambda: stc_topk.stc_plain(x, 0.01), reps=3,
+                              warmup=1),
+          "K3a": cuda_ms(lambda: quant.rowmax(x), reps=5, warmup=1),
+          "K3a plain": cuda_ms(lambda: quant.rowmax_plain(x), reps=3,
+                               warmup=1),
+          "K3b": cuda_ms(lambda: quant.qdq(x, s), reps=5, warmup=1),
+          "K3b plain": cuda_ms(lambda: quant.qdq_plain(x, s), reps=3,
+                               warmup=1)}
+    print(f"stc/int8 {what} (glm4-9b's embedding as one row): masks, signs "
+          f"and nnz ({int(kn[0])}) bitwise, values <= {u:.3g} ulp; rowmax "
+          f"and qdq (with its int8 q) bitwise; ms "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()))
+    del x
+
+
+def well_conditioned(model, seed):
+    """``model``'s params drawn on the CPU from ``seed`` at a
+    well-conditioned scale (matrices std 1/sqrt(d_model), vectors 0.1), as
+    ``tests/test_torch_train.py`` draws them: the default init saturates
+    the softmax and makes a few steps chaotic."""
+    from repro_torch.utils.tree import tree_flatten, tree_unflatten
+    gen = torch.Generator().manual_seed(seed)
+    defs, treedef = tree_flatten(model.defs())
+    d = model.cfg.d_model
+    out = []
+    for p in defs:
+        lead = 1 if p.axes and p.axes[0] == "layers" else 0
+        std = d ** -0.5 if len(p.shape) - lead >= 2 else 0.1
+        out.append(torch.randn(p.shape, generator=gen) * std)
+    return tree_unflatten(treedef, out)
+
+
+def llm_card_vs_cpu(smi):
+    """Phase 5d: the reduced glm4-9b and qwen3-moe-30b-a3b train 3 steps
+    (SGD lr 0.05, momentum 0.9, 2 x 32 tokens, flash on: K6/K7 on the
+    card, their plain versions on the CPU), and the reduced glm4-9b runs 2
+    federated rounds under stc (P 2, E 2), on the card and on the CPU from
+    the same params and batches; params within max(1e-4, 2 x how far the
+    card's run moves from a 1e-7-perturbed init)."""
+    import repro_torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core import federated as fed
+    from repro_torch.launch.train import synthetic_lm_batches
+    from repro_torch.models import attention as mattn
+    from repro_torch.models.model import Model, TrainState, make_train_step
+    from repro_torch.optim import sgd
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    def run(case, device, params):
+        arch, kind = case
+        cfg = get_arch(arch, reduced=True)
+        model, opt = Model(cfg), sgd(0.05, momentum=0.9)
+        p = tree_map(lambda t: t.to(device), params)
+        state = TrainState(p, opt.init(p), torch.zeros(
+            (), dtype=torch.int32, device=device))
+        if kind == "train":
+            step = make_train_step(model, opt)
+            data = synthetic_lm_batches(cfg.vocab, 2, 32, 3, device)
+            for _ in range(3):
+                state, _ = step(state, next(data))
+            return [t.cpu() for t in tree_leaves(state.params)]
+        fcfg = fed.FedRoundConfig(local_steps=2, compression="stc",
+                                  stc_sparsity=0.01)
+        f = fed.init_fed_state(state, 2, fcfg)
+        step = fed.make_fed_round_step(model, opt, fcfg, 2)
+        data = synthetic_lm_batches(cfg.vocab, 8, 32, 3, device)
+        for _ in range(2):
+            f, _ = step(f, {"tokens": next(data)["tokens"].view(2, 2, 2, 32)})
+        return [t[0].cpu() for t in tree_leaves(f.train.params)]
+
+    repro_torch.set_device(None)
+    mattn.set_flash_attention(True)
+    try:
+        for case in (("glm4-9b", "train"), ("qwen3-moe-30b-a3b", "train"),
+                     ("glm4-9b", "fed stc")):
+            params = well_conditioned(Model(get_arch(case[0], reduced=True)),
+                                      11)
+            card = run(case, "cuda", params)
+            cpu = run(case, "cpu", params)
+            reach = max_diff(run(case, "cuda", perturbed(params, 1)), card)
+            diff = max_diff(card, cpu)
+            bar = max(1e-4, 2 * reach)
+            print(f"[5d {case[0]} {case[1]}] card vs CPU: max |param diff| "
+                  f"{diff:.4g} ({'within' if diff <= 1e-4 else 'above'} "
+                  f"1e-4); the card from a 1e-7-perturbed init moves "
+                  f"{reach:.4g}; bar {bar:.4g} ({smi})")
+            require(diff <= bar, f"[5d {case}] card vs CPU {diff} > {bar}")
+    finally:
+        mattn.set_flash_attention(None)
 
 
 def profile_rounds(repro_torch):

@@ -171,11 +171,11 @@ def wkv6_model_float64(smoke, rwkv_mod):
     for li in range(seg.count):
         p = tfm._layer(params["segments"][0], li)
         with torch.no_grad():
-            a = tfm._apply_layer(cfg, seg, p, x, positions)       # K8
+            a = tfm._apply_layer(cfg, seg, p, x, positions)[0]       # K8
         with torch.enable_grad():
-            c = tfm._apply_layer(cfg, seg, p, x, positions)       # f32 exact
+            c = tfm._apply_layer(cfg, seg, p, x, positions)[0]       # f32 exact
             with smoke.float64_recurrence(rwkv_mod):
-                w = tfm._apply_layer(cfg, seg, p, x, positions)
+                w = tfm._apply_layer(cfg, seg, p, x, positions)[0]
         for key, (u, v) in {"layer_k8_vs_f64": (a, w),
                             "layer_chunked_vs_f64": (c, w),
                             "layer_k8_vs_chunked": (a, c)}.items():

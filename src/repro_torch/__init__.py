@@ -6,7 +6,10 @@ engines on hand-written CUDA kernels for FedAvg, STC and int8 compression;
 the paper's three benchmark models (``femnist_cnn``, ``shakespeare_lstm``,
 ``cifar_resnet18``) and its strategy plugins (``core.strategies``); and
 federated LoRA fine-tuning of decoder LMs (``client.finetune="lora"``)
-with hand-written flash-attention kernels behind ``REPRO_FLASH_ATTN=1``.
+with hand-written flash-attention kernels behind ``REPRO_FLASH_ATTN=1``;
+LLM training (``python -m repro_torch.launch.train``) and the cross-pod
+federated round (``repro_torch.core.federated``) on the ported
+architectures (``repro_torch.configs``).
 
     import repro_torch as easyfl
     easyfl.init({"model": "femnist_cnn", "dataset": "femnist",

@@ -2,10 +2,12 @@
 
 ``get_arch(name)`` resolves an id (dashes or underscores) to its
 ``ArchConfig``; ``get_arch(name, reduced=True)`` returns the smoke-test
-variant (<= 2 layers, d_model <= 256).  Ported: ``glm4-9b`` and
-``rwkv6-1.6b``.  The reference's other ids resolve but raise
-``NotImplementedError`` naming ROADMAP M9, the item that ports their model
-families.
+variant (<= 2 layers, d_model <= 256, <= 4 experts).  Ported: the dense
+GQA decoders ``glm4-9b``, ``internlm2-20b`` and ``phi3-medium-14b``, the
+MoE decoder ``qwen3-moe-30b-a3b`` and ``rwkv6-1.6b``.  The reference's
+other ids resolve but raise ``NotImplementedError`` naming ROADMAP M9, the
+item that ports their model families.  ``shapes`` holds the reference's
+input shapes.
 """
 from __future__ import annotations
 
@@ -26,7 +28,8 @@ ARCH_IDS = [
     "recurrentgemma_9b",
     "deepseek_v2_lite_16b",
 ]
-PORTED = ("glm4_9b", "rwkv6_1p6b")
+PORTED = ("glm4_9b", "internlm2_20b", "phi3_medium_14b",
+          "qwen3_moe_30b_a3b", "rwkv6_1p6b")
 
 # public ids use dashes
 _ALIASES = {

@@ -1,4 +1,5 @@
-"""Launch drivers of the port: ``serve`` (batched greedy decode) and
+"""Launch drivers of the port: ``train`` (the LLM train driver on
+``models.model.make_train_step``), ``serve`` (batched greedy decode) and
 ``service`` (the deployment's registry, tracker, client and server roles).
-The reference's train, dry-run and mesh drivers are not ported yet
-(ROADMAP M9)."""
+The reference's dry-run and mesh drivers are not ported yet (ROADMAP
+M9)."""

@@ -23,7 +23,9 @@ from typing import Optional
 import torch
 
 from repro_torch.core.config import ArchConfig
-from repro_torch.models.layers import ParamDef, apply_rope, zeros_init
+from repro_torch.models.layers import (
+    ParamDef, apply_rope, einsum_f32, zeros_init,
+)
 
 NEG_INF = -1e30
 
@@ -67,7 +69,7 @@ def _rms_head_norm(x, scale, eps=1e-6):
 def _plain_attention(q, k, v, mask):
     """Full-materialization attention.  q: (B, Sq, K, G, D); k, v:
     (B, Sk, K, D); mask: (Sq, Sk) bool -> (B, Sq, K, G, D)."""
-    scores = torch.einsum("bqkgd,bskd->bkgqs", q, k).to(torch.float32)
+    scores = einsum_f32("bqkgd,bskd->bkgqs", q, k)
     scores = scores * (1.0 / math.sqrt(q.shape[-1]))
     scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)

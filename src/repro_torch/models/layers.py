@@ -13,7 +13,10 @@ with one adapter per layer.  (The reference names every axis for its
 sharding rules; the port reads only this one.)
 
 The norms and RoPE compute in float32 and cast back to the input dtype, as
-the reference does (``repro.models.layers``).
+the reference does (``repro.models.layers``).  :func:`einsum_f32` is the
+reference's ``einsum(..., preferred_element_type=float32)``: a product of
+bf16 operands accumulated and returned in float32, never rounded to bf16
+on the way.
 """
 from __future__ import annotations
 
@@ -32,41 +35,46 @@ Params = Dict[str, Any]
 class ParamDef:
     shape: Tuple[int, ...]
     dtype: Any = torch.float32
-    # init: (generator, shape, dtype) -> CPU tensor
+    # init: (generator, shape, dtype) -> a tensor on the generator's device
     init: Callable = None  # default: normal / sqrt(fan_in) on the last-2 dims
     axes: Tuple[Optional[str], ...] = ()
 
 
 def _default_init(gen, shape, dtype):
     if len(shape) <= 1:
-        return torch.zeros(shape, dtype=dtype)
+        return torch.zeros(shape, dtype=dtype, device=gen.device)
     scale = 1.0 / math.sqrt(shape[-2])
-    return (torch.randn(shape, generator=gen) * scale).to(dtype)
+    return (torch.randn(shape, generator=gen, device=gen.device)
+            * scale).to(dtype)
 
 
 def normal_init(stddev: float):
     return lambda gen, shape, dtype: (
-        torch.randn(shape, generator=gen) * stddev).to(dtype)
+        torch.randn(shape, generator=gen, device=gen.device)
+        * stddev).to(dtype)
 
 
 def zeros_init(gen, shape, dtype):
-    return torch.zeros(shape, dtype=dtype)
+    return torch.zeros(shape, dtype=dtype, device=gen.device)
 
 
 def ones_init(gen, shape, dtype):
-    return torch.ones(shape, dtype=dtype)
+    return torch.ones(shape, dtype=dtype, device=gen.device)
 
 
 def uniform_init(lo: float, hi: float):
     return lambda gen, shape, dtype: (
-        torch.rand(shape, generator=gen) * (hi - lo) + lo).to(dtype)
+        torch.rand(shape, generator=gen, device=gen.device) * (hi - lo)
+        + lo).to(dtype)
 
 
 def init_params(defs, gen: torch.Generator,
                 device: Optional[torch.device] = None) -> Params:
-    """Materialize a ParamDef tree: leaves drawn in flatten order from the
-    CPU generator ``gen`` (so a seed gives the same values on any device),
-    then moved to ``device``."""
+    """Materialize a ParamDef tree: leaves drawn in flatten order from
+    ``gen`` on the generator's own device (a CPU generator gives the same
+    values on any device), then moved to ``device``.  A CUDA generator
+    draws on the card: the full-width LLM drivers draw their ~2 B
+    parameters there instead of on the host."""
     leaves, treedef = tree_flatten(defs)
     arrs = [(d.init or _default_init)(gen, d.shape, d.dtype).to(device)
             for d in leaves]
@@ -85,6 +93,92 @@ def stack_defs(defs, n: int):
         return ParamDef((n,) + tuple(pd.shape), pd.dtype, stacked_init,
                         ("layers",))
     return tree_map(stack_one, defs)
+
+
+# ---------------------------------------------------------------------------
+# Products with a float32 result
+# ---------------------------------------------------------------------------
+
+
+def _bmm_f32(eq: str, a, b):
+    """``einsum(eq, a, b)`` of two bf16 CUDA tensors as ONE batched bf16
+    GEMM with a float32 output (``aten::bmm.dtype``).  Indices in both
+    operands and the output batch the product, indices in both operands
+    only are contracted, the rest are free; each operand is permuted to
+    (batch, free, contracted) and the result back to ``eq``'s output."""
+    ins, out = eq.replace(" ", "").split("->")
+    la, lb = ins.split(",")
+    batch = [c for c in la if c in lb and c in out]
+    con = [c for c in la if c in lb and c not in out]
+    fa = [c for c in la if c not in lb]
+    fb = [c for c in lb if c not in la]
+    size = dict(zip(la, a.shape)) | dict(zip(lb, b.shape))
+
+    def n(cs):
+        return math.prod(size[c] for c in cs)
+
+    a3 = a.permute([la.index(c) for c in batch + fa + con]).reshape(
+        n(batch), n(fa), n(con))
+    b3 = b.permute([lb.index(c) for c in batch + con + fb]).reshape(
+        n(batch), n(con), n(fb))
+    c = torch.bmm(a3, b3, out_dtype=torch.float32)
+    order = batch + fa + fb
+    return c.reshape([size[x] for x in order]).permute(
+        [order.index(x) for x in out])
+
+
+def _swap(eq: str, which: int) -> str:
+    """The equation of ``eq``'s gradient with respect to operand
+    ``which``: (output, other operand) -> that operand."""
+    ins, out = eq.replace(" ", "").split("->")
+    la, lb = ins.split(",")
+    return f"{out},{lb}->{la}" if which == 0 else f"{out},{la}->{lb}"
+
+
+class _BF16ProductF32(torch.autograd.Function):
+    """bf16 x bf16 -> float32 on the card: the forward is one bf16 GEMM
+    with a float32 output; the backward (``aten::bmm.dtype`` has none) is
+    the reference's transpose of a float32-preferred product: float32
+    products of the upcast operands and the float32 cotangent, each
+    gradient rounded to its operand's dtype."""
+
+    @staticmethod
+    def forward(eq, a, b):
+        return _bmm_f32(eq, a, b)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.eq = inputs[0]
+        ctx.save_for_backward(inputs[1], inputs[2])
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[1]:
+            ga = torch.einsum(_swap(ctx.eq, 0), g, b.float()).to(a.dtype)
+        if ctx.needs_input_grad[2]:
+            gb = torch.einsum(_swap(ctx.eq, 1), g, a.float()).to(b.dtype)
+        return None, ga, gb
+
+
+def einsum_f32(eq: str, a, b):
+    """``einsum(eq, a, b)`` accumulated and returned in float32, as the
+    reference's ``preferred_element_type=jnp.float32``.
+
+    float32 operands: a plain einsum (bit for bit what the port computed
+    before).  bf16 operands on the card: one bf16 GEMM with a float32
+    output (:class:`_BF16ProductF32`).  Otherwise (the CPU, which has no
+    kernel for ``bmm.dtype``, mixed dtypes, or operands under a
+    ``torch.func`` transform): the operands upcast to float32 first, which
+    is exact, so this is the same product up to summation order."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.einsum(eq, a, b)
+    wrapped = torch._C._functorch.is_functorch_wrapped_tensor
+    if (a.is_cuda and a.dtype == b.dtype == torch.bfloat16
+            and not wrapped(a) and not wrapped(b)):
+        return _BF16ProductF32.apply(eq, a, b)
+    return torch.einsum(eq, a.to(torch.float32), b.to(torch.float32))
 
 
 # ---------------------------------------------------------------------------

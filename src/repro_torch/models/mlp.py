@@ -13,13 +13,14 @@ from repro_torch.core.config import ArchConfig
 from repro_torch.models.layers import ParamDef
 
 PORTED_ACTS = ("swiglu", "gelu")
+GATED_ACTS = ("swiglu",)      # of the ported ones: those with a gate
 
 
-def mlp_defs(cfg: ArchConfig):
-    d, ff = cfg.d_model, cfg.d_ff
+def mlp_defs(cfg: ArchConfig, d_ff: int = 0):
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
     defs = {"w_down": ParamDef((ff, d)),
             "w_up": ParamDef((d, ff))}
-    if cfg.act == "swiglu":
+    if cfg.act in GATED_ACTS:
         defs["w_gate"] = ParamDef((d, ff))
     return defs
 

@@ -68,7 +68,7 @@ def rwkv_defs(cfg: ArchConfig):
 
 def constant_like_decay(gen, shape, dtype):
     # w0 ~ log(decay rate); exp(-exp(-0.6)) ~ 0.58 initial decay
-    return torch.full(shape, -0.6, dtype=dtype)
+    return torch.full(shape, -0.6, dtype=dtype, device=gen.device)
 
 
 def _shift(x, x_prev):

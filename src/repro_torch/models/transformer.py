@@ -1,23 +1,28 @@
-"""Decoder-only stack: GQA attention + dense FFN layers, and RWKV6 layers.
+"""Decoder-only stack: GQA attention layers with a dense or MoE FFN, and
+RWKV6 layers.
 
 A model is described by ``ArchConfig.layer_pattern`` (one mixer name per
 layer).  Consecutive layers of the same (mixer, ffn) kind form a *segment*
 whose parameters are stacked on a leading "layers" axis — the reference's
 tree layout (``params["segments"][i]`` is a dict of stacked leaves), so the
 same numpy arrays load into both packages.  The reference scans a segment
-with ``jax.lax.scan``; here a Python loop runs its layers one by one, with
-no rematerialization (the reference's ``transformer_lm`` turns remat off
-too).
+with ``jax.lax.scan``; here a Python loop runs its layers one by one.
+With ``remat`` each layer runs under ``torch.utils.checkpoint`` (the
+reference's per-layer ``jax.checkpoint``): its activations are recomputed
+in the backward instead of kept.
 
-Entry points: ``forward`` (full sequence -> ``(logits, aux)``) and
-``decode_step`` (one token against the caches of ``init_cache``; it
-updates the cache tensors in place and returns the cache).
+Entry points: ``forward`` (full sequence -> ``(logits, aux)``, ``aux`` the
+MoE load-balance loss summed over layers), ``loss_fn`` (next-token
+cross-entropy plus the weighted ``aux``) and ``decode_step`` (one token
+against the caches of ``init_cache``; it updates the cache tensors in place
+and returns the cache).
 
-Ported: the ``attn`` mixer with the ``dense`` FFN (RoPE or no positional
-embedding), and the ``rwkv6`` mixer with its channel-mix; linear and ring
-attention caches and the RWKV6 recurrent state.  Other mixers (MLA, RG-LRU,
-local attention), MoE FFNs, encoders and learned positions raise
-``NotImplementedError`` naming ROADMAP M9.
+Ported: the ``attn`` mixer with the ``dense``, ``dense0`` and ``moe`` FFNs
+(RoPE or no positional embedding), and the ``rwkv6`` mixer with its
+channel-mix; linear and ring attention caches and the RWKV6 recurrent
+state.  Other mixers (MLA, RG-LRU, local attention), encoders, the VLM and
+audio families and learned positions raise ``NotImplementedError`` naming
+ROADMAP M9.
 
 **WKV6 routing.**  Inside an ``rwkv6`` layer the full-sequence recurrence
 takes the WKV6 kernel (``time_mix(..., use_kernel=True)``: the CUDA kernel
@@ -37,28 +42,31 @@ import math
 from typing import Any, Dict, List
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.config import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import kvcache as kvc
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.layers import (
-    ParamDef, apply_norm, norm_defs, normal_init, stack_defs,
+    ParamDef, apply_norm, einsum_f32, norm_defs, normal_init, stack_defs,
 )
 from repro_torch.utils.tree import tree_map
 
 @dataclasses.dataclass(frozen=True)
 class Segment:
     mixer: str          # attn, rwkv6 (ported) | local_attn | mla | rglru
-    ffn: str            # dense, rwkv (ported) | dense0 | moe
+    ffn: str            # dense | dense0 | moe | rwkv (fused channel-mix)
     count: int
 
 
 def _unported(what: str):
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP M9); ported: "
-        f"decoder-only 'attn' layers with a dense FFN and 'rwkv6' layers")
+        f"decoder-only 'attn' layers with a dense or MoE FFN and 'rwkv6' "
+        f"layers")
 
 
 def segments(cfg: ArchConfig) -> List[Segment]:
@@ -85,10 +93,17 @@ def _layer_defs(cfg: ArchConfig, seg: Segment):
         defs = rwkv_mod.rwkv_defs(cfg)
         return {"norm1": norm_defs(cfg), "time": defs["time"],
                 "norm2": norm_defs(cfg), "channel": defs["channel"]}
-    if seg.mixer != "attn" or seg.ffn != "dense":
-        raise _unported(f"a {seg.mixer!r} layer with a {seg.ffn!r} FFN")
-    return {"norm1": norm_defs(cfg), "attn": attn.attn_defs(cfg),
-            "norm2": norm_defs(cfg), "mlp": mlp_mod.mlp_defs(cfg)}
+    if seg.mixer != "attn":
+        raise _unported(f"a {seg.mixer!r} layer")
+    d = {"norm1": norm_defs(cfg), "attn": attn.attn_defs(cfg),
+         "norm2": norm_defs(cfg)}
+    if seg.ffn == "dense":
+        d["mlp"] = mlp_mod.mlp_defs(cfg)
+    elif seg.ffn == "dense0":
+        d["mlp"] = mlp_mod.mlp_defs(cfg, d_ff=cfg.moe.dense_d_ff or cfg.d_ff)
+    else:
+        d["moe"] = moe_mod.moe_defs(cfg)
+    return d
 
 
 def model_defs(cfg: ArchConfig):
@@ -108,8 +123,16 @@ def model_defs(cfg: ArchConfig):
     return defs
 
 
+def _ffn(cfg: ArchConfig, seg: Segment, p, h):
+    """The layer's FFN on the normed h -> (out, aux)."""
+    if seg.ffn == "moe":
+        return moe_mod.moe_apply(cfg, p["moe"], h)
+    return mlp_mod.mlp(cfg, p["mlp"], h), None
+
+
 def _apply_layer(cfg: ArchConfig, seg: Segment, p, x, positions):
-    """One layer over the full sequence."""
+    """One layer over the full sequence -> (x, aux); aux is None unless
+    the layer's FFN is MoE."""
     h = apply_norm(cfg, p["norm1"], x)
     if seg.mixer == "rwkv6":
         B = x.shape[0]
@@ -122,33 +145,69 @@ def _apply_layer(cfg: ArchConfig, seg: Segment, p, x, positions):
         x = x + out
         h2 = apply_norm(cfg, p["norm2"], x)
         out2, _ = rwkv_mod.channel_mix(cfg, p["channel"], h2, x_prev)
-        return x + out2
+        return x + out2, None
     out, _ = attn.gqa_attention(cfg, p["attn"], h, positions)
     x = x + out
-    h = apply_norm(cfg, p["norm2"], x)
-    return x + mlp_mod.mlp(cfg, p["mlp"], h)
+    out, aux = _ffn(cfg, seg, p, apply_norm(cfg, p["norm2"], x))
+    return x + out, aux
 
 
 def _layer(tree, i: int):
     return tree_map(lambda t: t[i], tree)
 
 
-def forward(cfg: ArchConfig, params, tokens):
+def forward(cfg: ArchConfig, params, tokens, frames=None,
+            remat: bool = False):
     """Full-sequence forward.  tokens: (B, S) int -> ``(logits (B, S, V)
-    f32, aux)``; ``aux`` (the reference's MoE loss slot) is 0."""
+    f32, aux)``; ``aux`` is the MoE load-balance loss summed over layers
+    (0 without MoE).  ``remat``: each layer under
+    ``torch.utils.checkpoint`` (non-reentrant).  ``frames`` feed the VLM
+    and audio families, which are not ported (ROADMAP M9)."""
+    if cfg.family in ("vlm", "audio") or frames is not None:
+        raise _unported(f"the {cfg.family!r} family (frames input)")
     dt = getattr(torch, cfg.dtype)
     x = params["embed"][tokens].to(dt)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    aux = torch.zeros((), device=x.device)
     for seg, seg_params in zip(segments(cfg), params["segments"]):
+        def fn(p, xx, seg=seg):
+            return _apply_layer(cfg, seg, p, xx, positions)
         for li in range(seg.count):
-            x = _apply_layer(cfg, seg, _layer(seg_params, li), x, positions)
+            p = _layer(seg_params, li)
+            if remat:
+                x, layer_aux = checkpoint(fn, p, x, use_reentrant=False)
+            else:
+                x, layer_aux = fn(p, x)
+            if layer_aux is not None:
+                aux = aux + layer_aux
     x = apply_norm(cfg, params["final_norm"], x)
-    return unembed(cfg, params, x), torch.zeros((), device=x.device)
+    return unembed(cfg, params, x), aux
 
 
 def unembed(cfg: ArchConfig, params, x):
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    return torch.einsum("bsd,dv->bsv", x, w.to(x.dtype)).to(torch.float32)
+    return einsum_f32("bsd,dv->bsv", x, w.to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def loss_fn(cfg: ArchConfig, params, batch, remat: bool = True):
+    """Next-token cross-entropy in float32, plus ``aux_loss_weight * aux``
+    for MoE.  batch: {"tokens": (B, S)} -> ``(loss, {"nll", "aux"})``."""
+    tokens = batch["tokens"]
+    logits, aux = forward(cfg, params, tokens, frames=batch.get("frames"),
+                          remat=remat)
+    # predict token t+1 from position t
+    logp = torch.log_softmax(logits[:, :-1].to(torch.float32), dim=-1)
+    labels = tokens[:, 1:].to(torch.int64)
+    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    loss = nll.mean()
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.aux_loss_weight * aux
+    return loss, {"nll": nll.mean(), "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -202,7 +261,7 @@ def _decode_attn(cfg: ArchConfig, p, h, cache, pos: int, ring: bool):
     K = cfg.n_kv_heads
     G = cfg.n_heads // K
     qg = q.reshape(B, 1, K, G, q.shape[-1])
-    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k_cache).to(torch.float32)
+    scores = einsum_f32("bqkgd,bskd->bkgqs", qg, k_cache)
     scores = scores * (1.0 / math.sqrt(q.shape[-1]))
     scores = torch.where(mask[:, None, None, None, :], scores, attn.NEG_INF)
     probs = torch.softmax(scores, dim=-1)
@@ -230,8 +289,8 @@ def _decode_layer(cfg: ArchConfig, seg: Segment, p, x, cache, pos: int,
     if seg.mixer != "attn":
         raise _unported(f"one-token decode of a {seg.mixer!r} layer")
     x = x + _decode_attn(cfg, p["attn"], h, cache, pos, ring)
-    h = apply_norm(cfg, p["norm2"], x)
-    return x + mlp_mod.mlp(cfg, p["mlp"], h)
+    out, _ = _ffn(cfg, seg, p, apply_norm(cfg, p["norm2"], x))
+    return x + out
 
 
 def decode_step(cfg: ArchConfig, params, cache, tokens, pos,

@@ -22,39 +22,43 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
+def _walk(node, leaves: List[Any]):
+    if isinstance(node, dict):
+        keys = sorted(node)
+        return ("dict", keys, [_walk(node[k], leaves) for k in keys])
+    if _is_namedtuple(node):
+        return ("namedtuple", type(node), [_walk(c, leaves) for c in node])
+    if isinstance(node, (list, tuple)):
+        return (type(node).__name__, None, [_walk(c, leaves) for c in node])
+    leaves.append(node)
+    return ("leaf", None, None)
+
+
 def tree_flatten(tree: PyTree) -> Tuple[List[Any], Any]:
-    """``(leaves, treedef)``; ``treedef`` rebuilds the structure."""
+    """``(leaves, treedef)``; ``treedef`` rebuilds the structure.
+
+    The recursion is a module-level function: a nested one that calls
+    itself is a reference cycle (the function and its own closure cell),
+    which would keep every leaf it saw alive until Python's cycle
+    collector ran — on the card, whole parameter trees a train step."""
     leaves: List[Any] = []
+    return leaves, _walk(tree, leaves)
 
-    def walk(node):
-        if isinstance(node, dict):
-            keys = sorted(node)
-            return ("dict", keys, [walk(node[k]) for k in keys])
-        if _is_namedtuple(node):
-            return ("namedtuple", type(node), [walk(c) for c in node])
-        if isinstance(node, (list, tuple)):
-            return (type(node).__name__, None, [walk(c) for c in node])
-        leaves.append(node)
-        return ("leaf", None, None)
 
-    return leaves, walk(tree)
+def _build(node, it):
+    kind, meta, children = node
+    if kind == "leaf":
+        return next(it)
+    built = [_build(c, it) for c in children]
+    if kind == "dict":
+        return dict(zip(meta, built))
+    if kind == "namedtuple":
+        return meta(*built)
+    return tuple(built) if kind == "tuple" else list(built)
 
 
 def tree_unflatten(treedef, leaves) -> PyTree:
-    it = iter(leaves)
-
-    def build(node):
-        kind, meta, children = node
-        if kind == "leaf":
-            return next(it)
-        built = [build(c) for c in children]
-        if kind == "dict":
-            return dict(zip(meta, built))
-        if kind == "namedtuple":
-            return meta(*built)
-        return tuple(built) if kind == "tuple" else list(built)
-
-    return build(treedef)
+    return _build(treedef, iter(leaves))
 
 
 def tree_leaves(tree: PyTree) -> List[Any]:
@@ -73,19 +77,19 @@ def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
     return tree_unflatten(treedef, [fn(*xs) for xs in zip(leaves, *others)])
 
 
+def _paths(node, prefix, sep, out):
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _paths(node[k], prefix + [str(k)], sep, out)
+    elif isinstance(node, (list, tuple)):
+        for i, c in enumerate(node):
+            _paths(c, prefix + [str(i)], sep, out)
+    else:
+        out.append(sep.join(prefix))
+
+
 def tree_paths(tree: PyTree, sep: str = "/") -> List[str]:
     """``sep``-joined key paths of the leaves, in flatten order."""
     out: List[str] = []
-
-    def walk(node, prefix):
-        if isinstance(node, dict):
-            for k in sorted(node):
-                walk(node[k], prefix + [str(k)])
-        elif isinstance(node, (list, tuple)):
-            for i, c in enumerate(node):
-                walk(c, prefix + [str(i)])
-        else:
-            out.append(sep.join(prefix))
-
-    walk(tree, [])
+    _paths(tree, [], sep, out)
     return out

@@ -28,10 +28,21 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         import repro_torch
         from repro_torch.core.config import Config
         from repro_torch.models import femnist_cnn
+        from repro_torch.configs import get_arch
+        from repro_torch.configs.shapes import SHAPES
+        from repro_torch.core import federated
+        from repro_torch.launch import train
+        from repro_torch.models import moe
+        from repro_torch.models.model import Model
         import torch
         repro_torch.set_device("cpu")
         femnist_cnn().init(torch.Generator().manual_seed(0))
         Config()
+        train.main(["--arch", "qwen3-moe-30b-a3b", "--steps", "1",
+                    "--batch", "1", "--seq", "8"])
+        federated.fed_input_specs(Model(get_arch("glm4-9b", reduced=True)),
+                                  SHAPES["train_4k"], 2,
+                                  federated.FedRoundConfig())
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "repro" or m.startswith("repro."))
@@ -71,12 +82,12 @@ def test_no_file_of_the_port_imports_msgpack_or_ml_dtypes(path):
 
 
 def test_entry_points_refuse_the_cpu_without_a_cuda_device():
-    """``init``, the remote entry points and the service CLI's server and
-    client roles raise without a card; its registry and tracker roles are
-    host code, run, and leave CUDA uninitialized."""
+    """``init``, the remote entry points, the train driver and the service
+    CLI's server and client roles raise without a card; its registry and
+    tracker roles are host code, run, and leave CUDA uninitialized."""
     out = _run("""
         import repro_torch, torch
-        from repro_torch.launch import service
+        from repro_torch.launch import service, train
         assert not torch.cuda.is_available()
         cfg = {"model": "linear", "dataset": "synthetic"}
         for call in (lambda: repro_torch.init(cfg),
@@ -87,7 +98,8 @@ def test_entry_points_refuse_the_cpu_without_a_cuda_device():
                      or repro_torch.start_server({}),
                      lambda: repro_torch.start_client({}),
                      lambda: service.main(["server", "--oneshot"]),
-                     lambda: service.main(["client", "--oneshot"])):
+                     lambda: service.main(["client", "--oneshot"]),
+                     lambda: train.main(["--steps", "1"])):
             try:
                 call()
             except RuntimeError as e:
@@ -99,7 +111,7 @@ def test_entry_points_refuse_the_cpu_without_a_cuda_device():
         print("CUDA INITIALIZED", torch.cuda.is_initialized())
     """, CUDA_VISIBLE_DEVICES="")
     assert out.returncode == 0, out.stderr
-    assert out.stdout.count("RAISED") == 7, out.stdout
+    assert out.stdout.count("RAISED") == 8, out.stdout
     assert "RAN" not in out.stdout, out.stdout
     assert "set_device('cpu')" in out.stdout
     assert "registry listening on 127.0.0.1:" in out.stdout

@@ -253,3 +253,18 @@ def test_lora_base_follows_the_shard_device(monkeypatch):
     first = tree_leaves(merged[0])[0]
     assert first.device.type == "meta" and merged[0] is merged[1]
     assert merged[2] is base              # the base's own device: no copy
+
+
+def test_reset_drops_the_cached_client_steps():
+    """``reset`` clears the sequential engine's cached client steps as well
+    as the round programs: a LoRA model's step closes over its frozen base
+    (6.14 GiB for the 2-layer GLM-4-9B of ``chip_smoke.py`` phase 4b,
+    which stayed on the card after the sequential LoRA run)."""
+    from repro_torch.core.batched import make_round_program
+    from repro_torch.core.local_train import make_client_step
+    from repro_torch.optim import sgd
+    make_client_step(port_tiny_lm(), sgd(0.1))
+    assert make_client_step.cache_info().currsize >= 1
+    repro_torch.reset()
+    assert make_client_step.cache_info().currsize == 0
+    assert make_round_program.cache_info().currsize == 0

@@ -53,7 +53,7 @@ from repro_torch.kernels import ops, rwkv6_scan  # noqa: E402
 from repro_torch.models import rwkv6 as port_rwkv  # noqa: E402
 from repro_torch.models import transformer as port_tfm  # noqa: E402
 from repro_torch.models.model import (  # noqa: E402
-    Model, make_prefill_step, make_train_step,
+    Model, TrainState, make_prefill_step, make_train_step,
 )
 from repro_torch.utils.tree import tree_leaves, tree_paths  # noqa: E402
 
@@ -401,8 +401,26 @@ def test_prefill_routes_through_the_wkv6_kernel_and_training_does_not(
 
 
 def test_training_entry_points_raise_naming_m9():
+    """The train step and input specs are ported (ROADMAP M9's first zoo
+    items): an RWKV6 train step runs and moves the params; what still
+    raises naming M9 is a family with a ``frames`` input (VLM, audio)."""
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.optim import sgd
     model = Model(port_arch("rwkv6-1.6b", reduced=True))
+    opt = sgd(0.1)
+    params = model.init(torch.Generator().manual_seed(0))
+    state, metrics = make_train_step(model, opt)(
+        TrainState(params, opt.init(params), torch.zeros((),
+                                                         dtype=torch.int32)),
+        {"tokens": torch.from_numpy(np.random.RandomState(1).randint(
+            0, model.cfg.vocab, (2, 16)))})
+    assert torch.isfinite(metrics["loss"]) and int(state.step) == 1
+    assert any(not torch.equal(a, b) for a, b in zip(
+        tree_leaves(params), tree_leaves(state.params)))
+    assert tuple(model.input_specs(SHAPES["train_4k"])["tokens"].shape) == \
+        (256, 4096)
+    vlm = Model(dataclasses.replace(port_arch("glm4-9b", reduced=True),
+                                    family="vlm", n_frames=4))
     with pytest.raises(NotImplementedError, match="M9"):
-        make_train_step(model, None)
-    with pytest.raises(NotImplementedError, match="M9"):
-        model.input_specs(None)
+        vlm.forward(None, torch.zeros((1, 4), dtype=torch.int64),
+                    frames=torch.zeros((1, 4, 256)))
