@@ -26,21 +26,24 @@ Phases, in order; any failed check raises, so the script exits non-zero:
    1,000,003; the first tier timed beside ``einsum("gf,gfd->gd")``;
    K2 and K3a / K3b on the federated round's largest row, glm4-9b's
    embedding leaf as one (1, 620,756,992) row (``check_embed_row``);
-3b. print the three flash-attention kernels' resources at D = 128 as the
-   runtime reads them (``cudaFuncGetAttributes``: registers, local memory
-   = spills and stack, dynamic shared memory; CTAs per SM) and the count of
-   TF32 tensor-core instructions (``HMMA``) in each one's SASS, from
-   ``cuobjdump`` where the toolkit has it (each must have some); hold the
-   kernels (forward, dQ, dK/dV) against their plain versions at the LoRA
-   path's shape (BH = 4 clients x 4 sequences x 32 heads = 512, S = 512,
-   D = 128, causal), at (3, 200, 72, causal) and (2, 130, 128, not
-   causal), and at ragged S in {1, 63, 200} x D in {20, 64}, causal and
-   not; forward within 1e-5, gradients within 1e-4 at unit-scale inputs;
-   time each next to its plain version and fp32
-   ``scaled_dot_product_attention`` (its forward for the forward kernel,
-   its backward — forward + backward minus forward — for the two backward
-   kernels); bound each on the tensor cores in 3xTF32 (the units the
-   kernels run on) and, beside it, on the fp32 CUDA cores;
+3b. print the three flash-attention kernels' resources at D = 128, 192
+   and 256 (``FLASH_DIMS``: the template instances of D <= 128 and of the
+   zoo's wider heads) as the runtime reads them
+   (``cudaFuncGetAttributes``: registers, local memory = spills and stack,
+   dynamic shared memory; CTAs per SM) and the count of TF32 tensor-core
+   instructions (``HMMA``) in each one's SASS, from ``cuobjdump`` where the
+   toolkit has it (each must have some); hold the kernels (forward, dQ,
+   dK/dV) against their plain versions at the LoRA path's shape (BH = 4
+   clients x 4 sequences x 32 heads = 512, S = 512, D = 128, causal) and at
+   (512, 512, 192 / 256, causal), at (3, 200, 72 / 160 / 200, causal) and
+   (2, 130, 128 / 192 / 256, not causal), and at ragged S in {1, 63, 200}
+   x D in {20, 64}, causal and not; forward within 1e-5, gradients within
+   1e-4 at unit-scale inputs; time each at (512, 512, D, causal) for each D
+   next to its plain version and fp32 ``scaled_dot_product_attention`` (its
+   forward for the forward kernel, its backward — forward + backward minus
+   forward — for the two backward kernels); bound each on the tensor cores
+   in 3xTF32 (the units the kernels run on) and, beside it, on the fp32
+   CUDA cores;
 3c. print the WKV6 kernel's (K8) resources at hd 64 and its ``HMMA``
    count, as phase 3b; hold it against its plain version at the
    ``rwkv6-1.6b`` prefill shape (16 x 512 tokens, 32 heads of 64) and two
@@ -196,6 +199,26 @@ Phases, in order; any failed check raises, so the script exits non-zero:
    rounds each of none / stc (0.01) / int8 / int8_sync: pods bit for bit
    equal, finite losses, K2 once a leaf a round under stc, K3a and K3b
    under int8, round walls and peak memory;
+4m. (run right after 4l) drive the rest of the model zoo at published
+   width, bf16 activations over f32 params from seed 0 on the card
+   (``ZOO``: the cuts and shapes): ``nemotron-4-340b`` (1 of 96 layers,
+   51.4 GB of params: serve only), ``paligemma-3b`` (all 18 layers, 256
+   frames ahead of the tokens), ``deepseek-v2-lite-16b`` (2 of 27 layers:
+   one dense0, one MoE of 64 experts, top 6, 2 shared), ``recurrentgemma-
+   9b`` (3 of 38 layers, one (rglru, rglru, local_attn) period, S 4096 past
+   the 2048 window) and ``whisper-small`` (nothing cut): three prefills
+   through ``make_prefill_step`` and greedy decode steps through
+   ``make_serve_step`` from position S against a zero cache (a ring of
+   2048 slots for local attention), then 4 train steps of
+   ``launch.train.main`` (its SGD, momentum 0.9; not nemotron) from a
+   well-conditioned redraw of the init (``well_conditioned_``: at the
+   default init these archs' gradients explode with depth), flash on;
+   finite logits and
+   losses, moved params, steady prefill / decode / step walls, tokens a
+   second, peak memory, the flash launches each makes (K6 at D 192 in
+   nemotron's prefill, K6/K7 at D 256 in paligemma's, at D 64 in
+   whisper's decoder; none for MLA and local attention, as in the
+   reference) and the MoE layer's dropped share at capacity 1.25;
 5. run the same port for 2 rounds of 4 clients from one set of injected
    parameters on the card and on the CPU and compare them, once per
    engine: train losses within 1e-4; parameters printed against 1e-4 and
@@ -226,6 +249,13 @@ Phases, in order; any failed check raises, so the script exits non-zero:
    card and on the CPU from the same well-conditioned params and batches:
    params within max(1e-4, 2 x how far the card's run moves from a
    1e-7-perturbed init);
+5e. the reduced ``nemotron-4-340b``, ``paligemma-3b``,
+   ``deepseek-v2-lite-16b``, ``recurrentgemma-9b`` (2 layers, and 3 with
+   local attention over 80 tokens) and ``whisper-small`` (a random
+   ``enc_kv``) on the card and on the CPU from the same well-conditioned
+   params and inputs, flash on: forward logits, 8 stepwise decode steps
+   and one train step's params within max(1e-4, 2 x how far the card's
+   run moves from a 1e-7-perturbed init);
 6. print the script's time, the kernel table as one JSON line, then the
    result line.
 
@@ -238,8 +268,13 @@ K4/K5 from phase 4d); K1-K3 also carry ``launches_sequential``, from phase
 4i, and K1-K3 and K1's tree ``launches_faults``, from phase 4g, and
 ``launches_sharded``, from phase 4j (a) and (b); K1 and K1's tree
 ``launches_remote``, from phase 4k (a); K6/K7 ``launches_train``, from
-phase 4l (a)-(c)'s flash-on runs, and K2/K3 ``launches_fed``, from phase
-4l (d).
+phase 4l (a)-(c)'s flash-on runs, and ``launches_zoo``, from phase 4m's
+whisper-small, and K2/K3 ``launches_fed``, from phase 4l (d).  K6/K7 have
+a row a template instance: ``flash_fwd`` / ``flash_dq`` / ``flash_dkv``
+(D <= 128) and ``flash_fwd_d192`` (launches: phase 4m's nemotron-4-340b
+prefill), ``flash_*_d256`` (phase 4m's paligemma-3b); K7 at D 192 has no
+main path on one card (nemotron cannot train there), so its phase 3b
+measurements sit in the D 128 rows under ``"d192"``.
 
 ``python3 chip_smoke.py --profile`` instead profiles one steady-state round
 per compression mode and engine (phases 4 and 4e), one steady round of each
@@ -403,10 +438,9 @@ def main():
           f"(bar 1e-4)")
     require(diff <= 1e-4, f"flash on vs off adapters differ by {diff}")
     lora_engines(repro_torch, ops, on, smi)
-    for row in flash_rows:
-        row["launches"] = on["launches"][row["counter"]]
-        del row["counter"]
-    kernels += flash_rows
+    for row in flash_rows:      # the D 128 instances: the LoRA path's
+        if row["head_dim"] == 128:
+            row["launches"] = on["launches"][row["counter"]]
 
     # phase 4l runs here, while the card holds nothing else: later phases
     # keep the RWKV6 params (5.97 GiB, for 5c) and more, and the federated
@@ -416,11 +450,38 @@ def main():
           "the cross-pod federated round")
     train_launches, fed_launches = run_llm_training(repro_torch, ops, dev,
                                                     smi)
-    for row in kernels:
+    for row in kernels + flash_rows:
         if row["name"] in train_launches:
             row["launches_train"] = train_launches[row["name"]]
         if row["name"] in fed_launches:
             row["launches_fed"] = fed_launches[row["name"]]
+
+    phase("4m. the rest of the model zoo at published width: "
+          "nemotron-4-340b (1 layer, serve), paligemma-3b, "
+          "deepseek-v2-lite-16b (2 layers), recurrentgemma-9b (3 layers), "
+          "whisper-small: prefill, decode, train")
+    zoo = run_zoo(repro_torch, ops, dev, smi)
+    for row in flash_rows:
+        # D 192 and 256: their zoo runs are their main path (nemotron's
+        # prefill, paligemma's prefill and train steps); D 128 (the DP 64
+        # instance): whisper's decoder
+        used = zoo[row["head_dim"]][row["counter"]]
+        if row["head_dim"] == 128:
+            row["launches_zoo"] = used
+        else:
+            row["launches"] = used
+        del row["counter"]
+    # K7 at D 192 has no main path on one card (nemotron-4-340b cannot
+    # train at its width there: params and grads alone exceed 80 GB); its
+    # phase 3b row goes into its kernel's D 128 row as "d192"
+    for name in ("flash_dq", "flash_dkv"):
+        row = next(r for r in flash_rows if r["name"] == f"{name}_d192")
+        flash_rows.remove(row)
+        next(r for r in flash_rows if r["name"] == name)["d192"] = row
+    require(all(r["launches"] > 0 for r in flash_rows),
+            f"a flash instance was not launched on its main path: "
+            f"{[(r['name'], r['launches']) for r in flash_rows]}")
+    kernels += flash_rows
 
     phase("4c. the RWKV6 serving path: rwkv6-1.6b at full width and depth")
     served, rwkv_params = run_rwkv6(repro_torch, ops, dev)
@@ -526,6 +587,11 @@ def main():
           "train steps, reduced glm4-9b federated rounds under stc")
     llm_card_vs_cpu(smi)
 
+    phase("5e. card against CPU: the reduced zoo (nemotron-4-340b, "
+          "paligemma-3b, deepseek-v2-lite-16b, recurrentgemma-9b at 2 and 3 "
+          "layers, whisper-small): forward, decode, a train step")
+    zoo_card_vs_cpu(smi)
+
     phase("6. result")
     print(f"chip_smoke.py took {time.perf_counter() - T_START:.1f} s")
     print(smi)
@@ -595,27 +661,43 @@ def print_resources(name, r, what):
           f"{r['ctas_per_sm']} CTAs per SM")
 
 
+#: head dims of the flash kernels' template instances: 128 (D 65-128, the
+#: LoRA and GLM-4 paths), 192 (Nemotron-4) and 256 (PaliGemma,
+#: RecurrentGemma); phase 3b reports and times each
+FLASH_DIMS = (128, 192, 256)
+
+
 def flash_build_report(attention, build):
-    """Print the three flash kernels' resources at D = 128 and the TF32
-    tensor-core instructions (``HMMA``) in each one's SASS;
-    -> {kernel: resources and HMMA count}."""
-    info = attention.kernel_info(128)
-    for name, r in info.items():
-        print_resources(name, r, "D 128")
+    """Print the three flash kernels' resources at each of ``FLASH_DIMS``
+    and the TF32 tensor-core instructions (``HMMA``) in each one's SASS;
+    -> {d: {kernel: resources and HMMA count}}."""
+    info = {d: attention.kernel_info(d) for d in FLASH_DIMS}
+    for d in FLASH_DIMS:
+        for name, r in info[d].items():
+            print_resources(name, r, f"D {d}")
     counts = hmma_counts(build, "flash_attn", "flash_(?:fwd|dq|dkv)_kernel")
     if counts is None:
         print("HMMA count: not available (no cuobjdump in the toolkit)")
         return info
-    for name in info:
-        n = counts.get(f"{name}_kernel<128>", 0)
-        require(n > 0, f"{name}: no tensor-core instruction in its SASS")
-        info[name]["hmma"] = n
+    for d in FLASH_DIMS:
+        for name in info[d]:
+            n = counts.get(f"{name}_kernel<{d}>", 0)
+            require(n > 0, f"{name} at D {d}: no tensor-core instruction in "
+                    f"its SASS")
+            info[d][name]["hmma"] = n
     return info
+
+
+def flash_row_name(name, d):
+    """The kernel line's name of one template instance: the D 128 instance
+    keeps the kernel's name, the others carry their head dim."""
+    return name if d == 128 else f"{name}_d{d}"
 
 
 def check_flash(dev, attention, build):
     """K6/K7a/K7b: their resources, then held against their plain
-    versions, then timed at the LoRA path's shape."""
+    versions, then timed at the LoRA path's shape, (512, 512, D, causal)
+    for each D of ``FLASH_DIMS``.  -> one row a kernel and head dim."""
     resources = flash_build_report(attention, build)
     gen = torch.Generator(device=dev).manual_seed(4321)
 
@@ -623,11 +705,13 @@ def check_flash(dev, attention, build):
         return [torch.randn((bh, s, d), generator=gen, device=dev)
                 for _ in range(4)]
 
-    main = (512, 512, 128, True)
-    cases = [main, (3, 200, 72, True), (2, 130, 128, False)] + [
+    mains = [(512, 512, d, True) for d in FLASH_DIMS]
+    cases = mains + [(3, 200, 72, True), (2, 130, 128, False),
+                     (3, 200, 160, True), (2, 130, 192, False),
+                     (3, 200, 200, True), (2, 130, 256, False)] + [
         (3, s, d, c) for s in (1, 63, 200) for d in (20, 64)
         for c in (True, False)]
-    errs = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
+    errs = {}
     for bh, s, d, causal in cases:
         q, k, v, do = qkv(bh, s, d)
         o, lse = attention.flash_fwd(q, k, v, causal)
@@ -648,44 +732,49 @@ def check_flash(dev, attention, build):
         require(e["flash_fwd"] <= 1e-5, f"flash_fwd err {e['flash_fwd']}")
         require(e["flash_dq"] <= 1e-4, f"flash_dq err {e['flash_dq']}")
         require(e["flash_dkv"] <= 1e-4, f"flash_dkv err {e['flash_dkv']}")
-        for n in errs:
-            errs[n] = max(errs[n], e[n])
+        dp = next(x for x in FLASH_DIMS if d <= x)   # the template instance
+        for n, x in e.items():
+            key = flash_row_name(n, dp)
+            errs[key] = max(errs.get(key, 0.0), x)
 
-    bh, s, d, causal = main
-    q, k, v, do = qkv(bh, s, d)
-    o, lse = attention.flash_fwd(q, k, v, causal)
-    delta = (do * o).sum(dim=-1)
-    sdpa_f, sdpa_b = sdpa_ms(q, k, v, do)
-    timed = {
-        "flash_fwd": (lambda: attention.flash_fwd(q, k, v, causal),
-                      lambda: attention.flash_fwd_plain(q, k, v, causal),
-                      sdpa_f, "src/repro/kernels/attention.py:60"),
-        "flash_dq": (
-            lambda: attention.flash_dq(q, k, v, do, lse, delta, causal),
-            lambda: attention.flash_dq_plain(q, k, v, do, lse, delta, causal),
-            sdpa_b, "src/repro/kernels/attention.py:151"),
-        "flash_dkv": (
-            lambda: attention.flash_dkv(q, k, v, do, lse, delta, causal),
-            lambda: attention.flash_dkv_plain(q, k, v, do, lse, delta,
-                                              causal),
-            sdpa_b, "src/repro/kernels/attention.py:176"),
-    }
     rows = []
-    for name, (kern, plain, lib_ms, replaces) in timed.items():
-        (b, by), (b_cc, by_cc) = flash_bound(bh, s, d, causal, name)
-        rows.append(dict(
-            name=name, counter=name, route="cuda",
-            source="src/repro_torch/kernels/csrc/flash_attn.cu",
-            replaces=replaces, shape=[bh, s, d], max_abs_err=errs[name],
-            ms=cuda_ms(kern), plain_ms=cuda_ms(plain), bound_ms=b,
-            bound_by=by, library_ms=lib_ms,
-            **resources[name]))
-        r = rows[-1]
-        print(f"{name:12s} {r['shape']} causal: kernel {r['ms']:.4f} ms, "
-              f"plain {r['plain_ms']:.4f} ms, sdpa {lib_ms:.4f} ms "
-              f"({'forward' if name == 'flash_fwd' else 'backward, dq+dk+dv'}"
-              f"), bound {b:.4f} ms ({by}, 3xTF32 tensor cores; {b_cc:.4f} "
-              f"ms ({by_cc}) on the fp32 CUDA cores)")
+    for bh, s, d, causal in mains:
+        q, k, v, do = qkv(bh, s, d)
+        o, lse = attention.flash_fwd(q, k, v, causal)
+        delta = (do * o).sum(dim=-1)
+        sdpa_f, sdpa_b = sdpa_ms(q, k, v, do)
+        timed = {
+            "flash_fwd": (lambda: attention.flash_fwd(q, k, v, causal),
+                          lambda: attention.flash_fwd_plain(q, k, v, causal),
+                          sdpa_f, "src/repro/kernels/attention.py:60"),
+            "flash_dq": (
+                lambda: attention.flash_dq(q, k, v, do, lse, delta, causal),
+                lambda: attention.flash_dq_plain(q, k, v, do, lse, delta,
+                                                 causal),
+                sdpa_b, "src/repro/kernels/attention.py:151"),
+            "flash_dkv": (
+                lambda: attention.flash_dkv(q, k, v, do, lse, delta, causal),
+                lambda: attention.flash_dkv_plain(q, k, v, do, lse, delta,
+                                                  causal),
+                sdpa_b, "src/repro/kernels/attention.py:176"),
+        }
+        for name, (kern, plain, lib_ms, replaces) in timed.items():
+            (b, by), (b_cc, by_cc) = flash_bound(bh, s, d, causal, name)
+            key = flash_row_name(name, d)
+            rows.append(dict(
+                name=key, counter=name, head_dim=d, route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attn.cu",
+                replaces=replaces, shape=[bh, s, d], max_abs_err=errs[key],
+                ms=cuda_ms(kern), plain_ms=cuda_ms(plain), bound_ms=b,
+                bound_by=by, library_ms=lib_ms,
+                **resources[d][name]))
+            r = rows[-1]
+            print(f"{key:16s} {r['shape']} causal: kernel {r['ms']:.4f} ms, "
+                  f"plain {r['plain_ms']:.4f} ms, sdpa {lib_ms:.4f} ms "
+                  f"({'forward' if name == 'flash_fwd' else 'backward, dq+dk+dv'}"
+                  f"), bound {b:.4f} ms ({by}, 3xTF32 tensor cores; "
+                  f"{b_cc:.4f} ms ({by_cc}) on the fp32 CUDA cores)")
+        del q, k, v, do, o, lse, delta
     return rows
 
 
@@ -3255,13 +3344,16 @@ def perturbed(params, seed):
         t.shape, generator=gen)).to(t.device, t.dtype), params)
 
 
-def run_train(ops, arch, steps, flash_on, perturb=None, keep=False):
+def run_train(ops, arch, steps, flash_on, perturb=None, keep=False,
+              cut=None, redraw=None):
     """``repro_torch.launch.train.main`` at ``arch``'s published width cut
-    to 2 layers (``LLM_CUT``), ``steps`` steps, flash on or off, on the
+    to 2 layers (``LLM_CUT``, or ``cut``), ``steps`` steps, flash on or off, on the
     card.  Its train step is wrapped to synchronize and time each step and
     to read its metrics; ``perturb``: the init times 1 + 1e-7 N(0, 1) from
-    that seed; ``keep``: keep the final params -> dict(losses, walls,
-    metrics, launches, peak GiB, first / last param samples[, params])."""
+    that seed; ``redraw``: ``redraw(model, params)`` redraws the init in
+    place before the first step; ``keep``: keep the final params ->
+    dict(losses, walls, metrics, launches, peak GiB, first / last param
+    samples[, params])."""
     from repro_torch.launch import train
     from repro_torch.models import attention as mattn
 
@@ -3273,6 +3365,8 @@ def run_train(ops, arch, steps, flash_on, perturb=None, keep=False):
 
         def timed(state, batch):
             if "first" not in rec:
+                if redraw is not None:
+                    redraw(model, state.params)
                 if perturb is not None:
                     state = dataclasses.replace(
                         state, params=perturbed(state.params, perturb))
@@ -3296,8 +3390,9 @@ def run_train(ops, arch, steps, flash_on, perturb=None, keep=False):
     train.make_train_step = make
     mattn.set_flash_attention(flash_on)
     try:
-        rec["losses"] = train.main(["--arch", arch, *LLM_CUT, "--steps",
-                                    str(steps), "--log-every", "1"])
+        rec["losses"] = train.main(["--arch", arch, *(cut or LLM_CUT),
+                                    "--steps", str(steps), "--log-every",
+                                    "1"])
     finally:
         train.make_train_step = real
         mattn.set_flash_attention(None)
@@ -3368,16 +3463,17 @@ def unembed_timing(dev, smi):
     require(gaps["new"] <= 1e-5, f"einsum_f32 unembed {gaps['new']} > 1e-5")
 
 
-def moe_dropped(params, arch, dev):
+def moe_dropped(params, arch, dev, layers=LLM_LAYERS, shape=(2, 512)):
     """The share of (token, expert) assignments each MoE layer drops at
-    capacity in a no-grad forward of ``params`` on the run's first batch."""
+    capacity in a no-grad forward of ``params`` (``arch`` at ``layers``
+    layers) on the run's first batch of ``shape``."""
     from repro_torch.configs import get_arch
     from repro_torch.launch.train import synthetic_lm_batches
     from repro_torch.models import moe as moe_mod
     from repro_torch.models.model import Model
 
-    cfg = dataclasses.replace(get_arch(arch), n_layers=LLM_LAYERS)
-    tokens = next(synthetic_lm_batches(cfg.vocab, 2, 512, 0, dev))["tokens"]
+    cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
+    tokens = next(synthetic_lm_batches(cfg.vocab, *shape, 0, dev))["tokens"]
     shares = []
     real = moe_mod._dispatch_local
 
@@ -3645,6 +3741,288 @@ def llm_card_vs_cpu(smi):
                   f"1e-4); the card from a 1e-7-perturbed init moves "
                   f"{reach:.4g}; bar {bar:.4g} ({smi})")
             require(diff <= bar, f"[5d {case}] card vs CPU {diff} > {bar}")
+    finally:
+        mattn.set_flash_attention(None)
+
+
+# ---------------------------------------------------------------------------
+# Phase 4m: the rest of the model zoo at published width, phase 5e
+# ---------------------------------------------------------------------------
+
+#: phase 4m: arch -> (layers (None: all), serve batch, serve length, decode
+#: steps, train (batch, seq) or None); the cuts are listed in PERF.md §4
+ZOO = {
+    # 96 -> 1 layer: 51.4 GB of f32 params; training (params + grads >
+    # 100 GB) does not fit one card
+    "nemotron-4-340b": (1, 1, 1024, 4, None),
+    # all 18 layers; 256 frames ahead of 256 text tokens
+    "paligemma-3b": (None, 2, 256, 8, (2, 256)),
+    # 27 -> 2 layers: one dense0, one MoE (64 experts, top 6, 2 shared)
+    "deepseek-v2-lite-16b": (2, 2, 512, 8, (2, 512)),
+    # 38 -> 3 layers: one period (rglru, rglru, local_attn); S 4096 is
+    # past the 2048 window
+    "recurrentgemma-9b": (3, 1, 4096, 8, (1, 4096)),
+    # nothing cut: 12 + 12 layers, 1500 frames; 448 decoder tokens
+    "whisper-small": (None, 4, 448, 8, (4, 448)),
+}
+ZOO_HEAD_DIM = {"nemotron-4-340b": 192, "paligemma-3b": 256,
+                "whisper-small": 128}   # the flash instance each runs
+
+
+def zoo_cfg(arch):
+    from repro_torch.configs import get_arch
+    layers = ZOO[arch][0]
+    cfg = get_arch(arch)
+    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+
+def flash_layers(cfg):
+    """Layers whose attention the flash kernels take: global causal
+    attention with v's head dim equal to q's (not MLA, not windowed, not
+    the encoder's bidirectional or the cross attention)."""
+    return sum(1 for m in cfg.layer_pattern if m == "attn")
+
+
+def zoo_inputs(cfg, B, S, gen, dev):
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                     device=dev)}
+    if cfg.family in ("vlm", "audio"):
+        batch["frames"] = torch.randn((B, cfg.n_frames, cfg.d_model),
+                                      generator=gen, device=dev).bfloat16()
+    return batch
+
+
+def serve_zoo(ops, arch, dev, smi):
+    """Phase 4m's serving half of ``arch``: params from seed 0 on the card,
+    three prefills (``make_prefill_step``, flash on; the first carries first
+    use), then greedy decode steps (``make_serve_step``) from position S on,
+    against a zero cache of S + steps (RecurrentGemma's local attention: a
+    ring of 2048 slots, past its wrap) -> (flash launches, peak GiB)."""
+    from repro_torch.models import attention as mattn
+    from repro_torch.models.model import (
+        Model, make_prefill_step, make_serve_step,
+    )
+    from repro_torch.utils.tree import tree_leaves
+
+    _, B, S, steps, _ = ZOO[arch]
+    cfg = zoo_cfg(arch)
+    model = Model(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(gen, dev)
+    batch = zoo_inputs(cfg, B, S, gen, dev)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    prefill, serve = make_prefill_step(model), make_serve_step(model)
+    ops.reset_launch_counts()
+    mattn.set_flash_attention(True)
+    try:
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = prefill(params, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        positions = S + (cfg.n_frames if cfg.family == "vlm" else 0)
+        require(tuple(logits.shape) == (B, positions, cfg.vocab)
+                and bool(torch.isfinite(logits).all()),
+                f"[4m {arch}] prefill logits {tuple(logits.shape)} finite "
+                f"{bool(torch.isfinite(logits).all())}")
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        del logits
+        cache = model.init_cache(B, S + steps, device=dev)
+        dwalls = []
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = serve(params, cache, tok, S + i)
+            tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+            torch.cuda.synchronize()
+            dwalls.append(time.perf_counter() - t0)
+            require(bool(torch.isfinite(lg).all()),
+                    f"[4m {arch}] decode step {i} logits not finite")
+    finally:
+        mattn.set_flash_attention(None)
+    used = {k: ops.launch_counts()[k] for k in ("flash_fwd", "flash_dq",
+                                                "flash_dkv")}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {"flash_fwd": 3 * flash_layers(cfg), "flash_dq": 0,
+            "flash_dkv": 0}
+    require(used == want, f"[4m {arch}] serve launches {used}, expected "
+            f"{want}")
+    pre, dec = float(np.mean(walls[1:])), float(np.mean(dwalls[1:]))
+    print(f"[4m {arch} serve] {cfg.n_layers} layers, {n_params / 1e9:.3f} B "
+          f"params; prefill B {B} x {positions} positions: walls ms "
+          f"{[round(w * 1e3, 3) for w in walls]}, steady {pre * 1e3:.3f} ms "
+          f"({B * positions / pre:.1f} tokens/s); decode from position {S}: "
+          f"step ms {[round(w * 1e3, 3) for w in dwalls]}, steady "
+          f"{dec * 1e3:.3f} ms a step ({B / dec:.1f} tokens/s); peak "
+          f"{peak:.2f} GiB; launches {used} ({smi})")
+    require(peak < 76, f"[4m {arch}] serve peak {peak:.2f} GiB")
+    del params, cache, batch
+    return used, peak
+
+
+def train_zoo(ops, arch, smi, steps=4):
+    """Phase 4m's training half of ``arch``: ``launch.train.main`` at its
+    published width (``--full``, the layer cut of ``ZOO``), ``steps``
+    SGD steps, flash on (``run_train``) -> (flash launches, the run's
+    record: its final params for the MoE's drop share)."""
+    layers, _, _, _, (B, S) = ZOO[arch]
+    cfg = zoo_cfg(arch)
+    cut = ["--full", "--batch", str(B), "--seq", str(S)]
+    if layers:
+        cut += ["--layers", str(layers)]
+    rec = run_train(ops, arch, steps, True, keep=cfg.moe is not None,
+                    cut=cut, redraw=well_conditioned_)
+    positions = B * (S + (cfg.n_frames if cfg.family == "vlm" else 0))
+    walls = rec["walls"]
+    wall = float(np.mean(walls[1:]))
+    used = {k: rec["launches"][k] for k in ("flash_fwd", "flash_dq",
+                                            "flash_dkv")}
+    n = flash_layers(cfg)
+    want = {"flash_fwd": 2 * n * steps, "flash_dq": n * steps,
+            "flash_dkv": n * steps}
+    tag = f"[4m {arch} train]"
+    print(f"{tag} losses {[round(x, 6) for x in rec['losses']]}; step wall "
+          f"s {[round(w, 4) for w in walls]} (step 1 includes first use); "
+          f"steady {wall:.4f} s a step, {positions / wall:.1f} positions/s "
+          f"(B {B} x {positions // B}); peak {rec['peak']:.2f} GiB; launches "
+          f"{used} ({smi})")
+    require(all(math.isfinite(x) for x in rec["losses"]),
+            f"{tag} non-finite loss {rec['losses']}")
+    require(any(not torch.equal(a, b) for a, b in zip(rec["first"],
+                                                      rec["last"])),
+            f"{tag} the params did not move")
+    require(used == want, f"{tag} flash launches {used}, expected {want}")
+    require(rec["peak"] < 76, f"{tag} peak {rec['peak']:.2f} GiB")
+    return used, rec
+
+
+def well_conditioned_(model, params, seed=0):
+    """Redraw ``params`` in place on their device at a well-conditioned
+    scale, as ``well_conditioned`` draws on the CPU (matrices std
+    1/sqrt(d_model), vectors 0.1).  At the default init the projections'
+    fan-in is the head count, the attention saturates and the trained zoo
+    archs' gradients grow by orders of magnitude with depth (most in
+    whisper-small's encoder): launch.train's SGD reached NaN by its second
+    step."""
+    from repro_torch.utils.tree import tree_leaves
+    gen = torch.Generator(device=tree_leaves(params)[0].device)
+    gen.manual_seed(seed)
+    d = model.cfg.d_model
+    with torch.no_grad():
+        for pd, t in zip(tree_leaves(model.defs()), tree_leaves(params)):
+            lead = 1 if pd.axes and pd.axes[0] == "layers" else 0
+            std = d ** -0.5 if len(pd.shape) - lead >= 2 else 0.1
+            t.normal_(0.0, std, generator=gen)
+
+
+def run_zoo(repro_torch, ops, dev, smi):
+    """Phase 4m -> {head dim of the flash instance: flash launches of the
+    arch that runs it}: 192 nemotron's, 256 paligemma's, 128 (D <= 128)
+    whisper's."""
+    release(repro_torch)
+    repro_torch.set_device(None)
+    out = {d: dict.fromkeys(("flash_fwd", "flash_dq", "flash_dkv"), 0)
+           for d in FLASH_DIMS}
+    for arch, spec in ZOO.items():
+        used, _ = serve_zoo(ops, arch, dev, smi)
+        if spec[4] is not None:
+            tused, rec = train_zoo(ops, arch, smi)
+            used = {k: used[k] + tused[k] for k in used}
+            if "params" in rec:
+                shares = moe_dropped(rec.pop("params"), arch, dev,
+                                     zoo_cfg(arch).n_layers, spec[4])
+                print(f"[4m {arch}] dropped share of (token, expert) "
+                      f"assignments a MoE layer at capacity 1.25, final "
+                      f"params, first batch: {[round(x, 4) for x in shares]}")
+                require(len(shares) == 1 and all(0 <= x < 1 for x in shares),
+                        f"[4m {arch}] dropped shares {shares}")
+            del rec
+        if arch in ZOO_HEAD_DIM:
+            out[ZOO_HEAD_DIM[arch]] = used
+        gc.collect()
+        torch.cuda.empty_cache()
+    release(repro_torch)
+    return out
+
+
+def zoo_card_vs_cpu(smi, card="cuda"):
+    """Phase 5e: each new arch at ``reduced()`` size (f32; RecurrentGemma
+    also at 3 layers, with its window 64 and a sequence of 80, so that
+    ``local_attn`` is present and banded), flash on, from the same
+    well-conditioned params and inputs on the card and on the CPU: the
+    forward's logits, 8 stepwise decode steps' logits (cache 16; Whisper's
+    ``enc_kv`` random) and one SGD-momentum train step's params, each
+    within max(1e-4, 2 x how far the card's run moves from a
+    1e-7-perturbed init)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import attention as mattn
+    from repro_torch.models.model import (
+        Model, TrainState, make_prefill_step, make_serve_step,
+        make_train_step,
+    )
+    from repro_torch.optim import sgd
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    def run(cfg, device, params, inputs, enc_kv):
+        model, opt = Model(cfg), sgd(0.05, momentum=0.9)
+        p = tree_map(lambda t: t.to(device), params)
+        batch = {k: v.to(device) for k, v in inputs.items()}
+        logits = make_prefill_step(model)(p, batch)
+        cache = model.init_cache(2, 16, device=device)
+        if enc_kv is not None:
+            cache["enc_kv"] = {k: v.to(device) for k, v in enc_kv.items()}
+        serve, steps = make_serve_step(model), []
+        for t in range(8):
+            lg, cache = serve(p, cache, batch["tokens"][:, t:t + 1], t)
+            steps.append(lg)
+        state = TrainState(p, opt.init(p), torch.zeros((), dtype=torch.int32,
+                                                       device=device))
+        state, _ = make_train_step(model, opt)(state, batch)
+        return {"forward": [logits.cpu()],
+                "decode": [torch.cat(steps, 1).cpu()],
+                "train": [t.cpu() for t in tree_leaves(state.params)]}
+
+    mattn.set_flash_attention(True)
+    try:
+        for arch, layers in (("nemotron-4-340b", 0), ("paligemma-3b", 0),
+                             ("deepseek-v2-lite-16b", 0),
+                             ("recurrentgemma-9b", 0),
+                             ("recurrentgemma-9b", 3), ("whisper-small", 0)):
+            cfg = get_arch(arch, reduced=True)
+            if layers:
+                cfg = dataclasses.replace(cfg, n_layers=layers)
+            params = well_conditioned(Model(cfg), 11)
+            gen = torch.Generator().manual_seed(12)
+            S = 80 if layers else 24
+            inputs = {"tokens": torch.randint(0, cfg.vocab, (2, S),
+                                              generator=gen)}
+            if cfg.family in ("vlm", "audio"):
+                inputs["frames"] = torch.randn((2, cfg.n_frames, cfg.d_model),
+                                               generator=gen)
+            enc_kv = None
+            if cfg.encoder_layers:
+                spec = Model(cfg).cache_specs(2, 16)["enc_kv"]
+                enc_kv = {k: torch.randn(v.shape, generator=gen)
+                          for k, v in spec.items()}
+            card_out = run(cfg, card, params, inputs, enc_kv)
+            cpu = run(cfg, "cpu", params, inputs, enc_kv)
+            probe = run(cfg, card, perturbed(params, 1), inputs, enc_kv)
+            tag = f"[5e {cfg.name}{f' {layers} layers' if layers else ''}]"
+            for what in ("forward", "decode", "train"):
+                diff = max_diff(card_out[what], cpu[what])
+                reach = max_diff(probe[what], card_out[what])
+                bar = max(1e-4, 2 * reach)
+                print(f"{tag} {what}: card vs CPU max |diff| {diff:.4g} "
+                      f"({'within' if diff <= 1e-4 else 'above'} 1e-4); the "
+                      f"card from a 1e-7-perturbed init moves {reach:.4g}; "
+                      f"bar {bar:.4g} ({smi})")
+                require(diff <= bar, f"{tag} {what}: card vs CPU {diff} > "
+                        f"{bar}")
     finally:
         mattn.set_flash_attention(None)
 

@@ -2,12 +2,13 @@
 
 ``get_arch(name)`` resolves an id (dashes or underscores) to its
 ``ArchConfig``; ``get_arch(name, reduced=True)`` returns the smoke-test
-variant (<= 2 layers, d_model <= 256, <= 4 experts).  Ported: the dense
-GQA decoders ``glm4-9b``, ``internlm2-20b`` and ``phi3-medium-14b``, the
-MoE decoder ``qwen3-moe-30b-a3b`` and ``rwkv6-1.6b``.  The reference's
-other ids resolve but raise ``NotImplementedError`` naming ROADMAP M9, the
-item that ports their model families.  ``shapes`` holds the reference's
-input shapes.
+variant (<= 2 layers, d_model <= 256, <= 4 experts).  All ten of the
+reference's ids are ported: the dense GQA decoders ``glm4-9b``,
+``internlm2-20b``, ``phi3-medium-14b`` and ``nemotron-4-340b``, the MoE
+decoders ``qwen3-moe-30b-a3b`` and ``deepseek-v2-lite-16b`` (MLA), the VLM
+``paligemma-3b``, the hybrid ``recurrentgemma-9b`` (RG-LRU and local
+attention), the encoder-decoder ``whisper-small`` and ``rwkv6-1.6b``.
+``shapes`` holds the reference's input shapes.
 """
 from __future__ import annotations
 
@@ -28,9 +29,6 @@ ARCH_IDS = [
     "recurrentgemma_9b",
     "deepseek_v2_lite_16b",
 ]
-PORTED = ("glm4_9b", "internlm2_20b", "phi3_medium_14b",
-          "qwen3_moe_30b_a3b", "rwkv6_1p6b")
-
 # public ids use dashes
 _ALIASES = {
     "rwkv6-1.6b": "rwkv6_1p6b",
@@ -57,10 +55,6 @@ def canonical(name: str) -> str:
 
 def get_arch(name: str, reduced: bool = False) -> ArchConfig:
     key = canonical(name)
-    if key not in PORTED:
-        raise NotImplementedError(
-            f"architecture {name!r} is not ported to repro_torch yet "
-            f"(ROADMAP M9); ported: {list(PORTED)}")
     cfg: ArchConfig = importlib.import_module(f"repro_torch.configs.{key}").ARCH
     return cfg.reduced() if reduced else cfg
 

@@ -7,9 +7,8 @@ Two config families live here:
   can be constructed from plain dicts (the paper's low-code entry point:
   ``easyfl.init({"model": "resnet18"})``) and merged with defaults.
 
-* :class:`ArchConfig` — architecture description for the large-model zoo,
-  kept so the config tree matches the reference package's field for field
-  (the zoo itself is not ported yet: ROADMAP M9).
+* :class:`ArchConfig` — architecture description for the large-model zoo
+  (``repro_torch.configs``), field for field the reference package's.
 """
 from __future__ import annotations
 

@@ -14,7 +14,10 @@ Tensors are (BH, S, D) float32, MHA layout; ``delta = rowsum(dO * O)`` is
 plain PyTorch between the forward and the backward kernels, as in the
 reference.  The semantics are the reference's: scale ``1/sqrt(D)`` of the
 real head dim, validity from global indices, masked scores ``-1e30``,
-denominator floor ``1e-30``.  The kernels take any S and D <= 128.
+denominator floor ``1e-30``.  The kernels take any S and D <= 256 (the
+reference's config zoo tops out at 256: PaliGemma and RecurrentGemma; 192
+for Nemotron-4); above 128 each CTA owns half of the output columns and
+recomputes the scores over the full head dim (``csrc/flash_attn.cu``).
 
 They run every product on the H100's tensor cores (``mma.sync`` m16n8k8
 TF32) in 3xTF32 — each fp32 operand split into a TF32 ``big`` and the
@@ -52,7 +55,7 @@ from repro_torch.kernels import build
 TILE = 64
 NEG_INF = -1e30
 _TINY = 1e-30          # denominator floor for fully-masked rows
-MAX_HEAD_DIM = 128     # the CUDA kernels' limit
+MAX_HEAD_DIM = 256     # the CUDA kernels' limit
 
 #: launches of each CUDA kernel in this process (see ``ops.launch_counts``)
 fwd_launches = 0
@@ -129,11 +132,11 @@ def flash_bwd_plain(q, k, v, o, lse, do, causal: bool
 def _check(name: str, q: torch.Tensor, *rest: torch.Tensor) -> None:
     """(BH, S, D) q, then tensors of q's shape or (BH, S) row vectors: all
     contiguous float32 on q's CUDA device."""
-    if q.device.type != "cuda":
-        raise RuntimeError(f"{name}: no kernel for device {q.device}")
     if q.dim() != 3 or q.shape[-1] > MAX_HEAD_DIM:
         raise ValueError(f"{name} needs (BH, S, D) tensors with D <= "
                          f"{MAX_HEAD_DIM}, got {tuple(q.shape)}")
+    if q.device.type != "cuda":
+        raise RuntimeError(f"{name}: no kernel for device {q.device}")
     for t in (q, *rest):
         if t.shape not in (q.shape, q.shape[:2]) or \
                 t.dtype != torch.float32 or t.device != q.device or \
@@ -190,7 +193,7 @@ def flash_dkv(q, k, v, do, lse, delta, causal: bool
     return dk, dv
 
 
-def kernel_info(d: int = MAX_HEAD_DIM) -> dict:
+def kernel_info(d: int = 128) -> dict:
     """{kernel: {"registers", "spill_bytes", "smem_bytes", "ctas_per_sm"}}
     of the three CUDA kernels built for head dim ``d`` (needs a card)."""
     lib = build.load("flash_attn")

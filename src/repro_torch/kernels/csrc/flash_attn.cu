@@ -1,7 +1,7 @@
 // Flash attention for Hopper in fp32 accuracy on the tensor cores: the
 // online-softmax forward and the two recompute-from-LSE backward kernels,
 // over (BH, S, D) MHA-layout tensors (row-major, contiguous), causal or not,
-// any S, D <= 128.
+// any S, D <= 256.
 //
 // Replaces the three TPU kernels of src/repro/kernels/attention.py:
 //   * _fwd_kernel (pallas_call in _fwd_padded)  -> flash_fwd_kernel  (K6)
@@ -54,7 +54,8 @@
 //     one slot, refilled in turn, so the next tile of one loads while the
 //     other is in use (forward: K(j+1) during P V(j), V(j+1) during
 //     Q K(j+1)^T; dQ: V then K; dK/dV: Q then dO);
-//   * D is padded to a power of two >= 16 in the template, and the MMA loops
+//   * D is padded to a power of two >= 16 up to 128, else to 192 or 256, in
+//     the template (DP), and the MMA loops
 //     are fully unrolled with no bound known only at run time (such guards
 //     split them into blocks the scheduler cannot interleave, which costs
 //     more than the padding), so the zero-filled columns go through the
@@ -62,7 +63,20 @@
 //     there (causal, or rows beyond S), and masks only tiles not wholly
 //     visible;
 //   * the heaviest query tiles launch first (the forward and dQ reverse
-//     blockIdx.y; dK/dV's key tile 0, first already, has the longest loop).
+//     blockIdx.y; dK/dV's key tile 0, first already, has the longest loop);
+//   * above D 128 (DP 192 and 256: Nemotron-4 and the Gemma family) a warp's
+//     16 x DP accumulator would not fit in registers (the forward's O alone
+//     is DP / 2 floats a thread, and dK/dV holds two).  So each CTA owns one
+//     column block of DC = DP / 2 output columns (blockIdx.z): O, dQ, dK and
+//     dV split by columns (O = P V, dQ = dS K, dK = dS^T Q, dV = P^T dO take
+//     their columns from V, K, Q, dO alone), while S = Q K^T and dP = dO V^T
+//     run over the full head dim in each CTA.  The two CTAs of a tile
+//     compute the same S, P and row statistics, bit for bit, and the first
+//     writes the LSE.  That repeats the head-dim products: 1.5x the
+//     forward's and dK/dV's operations, 1.67x dQ's.  Shared memory holds
+//     full-width tiles (forward 100,352 / 133,120 bytes at DP 192 / 256, dQ
+//     150,528 / 199,680, dK/dV 150,784 / 199,936: `prepare` raises the
+//     dynamic limit); the registers are those of DP 128 or fewer.
 // Not done here: wgmma and TMA (TF32 wgmma takes B only K-major from shared
 // memory, and 3xTF32 on it needs split big/small copies of every B tile).
 #include "tf32x3.cuh"
@@ -78,6 +92,16 @@ constexpr int DKV_QUERIES = 32;  // queries per dK/dV step
 constexpr float NEG_INF = -1e30f;
 constexpr float TINY = 1e-30f;
 constexpr unsigned FULL = 0xffffffffu;
+
+// output columns a CTA owns at padded head dim DP (the header's column
+// blocks above 128), and the head-dim blocks mma_cols takes in one group:
+// g, or g / 2 where g does not divide the nd blocks (DC 96: 12 blocks)
+__host__ __device__ constexpr int cols_for(int DP) {
+  return DP <= 128 ? DP : DP / 2;
+}
+__host__ __device__ constexpr int fit(int nd, int g) {
+  return nd < g || nd % g == 0 ? g : g / 2;
+}
 
 // ---------------------------------------------------------------------------
 // rows [row0, row0 + ROWS) of one (S, D) matrix into shared memory (row
@@ -164,19 +188,20 @@ __device__ __forceinline__ bool visible(int qi, int kj, int S, int causal) {
   return qi < S && kj < S && (!causal || kj <= qi);
 }
 
-// rows r0 and r0 + 8, columns 2t, 2t + 1 of each 8-column block of acc
-// into a (S, D) matrix
+// rows r0 and r0 + 8, columns c0 + 2t, c0 + 2t + 1 of each 8-column block
+// of acc into a (S, D) matrix
 template <int DP>
 __device__ __forceinline__ void store_rows(float* __restrict__ out,
                                            const float (&acc)[DP / 8][4],
-                                           int r0, int S, int D, int t) {
+                                           int r0, int S, int D, int c0,
+                                           int t) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = r0 + 8 * h;
     if (r >= S) continue;
 #pragma unroll
     for (int nd = 0; nd < DP / 8; ++nd) {
-      const int d = 8 * nd + 2 * t;
+      const int d = c0 + 8 * nd + 2 * t;
       if (d < D) out[(int64_t)r * D + d] = acc[nd][2 * h];
       if (d + 1 < D) out[(int64_t)r * D + d + 1] = acc[nd][2 * h + 1];
     }
@@ -184,7 +209,7 @@ __device__ __forceinline__ void store_rows(float* __restrict__ out,
 }
 
 // ---------------------------------------------------------------------------
-// K6: forward.  grid (BH, ceil(S / 64)); O (BH, S, D), LSE (BH, S)
+// K6: forward.  grid (BH, ceil(S / 64), DP / DC); O (BH, S, D), LSE (BH, S)
 // ---------------------------------------------------------------------------
 template <int DP>
 __global__ void __launch_bounds__(THREADS, 3)
@@ -192,11 +217,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int S, int D, float scale,
                  int causal, int vec) {
-  constexpr int LD = DP + 4, NB = FWD_KEYS / 8;
+  constexpr int LD = DP + 4, NB = FWD_KEYS / 8, DC = cols_for(DP);
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* Ks = Qs + TILE * LD;
   float* Vs = Ks + FWD_KEYS * LD;
+  const int c0 = DC == DP ? 0 : (int)blockIdx.z * DC;  // O's column block
   const int w = threadIdx.x >> 5, g = (threadIdx.x >> 2) & 7,
             t = threadIdx.x & 3;
   const int64_t bh = blockIdx.x;
@@ -211,9 +237,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int row[2] = {q0 + ra + g, q0 + ra + g + 8};
   const bool live = q0 + ra < S;  // the warp holds a real query row
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
-  float acc[DP / 8][4];
+  float acc[DC / 8][4];
 #pragma unroll
-  for (int nd = 0; nd < DP / 8; ++nd)
+  for (int nd = 0; nd < DC / 8; ++nd)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[nd][c] = 0.0f;
   const int nk = (S + FWD_KEYS - 1) / FWD_KEYS;
@@ -269,13 +295,14 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       m[h] = m_new[h];
     }
 #pragma unroll
-    for (int nd = 0; nd < DP / 8; ++nd)
+    for (int nd = 0; nd < DC / 8; ++nd)
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[nd][c] *= alpha[c >> 1];
 
     cp_wait<1>();
     __syncthreads();  // V(kt) has landed
-    if (live) mma_cols<DP, NB, 8, false>(acc, s, Vs, g, t);
+    if (live)
+      mma_cols<DC, NB, fit(DC / 8, 8), false, LD>(acc, s, Vs + c0, g, t);
     __syncthreads();  // every warp is done with V(kt)
     if (kt + 1 < kend)
       load_tile<DP, FWD_KEYS>(Vs, v + off, k0 + FWD_KEYS, S, D, vec);
@@ -283,11 +310,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   const float li[2] = {fmaxf(l[0], TINY), fmaxf(l[1], TINY)};
 #pragma unroll
-  for (int nd = 0; nd < DP / 8; ++nd)
+  for (int nd = 0; nd < DC / 8; ++nd)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[nd][c] /= li[c >> 1];
-  store_rows<DP>(o + off, acc, q0 + ra + g, S, D, t);
-  if (t == 0) {
+  store_rows<DC>(o + off, acc, q0 + ra + g, S, D, c0, t);
+  if (t == 0 && c0 == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h)
       if (row[h] < S) lse[bh * S + row[h]] = m[h] + logf(li[h]);
@@ -295,7 +322,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// K7a: dQ.  grid (BH, ceil(S / 64)), one CTA per query tile over key tiles
+// K7a: dQ.  grid (BH, ceil(S / 64), DP / DC), one CTA per query tile (and
+// column block of dQ) over key tiles
 // ---------------------------------------------------------------------------
 template <int DP>
 __global__ void __launch_bounds__(THREADS, 2)
@@ -304,12 +332,13 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, float* __restrict__ dq,
                 int S, int D, float scale, int causal, int vec) {
-  constexpr int LD = DP + 4, NB = DQ_KEYS / 8;
+  constexpr int LD = DP + 4, NB = DQ_KEYS / 8, DC = cols_for(DP);
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* Gs = Qs + TILE * LD;  // dO
   float* Ks = Gs + TILE * LD;
   float* Vs = Ks + DQ_KEYS * LD;
+  const int c0 = DC == DP ? 0 : (int)blockIdx.z * DC;  // dQ's column block
   const int w = threadIdx.x >> 5, g = (threadIdx.x >> 2) & 7,
             t = threadIdx.x & 3;
   const int64_t bh = blockIdx.x;
@@ -329,9 +358,9 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     lr[h] = row[h] < S ? __ldg(lse + bh * S + row[h]) : 0.0f;
     dr[h] = row[h] < S ? __ldg(delta + bh * S + row[h]) : 0.0f;
   }
-  float acc[DP / 8][4];
+  float acc[DC / 8][4];
 #pragma unroll
-  for (int nd = 0; nd < DP / 8; ++nd)
+  for (int nd = 0; nd < DC / 8; ++nd)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[nd][c] = 0.0f;
   const int nk = (S + DQ_KEYS - 1) / DQ_KEYS;
@@ -368,20 +397,21 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float p = ok ? expf(s[nb][c] * scale - lr[h]) : 0.0f;
           s[nb][c] = p * (dp[nb][c] - dr[h]) * scale;
         }
-      mma_cols<DP, NB, 8, true>(acc, s, Ks, g, t);
+      mma_cols<DC, NB, fit(DC / 8, 8), true, LD>(acc, s, Ks + c0, g, t);
     }
     __syncthreads();  // every warp is done with K(kt)
     if (kt + 1 < kend)
       load_tile<DP, DQ_KEYS>(Ks, k + off, k0 + DQ_KEYS, S, D, vec);
     cp_commit();
   }
-  store_rows<DP>(dq + off, acc, q0 + ra + g, S, D, t);
+  store_rows<DC>(dq + off, acc, q0 + ra + g, S, D, c0, t);
 }
 
 // ---------------------------------------------------------------------------
-// K7b: dK, dV.  grid (BH, ceil(S / 64)), one CTA per key tile over query
-// tiles from the diagonal; the transposed tiles S^T = K Q^T and
-// dP^T = V dO^T keep the warp's keys as rows
+// K7b: dK, dV.  grid (BH, ceil(S / 64), DP / DC), one CTA per key tile (and
+// column block of dK and dV) over query tiles from the diagonal; the
+// transposed tiles S^T = K Q^T and dP^T = V dO^T keep the warp's keys as
+// rows
 // ---------------------------------------------------------------------------
 template <int DP>
 __global__ void __launch_bounds__(THREADS, 2)
@@ -391,7 +421,7 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ delta, float* __restrict__ dk,
                  float* __restrict__ dv, int S, int D, float scale,
                  int causal, int vec) {
-  constexpr int LD = DP + 4, NB = DKV_QUERIES / 8;
+  constexpr int LD = DP + 4, NB = DKV_QUERIES / 8, DC = cols_for(DP);
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;
   float* Vs = Ks + TILE * LD;
@@ -403,6 +433,7 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
             t = threadIdx.x & 3;
   const int64_t bh = blockIdx.x;
   const int k0 = blockIdx.y * TILE, ra = 16 * w;
+  const int c0 = DC == DP ? 0 : (int)blockIdx.z * DC;  // dK's, dV's block
   const int64_t off = bh * (int64_t)S * D;
   const int nq = (S + DKV_QUERIES - 1) / DKV_QUERIES;
   const int qbeg = causal ? k0 / DKV_QUERIES : 0;
@@ -424,9 +455,9 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   cp_commit();
 
   const int key[2] = {k0 + ra + g, k0 + ra + g + 8};
-  float gk[DP / 8][4], gv[DP / 8][4];
+  float gk[DC / 8][4], gv[DC / 8][4];
 #pragma unroll
-  for (int nd = 0; nd < DP / 8; ++nd)
+  for (int nd = 0; nd < DC / 8; ++nd)
 #pragma unroll
     for (int c = 0; c < 4; ++c) gk[nd][c] = gv[nd][c] = 0.0f;
   for (int qt = qbeg; qt < nq; ++qt) {
@@ -458,20 +489,21 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
           st[nb][c] = p;
           dpt[nb][c] = p * (dpt[nb][c] - Ds[col]) * scale;
         }
-      mma_cols<DP, NB, 4, true>(gk, dpt, Qs, g, t);  // dK += dS^T Q
+      mma_cols<DC, NB, 4, true, LD>(gk, dpt, Qs + c0, g, t);  // dK += dS^T Q
     }
     __syncthreads();  // every warp is done with Q(qt), LSE, delta
     if (qt + 1 < nq) load_q(q0 + DKV_QUERIES);
     cp_commit();
-    if (work) mma_cols<DP, NB, 4, true>(gv, st, Gs, g, t);  // dV += P^T dO
+    if (work)
+      mma_cols<DC, NB, 4, true, LD>(gv, st, Gs + c0, g, t);  // dV += P^T dO
     __syncthreads();  // every warp is done with dO(qt)
     if (qt + 1 < nq)
       load_tile<DP, DKV_QUERIES>(Gs, dout + off, q0 + DKV_QUERIES, S, D,
                                  vec);
     cp_commit();
   }
-  store_rows<DP>(dk + off, gk, k0 + ra + g, S, D, t);
-  store_rows<DP>(dv + off, gv, k0 + ra + g, S, D, t);
+  store_rows<DC>(dk + off, gk, k0 + ra + g, S, D, c0, t);
+  store_rows<DC>(dv + off, gv, k0 + ra + g, S, D, c0, t);
 }
 
 // ---------------------------------------------------------------------------
@@ -494,12 +526,15 @@ constexpr size_t dkv_smem() {
 }
 
 bool bad_shape(int64_t BH, int64_t S, int64_t D) {
-  return BH <= 0 || S <= 0 || D <= 0 || D > 128 || BH > 0x7fffffff ||
+  return BH <= 0 || S <= 0 || D <= 0 || D > 256 || BH > 0x7fffffff ||
          S > 0x7fffffff || (S + TILE - 1) / TILE > 65535;
 }
 
+// (BH, query or key tiles, column blocks)
+template <int DP>
 dim3 grid_for(int64_t BH, int64_t S) {
-  return dim3((unsigned)BH, (unsigned)((S + TILE - 1) / TILE));
+  return dim3((unsigned)BH, (unsigned)((S + TILE - 1) / TILE),
+              DP / cols_for(DP));
 }
 
 // 16-byte copies need D % 4 == 0 and 16-byte aligned tensors
@@ -514,7 +549,7 @@ int fwd(const float* q, const float* k, const float* v, float* o, float* lse,
   const void* fn = (const void*)flash_fwd_kernel<DP>;
   cudaError_t err = prepare(fn, fwd_smem<DP>());
   if (err != cudaSuccess) return (int)err;
-  flash_fwd_kernel<DP><<<grid_for(BH, S), THREADS, fwd_smem<DP>(), st>>>(
+  flash_fwd_kernel<DP><<<grid_for<DP>(BH, S), THREADS, fwd_smem<DP>(), st>>>(
       q, k, v, o, lse, (int)S, (int)D, scale, causal, D % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v));
   return (int)cudaGetLastError();
 }
@@ -526,7 +561,7 @@ int dq(const float* q, const float* k, const float* v, const float* dout,
   const void* fn = (const void*)flash_dq_kernel<DP>;
   cudaError_t err = prepare(fn, dq_smem<DP>());
   if (err != cudaSuccess) return (int)err;
-  flash_dq_kernel<DP><<<grid_for(BH, S), THREADS, dq_smem<DP>(), st>>>(
+  flash_dq_kernel<DP><<<grid_for<DP>(BH, S), THREADS, dq_smem<DP>(), st>>>(
       q, k, v, dout, lse, delta, dq_, (int)S, (int)D, scale, causal,
       D % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
           aligned16(dout));
@@ -541,7 +576,7 @@ int dkv(const float* q, const float* k, const float* v, const float* dout,
   const void* fn = (const void*)flash_dkv_kernel<DP>;
   cudaError_t err = prepare(fn, dkv_smem<DP>());
   if (err != cudaSuccess) return (int)err;
-  flash_dkv_kernel<DP><<<grid_for(BH, S), THREADS, dkv_smem<DP>(), st>>>(
+  flash_dkv_kernel<DP><<<grid_for<DP>(BH, S), THREADS, dkv_smem<DP>(), st>>>(
       q, k, v, dout, lse, delta, dk, dv, (int)S, (int)D, scale, causal,
       D % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
           aligned16(dout));
@@ -562,7 +597,8 @@ int info(int which, int* out) {
 }
 
 int dp_for(int64_t D) {
-  return D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : 128;
+  return D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128
+       : D <= 192 ? 192 : 256;
 }
 
 }  // namespace
@@ -577,7 +613,9 @@ extern "C" int flash_fwd_launch(const float* q, const float* k,
     case 16: return fwd<16>(q, k, v, o, lse, BH, S, D, scale, causal, st);
     case 32: return fwd<32>(q, k, v, o, lse, BH, S, D, scale, causal, st);
     case 64: return fwd<64>(q, k, v, o, lse, BH, S, D, scale, causal, st);
-    default: return fwd<128>(q, k, v, o, lse, BH, S, D, scale, causal, st);
+    case 128: return fwd<128>(q, k, v, o, lse, BH, S, D, scale, causal, st);
+    case 192: return fwd<192>(q, k, v, o, lse, BH, S, D, scale, causal, st);
+    default: return fwd<256>(q, k, v, o, lse, BH, S, D, scale, causal, st);
   }
 }
 
@@ -592,7 +630,9 @@ extern "C" int flash_dq_launch(const float* q, const float* k, const float* v,
     case 16: return dq<16>(q, k, v, dout, lse, delta, dq_, BH, S, D, scale, causal, st);
     case 32: return dq<32>(q, k, v, dout, lse, delta, dq_, BH, S, D, scale, causal, st);
     case 64: return dq<64>(q, k, v, dout, lse, delta, dq_, BH, S, D, scale, causal, st);
-    default: return dq<128>(q, k, v, dout, lse, delta, dq_, BH, S, D, scale, causal, st);
+    case 128: return dq<128>(q, k, v, dout, lse, delta, dq_, BH, S, D, scale, causal, st);
+    case 192: return dq<192>(q, k, v, dout, lse, delta, dq_, BH, S, D, scale, causal, st);
+    default: return dq<256>(q, k, v, dout, lse, delta, dq_, BH, S, D, scale, causal, st);
   }
 }
 
@@ -608,19 +648,23 @@ extern "C" int flash_dkv_launch(const float* q, const float* k,
     case 16: return dkv<16>(q, k, v, dout, lse, delta, dk, dv, BH, S, D, scale, causal, st);
     case 32: return dkv<32>(q, k, v, dout, lse, delta, dk, dv, BH, S, D, scale, causal, st);
     case 64: return dkv<64>(q, k, v, dout, lse, delta, dk, dv, BH, S, D, scale, causal, st);
-    default: return dkv<128>(q, k, v, dout, lse, delta, dk, dv, BH, S, D, scale, causal, st);
+    case 128: return dkv<128>(q, k, v, dout, lse, delta, dk, dv, BH, S, D, scale, causal, st);
+    case 192: return dkv<192>(q, k, v, dout, lse, delta, dk, dv, BH, S, D, scale, causal, st);
+    default: return dkv<256>(q, k, v, dout, lse, delta, dk, dv, BH, S, D, scale, causal, st);
   }
 }
 
 // out[4] = registers, spill (local) bytes, dynamic shared memory bytes and
 // resident CTAs per SM of kernel `which` (0 forward, 1 dQ, 2 dK/dV) at D
 extern "C" int flash_kernel_info(int which, int64_t D, int* out) {
-  if (D <= 0 || D > 128 || which < 0 || which > 2)
+  if (D <= 0 || D > 256 || which < 0 || which > 2)
     return (int)cudaErrorInvalidValue;
   switch (dp_for(D)) {
     case 16: return info<16>(which, out);
     case 32: return info<32>(which, out);
     case 64: return info<64>(which, out);
-    default: return info<128>(which, out);
+    case 128: return info<128>(which, out);
+    case 192: return info<192>(which, out);
+    default: return info<256>(which, out);
   }
 }

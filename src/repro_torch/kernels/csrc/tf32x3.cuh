@@ -130,12 +130,15 @@ __device__ __forceinline__ void mma3(float (&acc)[NB][4], float (&lo)[NB][4],
 // adds it to acc in fp32, so no tensor-core accumulation chain spans more
 // than one tile (the backward, whose sums run over up to S / 32 tiles);
 // else the MMAs accumulate into acc itself (the forward, where the
-// registers for the block would cost a CTA per SM).
-template <int DP, int NB, int G, bool FRESH>
+// registers for the block would cost a CTA per SM).  LD is Bs's row
+// stride: DP + 4 for a whole tile, wider when acc takes a column block of
+// DP columns from a tile of more (flash_attn.cu at head dims above 128).
+template <int DP, int NB, int G, bool FRESH, int LD = DP + 4>
 __device__ __forceinline__ void mma_cols(float (&acc)[DP / 8][4],
                                          const float (&c)[NB][4],
                                          const float* Bs, int g, int t) {
-  constexpr int LD = DP + 4, ND = DP / 8, GN = ND < G ? ND : G;
+  constexpr int ND = DP / 8, GN = ND < G ? ND : G;
+  static_assert(ND % GN == 0, "head-dim blocks must fill whole groups");
 #pragma unroll
   for (int n0 = 0; n0 < ND; n0 += GN) {
     float sum[GN][4];

@@ -49,6 +49,8 @@ def main(argv=None):
             torch.cuda.synchronize(device)
 
     B = args.batch
+    # an encoder-decoder model's enc_kv stays the zeros of init_cache (a
+    # stand-in for an encoded prompt, as in the reference's driver)
     cache = model.init_cache(B, args.cache_len, ring=args.ring, device=device)
     prompt = torch.randint(0, cfg.vocab, (B, args.prompt_len),
                            generator=gen).to(device)

@@ -112,8 +112,22 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     losses = []
+    frames = None
+    if cfg.family in ("vlm", "audio"):
+        # the frontend stubs' input: N(0, 1) from the run's generator, as
+        # Model.make_inputs draws it.  The reference's driver feeds zeros,
+        # and zero patches stay exact zeros through every VLM layer, where
+        # RMSNorm's backward scales the gradient by 1/sqrt(eps) = 1000 a
+        # layer: from 14 layers on it overflows to inf, and inf times the
+        # zero activations makes the weight gradients NaN (in both
+        # packages; ROADMAP queue 3).
+        frames = torch.randn((args.batch, cfg.n_frames, cfg.d_model),
+                             generator=gen, device=device).to(
+                                 getattr(torch, cfg.dtype))
     for step in range(args.steps):
         batch = next(data)
+        if frames is not None:
+            batch["frames"] = frames
         state, metrics = step_fn(state, batch)
         losses.append(float(metrics["loss"]))
         if (step + 1) % args.log_every == 0:

@@ -13,8 +13,10 @@ A cache spec is a meta tensor (shape and dtype, no storage);
 :func:`zeros_like_specs` materializes a tree of them on a device.  Unlike
 the reference's functional update, :func:`write_slot` writes the new entry
 into the cache tensor in place — copying a whole cache per token would
-cost O(L) memory traffic per step.  MLA's latent cache is not ported
-(ROADMAP M9).
+cost O(L) memory traffic per step.
+
+MLA caches the compressed latent + shared RoPE key instead of per-head K/V
+(DeepSeek-V2's memory saving: (r + rope_dim) vs 2·H·D per token).
 """
 from __future__ import annotations
 
@@ -38,8 +40,11 @@ def attn_cache_defs(cfg: ArchConfig, batch: int, length: int, dtype):
 
 
 def mla_cache_defs(cfg: ArchConfig, batch: int, length: int, dtype):
-    raise NotImplementedError(
-        "the MLA latent cache is not ported to repro_torch yet (ROADMAP M9)")
+    m = cfg.mla
+    return {
+        "c": spec((batch, length, m.kv_lora_rank), dtype),
+        "kr": spec((batch, length, m.qk_rope_head_dim), dtype),
+    }
 
 
 def zeros_like_specs(specs, device=None):

@@ -17,7 +17,6 @@ import functools
 
 from repro_torch.core.config import ArchConfig
 from repro_torch.models import transformer
-from repro_torch.models.mlp import PORTED_ACTS
 from repro_torch.models.small import FLModel
 
 TINY_LM_VOCAB = 64
@@ -38,10 +37,6 @@ def transformer_lm(arch: ArchConfig, name: str = None) -> FLModel:
             f"family={arch.family!r}")
     if arch.encoder_layers:
         raise ValueError("transformer_lm is decoder-only")
-    if arch.act not in PORTED_ACTS:
-        raise NotImplementedError(
-            f"activation {arch.act!r} is not ported to repro_torch yet "
-            f"(ROADMAP M9); ported: {PORTED_ACTS}")
     defs = transformer.model_defs(arch)
 
     def apply(p, x):

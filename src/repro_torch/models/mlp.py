@@ -1,9 +1,6 @@
-"""Feed-forward blocks: SwiGLU and GELU (tanh approximation).
-
-The reference's other activations (GeGLU, squared ReLU, the RWKV
-channel-mix gate) belong to model families not ported yet and raise
-``NotImplementedError`` naming ROADMAP M9.
-"""
+"""Feed-forward blocks: SwiGLU / GeGLU / GELU / squared ReLU, and the RWKV
+channel-mix activation (tanh-approximate GELU throughout, as the
+reference)."""
 from __future__ import annotations
 
 import torch
@@ -12,8 +9,7 @@ import torch.nn.functional as F
 from repro_torch.core.config import ArchConfig
 from repro_torch.models.layers import ParamDef
 
-PORTED_ACTS = ("swiglu", "gelu")
-GATED_ACTS = ("swiglu",)      # of the ported ones: those with a gate
+GATED_ACTS = ("swiglu", "geglu", "relu_sq_gate")
 
 
 def mlp_defs(cfg: ArchConfig, d_ff: int = 0):
@@ -28,18 +24,23 @@ def mlp_defs(cfg: ArchConfig, d_ff: int = 0):
 def _act(name: str, gate, up):
     if name == "swiglu":
         return F.silu(gate) * up
+    if name == "geglu":
+        return F.gelu(gate, approximate="tanh") * up
+    if name == "relu_sq_gate":
+        # RWKV channel-mix: squared-ReLU key path, sigmoid receptance gate
+        return torch.square(F.relu(up)) * torch.sigmoid(gate)
     if name == "gelu":
         return F.gelu(up, approximate="tanh")
-    raise NotImplementedError(
-        f"activation {name!r} is not ported to repro_torch yet (ROADMAP "
-        f"M9); ported: {PORTED_ACTS}")
+    if name == "sq_relu":
+        return torch.square(F.relu(up))
+    raise ValueError(f"unknown activation {name}")
 
 
 def mlp(cfg: ArchConfig, p, x):
     dt = x.dtype
     up = torch.einsum("bsd,df->bsf", x, p["w_up"].to(dt))
     gate = None
-    if "w_gate" in p:
+    if cfg.act in GATED_ACTS:
         gate = torch.einsum("bsd,df->bsf", x, p["w_gate"].to(dt))
     h = _act(cfg.act, gate, up)
     return torch.einsum("bsf,fd->bsd", h, p["w_down"].to(dt))

@@ -297,6 +297,36 @@ def test_chunked_attention_matches_reference_beyond_one_chunk():
 @pytest.mark.parametrize("name", ["nemotron-4-340b", "paligemma-3b",
                                   "deepseek-v2-lite-16b"])
 def test_unported_archs_raise_naming_m9(name):
+    """These ids once raised naming M9; ported since, they resolve with the
+    reference's fields, and the reduced model's logits, flash flag on (the
+    kernels' plain versions here), match the reference's."""
+    import dataclasses
+    import types
+
+    from repro.configs import get_arch as ref_arch
+    from repro.models.model import Model as RefModel
     from repro_torch.configs import get_arch
-    with pytest.raises(NotImplementedError, match="M9"):
-        get_arch(name)
+    from repro_torch.models.model import Model
+    assert dataclasses.asdict(get_arch(name)) == \
+        dataclasses.asdict(ref_arch(name))
+    rc, pc = ref_arch(name, reduced=True), get_arch(name, reduced=True)
+    params = _params(types.SimpleNamespace(defs=RefModel(rc).defs()),
+                     rc.d_model, seed=3)
+    rs = np.random.RandomState(4)
+    tokens = rs.randint(0, rc.vocab, (2, 24)).astype(np.int32)
+    frames = (rs.standard_normal((2, rc.n_frames, rc.d_model)).astype(
+        np.float32) if rc.family == "vlm" else None)
+    ref_attention.set_flash_attention(True)
+    port_attention.set_flash_attention(True)
+    try:
+        ref_logits, _ = RefModel(rc).forward(
+            params, jnp.asarray(tokens),
+            None if frames is None else jnp.asarray(frames))
+        logits, _ = Model(pc).forward(
+            convert.params_from_jax(params), torch.from_numpy(tokens),
+            None if frames is None else torch.from_numpy(frames))
+    finally:
+        ref_attention.set_flash_attention(None)
+        port_attention.set_flash_attention(None)
+    np.testing.assert_allclose(logits.detach().numpy(),
+                               np.asarray(ref_logits), rtol=1e-5, atol=1e-5)

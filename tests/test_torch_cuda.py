@@ -273,11 +273,14 @@ def test_tiered_store_state_round_trips_bitwise_on_card(cuda_device):
 
 # the LoRA path's shape (4 clients x 4 sequences x 32 heads, S 512, D 128),
 # ragged sequence lengths and head dims, a head dim that is not a power of
-# two, and the full head dim without the causal mask
+# two, and the full head dim without the causal mask; the instances above
+# D 128 (192: Nemotron-4, 256: PaliGemma) at ragged and full head dims
 @pytest.mark.parametrize("bh,s,d,causal", [
     (512, 512, 128, True), (3, 1, 20, True), (3, 63, 64, False),
     (3, 200, 20, True), (3, 200, 64, False), (2, 130, 16, True),
-    (3, 200, 72, True), (2, 130, 128, False)])
+    (3, 200, 72, True), (2, 130, 128, False), (3, 200, 160, True),
+    (2, 130, 192, False), (3, 200, 200, True), (2, 130, 256, False),
+    (96, 256, 192, True), (16, 512, 256, True)])
 def test_flash_kernels_match_plain_versions(cuda_device, bh, s, d, causal):
     gen = torch.Generator(device=cuda_device).manual_seed(s * d)
     q, k, v, do = (torch.randn((bh, s, d), generator=gen, device=cuda_device)

@@ -32,8 +32,12 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         from repro_torch.configs.shapes import SHAPES
         from repro_torch.core import federated
         from repro_torch.launch import train
-        from repro_torch.models import moe
+        from repro_torch.models import moe, rglru
         from repro_torch.models.model import Model
+        from repro_torch.configs import (
+            deepseek_v2_lite_16b, nemotron4_340b, paligemma_3b,
+            recurrentgemma_9b, whisper_small,
+        )
         import torch
         repro_torch.set_device("cpu")
         femnist_cnn().init(torch.Generator().manual_seed(0))
@@ -43,6 +47,13 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         federated.fed_input_specs(Model(get_arch("glm4-9b", reduced=True)),
                                   SHAPES["train_4k"], 2,
                                   federated.FedRoundConfig())
+        for arch in ("nemotron-4-340b", "paligemma-3b",
+                     "deepseek-v2-lite-16b", "recurrentgemma-9b",
+                     "whisper-small"):
+            Model(get_arch(arch)).defs()
+        train.main(["--arch", "whisper-small", "--steps", "1", "--batch",
+                    "1", "--seq", "8"])
+        rglru.init_state(get_arch("recurrentgemma-9b", reduced=True), 1)
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "repro" or m.startswith("repro."))

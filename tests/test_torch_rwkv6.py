@@ -402,8 +402,10 @@ def test_prefill_routes_through_the_wkv6_kernel_and_training_does_not(
 
 def test_training_entry_points_raise_naming_m9():
     """The train step and input specs are ported (ROADMAP M9's first zoo
-    items): an RWKV6 train step runs and moves the params; what still
-    raises naming M9 is a family with a ``frames`` input (VLM, audio)."""
+    items): an RWKV6 train step runs and moves the params.  A family with a
+    ``frames`` input once raised naming M9 here; it is ported since, and
+    the VLM's frame prefix and text-region loss now match the
+    reference's."""
     from repro_torch.configs.shapes import SHAPES
     from repro_torch.optim import sgd
     model = Model(port_arch("rwkv6-1.6b", reduced=True))
@@ -419,8 +421,23 @@ def test_training_entry_points_raise_naming_m9():
         tree_leaves(params), tree_leaves(state.params)))
     assert tuple(model.input_specs(SHAPES["train_4k"])["tokens"].shape) == \
         (256, 4096)
+    ref_vlm = RefModel(dataclasses.replace(ref_arch("glm4-9b", reduced=True),
+                                           family="vlm", n_frames=4))
     vlm = Model(dataclasses.replace(port_arch("glm4-9b", reduced=True),
                                     family="vlm", n_frames=4))
-    with pytest.raises(NotImplementedError, match="M9"):
-        vlm.forward(None, torch.zeros((1, 4), dtype=torch.int64),
-                    frames=torch.zeros((1, 4, 256)))
+    vparams = _np_tree(ref_vlm.init(jax.random.PRNGKey(2)))
+    rs = np.random.RandomState(3)
+    batch = {"tokens": rs.randint(0, vlm.cfg.vocab, (1, 6)).astype(np.int32),
+             "frames": rs.standard_normal((1, 4, 256)).astype(np.float32)}
+    ref_logits, _ = ref_vlm.forward(vparams, jnp.asarray(batch["tokens"]),
+                                    jnp.asarray(batch["frames"]))
+    tp = convert.params_from_jax(vparams)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    logits, _ = vlm.forward(tp, tb["tokens"], frames=tb["frames"])
+    assert logits.shape == (1, 4 + 6, vlm.cfg.vocab)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(ref_logits),
+                               rtol=1e-4, atol=1e-4)
+    ref_loss, _ = ref_vlm.loss(vparams, jax.tree_util.tree_map(jnp.asarray,
+                                                               batch))
+    loss, _ = vlm.loss(tp, tb)
+    assert abs(float(loss) - float(ref_loss)) <= 1e-4

@@ -153,13 +153,25 @@ def test_cache_slot_and_mask_match_reference(pos, ring):
 
 
 def test_mla_cache_raises_naming_m9():
-    with pytest.raises(NotImplementedError, match="M9"):
-        kvc.mla_cache_defs(port_arch("glm4-9b", reduced=True), 1, 8,
-                           torch.float32)
+    """MLA's latent cache once raised naming M9; ported since, its specs
+    equal the reference's at full and reduced size."""
+    for reduced in (False, True):
+        cfg = port_arch("deepseek-v2-lite-16b", reduced=reduced)
+        ref = ref_kvc.mla_cache_defs(
+            ref_arch("deepseek-v2-lite-16b", reduced=reduced), 3, 40,
+            jnp.bfloat16)
+        port = kvc.mla_cache_defs(cfg, 3, 40, torch.bfloat16)
+        assert sorted(port) == sorted(ref) == ["c", "kr"]
+        for key in port:
+            assert port[key].device.type == "meta"
+            assert tuple(port[key].shape) == tuple(ref[key].shape)
+            assert port[key].dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("extra", [[], ["--ring"]])
-@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "glm4-9b"])
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "glm4-9b", "nemotron-4-340b",
+                                  "paligemma-3b", "deepseek-v2-lite-16b",
+                                  "recurrentgemma-9b", "whisper-small"])
 def test_serve_main_runs_on_cpu(arch, extra, capsys):
     ops.reset_launch_counts()
     gen = serve.main(["--arch", arch, "--batch", "2", "--prompt-len", "6",

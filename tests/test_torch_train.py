@@ -52,7 +52,7 @@ from repro.models.model import TrainState as RefState  # noqa: E402
 from repro.models.model import make_train_step as ref_step  # noqa: E402
 from repro.optim import optimizers as ref_opt  # noqa: E402
 from repro_torch import convert  # noqa: E402
-from repro_torch.configs import PORTED  # noqa: E402
+from repro_torch.configs import ARCH_IDS  # noqa: E402
 from repro_torch.configs import get_arch as port_arch  # noqa: E402
 from repro_torch.configs.shapes import SHAPES, InputShape  # noqa: E402
 from repro_torch.launch import train as port_train  # noqa: E402
@@ -303,7 +303,7 @@ def test_init_train_state_draws_on_the_generators_device():
 
 def test_exact_assigned_hyperparameters():
     """Full configs carry the exact assigned numbers, field for field the
-    reference's, for every ported id."""
+    reference's, for every id."""
     c = port_arch("internlm2-20b")
     assert (c.n_layers, c.d_model, c.n_heads, c.n_kv_heads, c.d_ff,
             c.vocab) == (48, 6144, 48, 8, 16384, 92544)
@@ -316,7 +316,7 @@ def test_exact_assigned_hyperparameters():
     c = port_arch("glm4-9b")
     assert (c.d_model, c.n_heads, c.n_kv_heads, c.d_ff, c.vocab) == \
         (4096, 32, 2, 13696, 151552)
-    for key in PORTED:
+    for key in ARCH_IDS:
         assert dataclasses.asdict(port_arch(key)) == \
             dataclasses.asdict(ref_arch(key)), key
 
