@@ -26,20 +26,22 @@ Phases, in order; any failed check raises, so the script exits non-zero:
    1,000,003; the first tier timed beside ``einsum("gf,gfd->gd")``;
    K2 and K3a / K3b on the federated round's largest row, glm4-9b's
    embedding leaf as one (1, 620,756,992) row (``check_embed_row``);
-3b. print the three flash-attention kernels' resources at D = 128, 192
-   and 256 (``FLASH_DIMS``: the template instances of D <= 128 and of the
-   zoo's wider heads) as the runtime reads them
+3b. print the three flash-attention kernels' resources at D = 64, 128,
+   192 and 256 (``FLASH_DIMS``: the template instances that a main path
+   runs) as the runtime reads them
    (``cudaFuncGetAttributes``: registers, local memory = spills and stack,
    dynamic shared memory; CTAs per SM) and the count of TF32 tensor-core
    instructions (``HMMA``) in each one's SASS, from ``cuobjdump`` where the
    toolkit has it (each must have some); hold the kernels (forward, dQ,
    dK/dV) against their plain versions at the LoRA path's shape (BH = 4
-   clients x 4 sequences x 32 heads = 512, S = 512, D = 128, causal) and at
-   (512, 512, 192 / 256, causal), at (3, 200, 72 / 160 / 200, causal) and
-   (2, 130, 128 / 192 / 256, not causal), and at ragged S in {1, 63, 200}
-   x D in {20, 64}, causal and not; forward within 1e-5, gradients within
-   1e-4 at unit-scale inputs; time each at (512, 512, D, causal) for each D
-   next to its plain version and fp32 ``scaled_dot_product_attention`` (its
+   clients x 4 sequences x 32 heads = 512, S = 512, D = 128, causal), at
+   (512, 512, 192 / 256, causal), at phase 4m's main-path shapes (96,
+   1024, 192), (16, 512, 256) and (48, 448, 64), causal, at (3, 200, 72 /
+   160 / 200, causal) and (2, 130, 128 / 192 / 256, not causal), and at
+   ragged S in {1, 63, 200} x D in {20, 64}, causal and not; forward within
+   1e-5, gradients within 1e-4 at unit-scale inputs; time each instance at
+   ``FLASH_TIMED``'s shape (whisper's (48, 448, 64) for DP 64, (512, 512,
+   D) for the others), causal, next to its plain version and fp32 ``scaled_dot_product_attention`` (its
    forward for the forward kernel, its backward — forward + backward minus
    forward — for the two backward kernels); bound each on the tensor cores
    in 3xTF32 (the units the kernels run on) and, beside it, on the fp32
@@ -212,7 +214,8 @@ Phases, in order; any failed check raises, so the script exits non-zero:
    2048 slots for local attention), then 4 train steps of
    ``launch.train.main`` (its SGD, momentum 0.9; not nemotron) from a
    well-conditioned redraw of the init (``well_conditioned_``: at the
-   default init these archs' gradients explode with depth), flash on;
+   default init these archs' gradients explode with depth, in the
+   reference too: ``tests/test_torch_zoo_init.py``), flash on;
    finite logits and
    losses, moved params, steady prefill / decode / step walls, tokens a
    second, peak memory, the flash launches each makes (K6 at D 192 in
@@ -268,13 +271,14 @@ K4/K5 from phase 4d); K1-K3 also carry ``launches_sequential``, from phase
 4i, and K1-K3 and K1's tree ``launches_faults``, from phase 4g, and
 ``launches_sharded``, from phase 4j (a) and (b); K1 and K1's tree
 ``launches_remote``, from phase 4k (a); K6/K7 ``launches_train``, from
-phase 4l (a)-(c)'s flash-on runs, and ``launches_zoo``, from phase 4m's
-whisper-small, and K2/K3 ``launches_fed``, from phase 4l (d).  K6/K7 have
-a row a template instance: ``flash_fwd`` / ``flash_dq`` / ``flash_dkv``
-(D <= 128) and ``flash_fwd_d192`` (launches: phase 4m's nemotron-4-340b
-prefill), ``flash_*_d256`` (phase 4m's paligemma-3b); K7 at D 192 has no
-main path on one card (nemotron cannot train there), so its phase 3b
-measurements sit in the D 128 rows under ``"d192"``.
+phase 4l (a)-(c)'s flash-on runs, and K2/K3 ``launches_fed``, from phase
+4l (d).  K6/K7 have a row a template instance that a main path runs:
+``flash_fwd`` / ``flash_dq`` / ``flash_dkv`` (DP 128, D 65-128),
+``flash_*_d64`` (launches: phase 4m's whisper-small decoder, D 64),
+``flash_fwd_d192`` (phase 4m's nemotron-4-340b prefill) and
+``flash_*_d256`` (phase 4m's paligemma-3b); K7 at D 192 has no main path
+on one card (nemotron cannot train there), so its phase 3b measurements
+sit in the DP 128 rows under ``"d192"``.
 
 ``python3 chip_smoke.py --profile`` instead profiles one steady-state round
 per compression mode and engine (phases 4 and 4e), one steady round of each
@@ -334,16 +338,16 @@ def cuda_ms(fn, reps=REPS, warmup=3):
     return float(np.median(times))
 
 
-def sdpa_ms(q, k, v, do):
+def sdpa_ms(q, k, v, do, heads=32):
     """The flash kernels' library yardstick: fp32 SDPA, causal, on
-    (16 sequences, 32 heads, S, D) views of (512, S, D) q, k, v, dO ->
+    (BH / heads sequences, heads, S, D) views of (BH, S, D) q, k, v, dO ->
     (forward ms, backward ms = forward + backward minus forward)."""
     import torch.nn.functional as F
 
     s, d = q.shape[1:]
-    sq, sk, sv = (t.detach().view(16, 32, s, d).clone().requires_grad_()
+    sq, sk, sv = (t.detach().view(-1, heads, s, d).clone().requires_grad_()
                   for t in (q, k, v))
-    sdo = do.view(16, 32, s, d)
+    sdo = do.view(-1, heads, s, d)
 
     def fwd():
         with torch.no_grad():
@@ -462,14 +466,11 @@ def main():
           "whisper-small: prefill, decode, train")
     zoo = run_zoo(repro_torch, ops, dev, smi)
     for row in flash_rows:
-        # D 192 and 256: their zoo runs are their main path (nemotron's
-        # prefill, paligemma's prefill and train steps); D 128 (the DP 64
-        # instance): whisper's decoder
-        used = zoo[row["head_dim"]][row["counter"]]
-        if row["head_dim"] == 128:
-            row["launches_zoo"] = used
-        else:
-            row["launches"] = used
+        # DP 64, 192 and 256: their zoo runs are their main path
+        # (whisper's decoder, nemotron's prefill, paligemma's prefill and
+        # train steps); no zoo arch runs DP 128
+        if row["head_dim"] != 128:
+            row["launches"] = zoo[row["head_dim"]][row["counter"]]
         del row["counter"]
     # K7 at D 192 has no main path on one card (nemotron-4-340b cannot
     # train at its width there: params and grads alone exceed 80 GB); its
@@ -661,10 +662,24 @@ def print_resources(name, r, what):
           f"{r['ctas_per_sm']} CTAs per SM")
 
 
-#: head dims of the flash kernels' template instances: 128 (D 65-128, the
-#: LoRA and GLM-4 paths), 192 (Nemotron-4) and 256 (PaliGemma,
-#: RecurrentGemma); phase 3b reports and times each
-FLASH_DIMS = (128, 192, 256)
+#: head dims of the flash kernels' template instances that a main path
+#: runs: 64 (D 33-64, whisper-small's decoder), 128 (D 65-128, the LoRA
+#: and GLM-4 paths), 192 (Nemotron-4) and 256 (PaliGemma); phase 3b
+#: reports and times each
+FLASH_DIMS = (64, 128, 192, 256)
+
+#: each instance's timed shape in phase 3b, (BH, S, D, causal, heads): its
+#: main path's (whisper-small's 4 sequences x 12 heads of 448 tokens) or
+#: the LoRA path's (4 clients x 4 sequences x 32 heads = 512, S = 512)
+FLASH_TIMED = {64: (48, 448, 64, True, 12), 128: (512, 512, 128, True, 32),
+               192: (512, 512, 192, True, 32),
+               256: (512, 512, 256, True, 32)}
+
+
+def flash_instance(d):
+    """Head dim of the template instance that ``flash_attn.cu``'s
+    ``dp_for`` runs at head dim ``d``."""
+    return next(x for x in (16, 32, 64, 128, 192, 256) if d <= x)
 
 
 def flash_build_report(attention, build):
@@ -689,15 +704,16 @@ def flash_build_report(attention, build):
 
 
 def flash_row_name(name, d):
-    """The kernel line's name of one template instance: the D 128 instance
+    """The kernel line's name of one template instance: the DP 128 instance
     keeps the kernel's name, the others carry their head dim."""
     return name if d == 128 else f"{name}_d{d}"
 
 
 def check_flash(dev, attention, build):
     """K6/K7a/K7b: their resources, then held against their plain
-    versions, then timed at the LoRA path's shape, (512, 512, D, causal)
-    for each D of ``FLASH_DIMS``.  -> one row a kernel and head dim."""
+    versions (at every main path's shape among the cases), then timed at
+    ``FLASH_TIMED``'s shape for each D of ``FLASH_DIMS``.  -> one row a
+    kernel and template instance."""
     resources = flash_build_report(attention, build)
     gen = torch.Generator(device=dev).manual_seed(4321)
 
@@ -705,8 +721,13 @@ def check_flash(dev, attention, build):
         return [torch.randn((bh, s, d), generator=gen, device=dev)
                 for _ in range(4)]
 
-    mains = [(512, 512, d, True) for d in FLASH_DIMS]
-    cases = mains + [(3, 200, 72, True), (2, 130, 128, False),
+    mains = [FLASH_TIMED[d] for d in FLASH_DIMS]
+    # the zoo's main-path shapes (phase 4m): nemotron-4-340b's prefill, 96
+    # heads of 1024 tokens at D 192; paligemma-3b's 2 x 8 heads of 256
+    # frames + 256 tokens at D 256; whisper-small's decoder (the D 64 main)
+    cases = [m[:4] for m in mains] + [(96, 1024, 192, True),
+                                      (16, 512, 256, True)] + [
+        (3, 200, 72, True), (2, 130, 128, False),
                      (3, 200, 160, True), (2, 130, 192, False),
                      (3, 200, 200, True), (2, 130, 256, False)] + [
         (3, s, d, c) for s in (1, 63, 200) for d in (20, 64)
@@ -732,17 +753,18 @@ def check_flash(dev, attention, build):
         require(e["flash_fwd"] <= 1e-5, f"flash_fwd err {e['flash_fwd']}")
         require(e["flash_dq"] <= 1e-4, f"flash_dq err {e['flash_dq']}")
         require(e["flash_dkv"] <= 1e-4, f"flash_dkv err {e['flash_dkv']}")
-        dp = next(x for x in FLASH_DIMS if d <= x)   # the template instance
+        if flash_instance(d) not in FLASH_DIMS:
+            continue       # the DP 16 / 32 instances: checked, no row
         for n, x in e.items():
-            key = flash_row_name(n, dp)
+            key = flash_row_name(n, flash_instance(d))
             errs[key] = max(errs.get(key, 0.0), x)
 
     rows = []
-    for bh, s, d, causal in mains:
+    for bh, s, d, causal, heads in mains:
         q, k, v, do = qkv(bh, s, d)
         o, lse = attention.flash_fwd(q, k, v, causal)
         delta = (do * o).sum(dim=-1)
-        sdpa_f, sdpa_b = sdpa_ms(q, k, v, do)
+        sdpa_f, sdpa_b = sdpa_ms(q, k, v, do, heads)
         timed = {
             "flash_fwd": (lambda: attention.flash_fwd(q, k, v, causal),
                           lambda: attention.flash_fwd_plain(q, k, v, causal),
@@ -3765,8 +3787,6 @@ ZOO = {
     # nothing cut: 12 + 12 layers, 1500 frames; 448 decoder tokens
     "whisper-small": (None, 4, 448, 8, (4, 448)),
 }
-ZOO_HEAD_DIM = {"nemotron-4-340b": 192, "paligemma-3b": 256,
-                "whisper-small": 128}   # the flash instance each runs
 
 
 def zoo_cfg(arch):
@@ -3904,11 +3924,11 @@ def train_zoo(ops, arch, smi, steps=4):
 def well_conditioned_(model, params, seed=0):
     """Redraw ``params`` in place on their device at a well-conditioned
     scale, as ``well_conditioned`` draws on the CPU (matrices std
-    1/sqrt(d_model), vectors 0.1).  At the default init the projections'
-    fan-in is the head count, the attention saturates and the trained zoo
-    archs' gradients grow by orders of magnitude with depth (most in
-    whisper-small's encoder): launch.train's SGD reached NaN by its second
-    step."""
+    1/sqrt(d_model), vectors 0.1).  At the default init the trained zoo
+    archs' gradients grow by orders of magnitude with depth and are not
+    determined by float32 params, in the reference as in the port
+    (``tests/test_torch_zoo_init.py``): launch.train's SGD reached NaN by
+    its second step."""
     from repro_torch.utils.tree import tree_leaves
     gen = torch.Generator(device=tree_leaves(params)[0].device)
     gen.manual_seed(seed)
@@ -3921,9 +3941,10 @@ def well_conditioned_(model, params, seed=0):
 
 
 def run_zoo(repro_torch, ops, dev, smi):
-    """Phase 4m -> {head dim of the flash instance: flash launches of the
-    arch that runs it}: 192 nemotron's, 256 paligemma's, 128 (D <= 128)
-    whisper's."""
+    """Phase 4m -> {head dim of the flash template instance: flash launches
+    of the archs that run it (the instance ``flash_instance`` picks for
+    the arch's head dim)}: 64 whisper's, 192 nemotron's, 256
+    paligemma's."""
     release(repro_torch)
     repro_torch.set_device(None)
     out = {d: dict.fromkeys(("flash_fwd", "flash_dq", "flash_dkv"), 0)
@@ -3942,8 +3963,11 @@ def run_zoo(repro_torch, ops, dev, smi):
                 require(len(shares) == 1 and all(0 <= x < 1 for x in shares),
                         f"[4m {arch}] dropped shares {shares}")
             del rec
-        if arch in ZOO_HEAD_DIM:
-            out[ZOO_HEAD_DIM[arch]] = used
+        cfg = zoo_cfg(arch)
+        if flash_layers(cfg):
+            dp = flash_instance(cfg.resolved_head_dim)
+            require(dp in out, f"[4m {arch}] flash instance {dp} has no row")
+            out[dp] = {k: out[dp][k] + used[k] for k in used}
         gc.collect()
         torch.cuda.empty_cache()
     release(repro_torch)

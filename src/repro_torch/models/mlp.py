@@ -1,6 +1,6 @@
-"""Feed-forward blocks: SwiGLU / GeGLU / GELU / squared ReLU, and the RWKV
-channel-mix activation (tanh-approximate GELU throughout, as the
-reference)."""
+"""Feed-forward blocks: SwiGLU / GeGLU / GELU / squared ReLU
+(tanh-approximate GELU throughout, as the reference).  RWKV's channel-mix
+is ``models/rwkv6.py::channel_mix``."""
 from __future__ import annotations
 
 import torch
@@ -9,7 +9,7 @@ import torch.nn.functional as F
 from repro_torch.core.config import ArchConfig
 from repro_torch.models.layers import ParamDef
 
-GATED_ACTS = ("swiglu", "geglu", "relu_sq_gate")
+GATED_ACTS = ("swiglu", "geglu")
 
 
 def mlp_defs(cfg: ArchConfig, d_ff: int = 0):
@@ -26,9 +26,6 @@ def _act(name: str, gate, up):
         return F.silu(gate) * up
     if name == "geglu":
         return F.gelu(gate, approximate="tanh") * up
-    if name == "relu_sq_gate":
-        # RWKV channel-mix: squared-ReLU key path, sigmoid receptance gate
-        return torch.square(F.relu(up)) * torch.sigmoid(gate)
     if name == "gelu":
         return F.gelu(up, approximate="tanh")
     if name == "sq_relu":
