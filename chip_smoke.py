@@ -45,7 +45,9 @@ Phases, in order; any failed check raises, so the script exits non-zero:
    forward for the forward kernel, its backward — forward + backward minus
    forward — for the two backward kernels); bound each on the tensor cores
    in 3xTF32 (the units the kernels run on) and, beside it, on the fp32
-   CUDA cores;
+   CUDA cores; the D 192 and 256 instances are timed the same way at
+   phase 4m's main-path shapes too (``FLASH_ZOO_TIMED``: (96, 1024, 192)
+   and (16, 512, 256)), into their rows' ``at_main_path``;
 3c. print the WKV6 kernel's (K8) resources at hd 64 and its ``HMMA``
    count, as phase 3b; hold it against its plain version at the
    ``rwkv6-1.6b`` prefill shape (16 x 512 tokens, 32 heads of 64) and two
@@ -222,6 +224,23 @@ Phases, in order; any failed check raises, so the script exits non-zero:
    nemotron's prefill, K6/K7 at D 256 in paligemma's, at D 64 in
    whisper's decoder; none for MLA and local attention, as in the
    reference) and the MoE layer's dropped share at capacity 1.25;
+4n. (run right after 4l, before 4m) drive a MoE ``transformer_lm`` through
+   the batched engine: ``qwen3-moe-30b-a3b`` at published width cut to 2
+   layers (``qwen3_moe_2layer``: 128 experts top 8, f32) with phase 4b's
+   configuration (``lm512``, 4 of 8 clients, batch 4 x 512, 2 rounds, LoRA
+   rank 8 on attention, ``aggregation_kernel``) through ``init``/``run``,
+   once flash on and once off: each client's step runs under
+   ``torch.func.vmap``, the MoE dispatch batched over the cohort; finite
+   losses and adapters, K1 once a round, K6/K7 launched with the flag on
+   and not with it off, peak memory under 70 GiB, round walls, the share
+   of assignments dropped at capacity 1.25; the adapters of the two runs
+   within 1e-4;
+4o. run ``repro_torch.launch.dryrun`` for every arch id at ``train_4k``
+   on the (16, 16) mesh (fake tensors: the card's allocated and peak
+   memory must not move), print each record's roofline on H100 constants;
+   then time one reduced ``glm4-9b`` train step (bf16 activations, B 8 x
+   1024) on the card beside its counted FLOPs, ``model_flops`` and its
+   one-card roofline;
 5. run the same port for 2 rounds of 4 clients from one set of injected
    parameters on the card and on the CPU and compare them, once per
    engine: train losses within 1e-4; parameters printed against 1e-4 and
@@ -251,7 +270,9 @@ Phases, in order; any failed check raises, so the script exits non-zero:
    the reduced ``glm4-9b`` 2 federated rounds under stc, flash on, on the
    card and on the CPU from the same well-conditioned params and batches:
    params within max(1e-4, 2 x how far the card's run moves from a
-   1e-7-perturbed init);
+   1e-7-perturbed init); then one batched round of the reduced
+   ``qwen3-moe-30b-a3b`` as a ``transformer_lm`` without LoRA (4 of 8
+   ``tiny_lm`` clients) on the card and on the CPU, at the same bar;
 5e. the reduced ``nemotron-4-340b``, ``paligemma-3b``,
    ``deepseek-v2-lite-16b``, ``recurrentgemma-9b`` (2 layers, and 3 with
    local attention over 80 tokens) and ``whisper-small`` (a random
@@ -272,7 +293,8 @@ K4/K5 from phase 4d); K1-K3 also carry ``launches_sequential``, from phase
 ``launches_sharded``, from phase 4j (a) and (b); K1 and K1's tree
 ``launches_remote``, from phase 4k (a); K6/K7 ``launches_train``, from
 phase 4l (a)-(c)'s flash-on runs, and K2/K3 ``launches_fed``, from phase
-4l (d).  K6/K7 have a row a template instance that a main path runs:
+4l (d); K1 and the DP 128 flash rows ``launches_moe``, from phase 4n's
+flash-on run.  K6/K7 have a row a template instance that a main path runs:
 ``flash_fwd`` / ``flash_dq`` / ``flash_dkv`` (DP 128, D 65-128),
 ``flash_*_d64`` (launches: phase 4m's whisper-small decoder, D 64),
 ``flash_fwd_d192`` (phase 4m's nemotron-4-340b prefill) and
@@ -449,6 +471,7 @@ def main():
     # phase 4l runs here, while the card holds nothing else: later phases
     # keep the RWKV6 params (5.97 GiB, for 5c) and more, and the federated
     # round needs ~64 GiB of the card's 79.18
+    dryruns = start_dryruns()       # phase 4o's, on the CPU meanwhile
     phase("4l. LLM training: launch/train at full width (glm4-9b, "
           "qwen3-moe-30b-a3b, internlm2-20b, phi3-medium-14b; 2 layers) and "
           "the cross-pod federated round")
@@ -459,6 +482,21 @@ def main():
             row["launches_train"] = train_launches[row["name"]]
         if row["name"] in fed_launches:
             row["launches_fed"] = fed_launches[row["name"]]
+
+    phase("4n. a MoE transformer_lm in the batched engine: "
+          "qwen3-moe-30b-a3b at published width (2 layers), LoRA, through "
+          "init/run, flash on and off")
+    moe_launches = run_moe_lm(repro_torch, ops, smi)
+    for row in kernels + flash_rows:
+        # K1 and the D 128 flash instance: the MoE cohort's launches
+        if row.get("counter") == "fedavg_agg" or (
+                row.get("head_dim") == 128 and "counter" in row):
+            row["launches_moe"] = moe_launches[row["counter"]]
+
+    phase("4o. the dry run: every arch id at train_4k on the (16, 16) mesh "
+          "with no device memory; one reduced glm4-9b step against its "
+          "roofline")
+    run_dryrun_phase(dev, smi, dryruns)
 
     phase("4m. the rest of the model zoo at published width: "
           "nemotron-4-340b (1 layer, serve), paligemma-3b, "
@@ -585,8 +623,10 @@ def main():
     del rwkv_params
 
     phase("5d. card against CPU: reduced glm4-9b and qwen3-moe-30b-a3b "
-          "train steps, reduced glm4-9b federated rounds under stc")
+          "train steps, reduced glm4-9b federated rounds under stc, a "
+          "reduced qwen3-moe-30b-a3b batched round")
     llm_card_vs_cpu(smi)
+    moe_round_card_vs_cpu(smi)
 
     phase("5e. card against CPU: the reduced zoo (nemotron-4-340b, "
           "paligemma-3b, deepseek-v2-lite-16b, recurrentgemma-9b at 2 and 3 "
@@ -675,6 +715,13 @@ FLASH_TIMED = {64: (48, 448, 64, True, 12), 128: (512, 512, 128, True, 32),
                192: (512, 512, 192, True, 32),
                256: (512, 512, 256, True, 32)}
 
+#: the D 192 / 256 instances' launches on phase 4m's main path happen at
+#: other shapes than ``FLASH_TIMED``'s: nemotron-4-340b's prefill (96 heads
+#: of 1024 tokens) and paligemma-3b's (2 x 8 heads of 256 frames + 256
+#: tokens); phase 3b times them there too (the row's ``at_main_path``)
+FLASH_ZOO_TIMED = {192: (96, 1024, 192, True, 96),
+                   256: (16, 512, 256, True, 8)}
+
 
 def flash_instance(d):
     """Head dim of the template instance that ``flash_attn.cu``'s
@@ -759,8 +806,9 @@ def check_flash(dev, attention, build):
             key = flash_row_name(n, flash_instance(d))
             errs[key] = max(errs.get(key, 0.0), x)
 
-    rows = []
-    for bh, s, d, causal, heads in mains:
+    def timed_at(bh, s, d, causal, heads):
+        """The three kernels, their plain versions and SDPA at one shape
+        -> {kernel: measurements}."""
         q, k, v, do = qkv(bh, s, d)
         o, lse = attention.flash_fwd(q, k, v, causal)
         delta = (do * o).sum(dim=-1)
@@ -768,35 +816,51 @@ def check_flash(dev, attention, build):
         timed = {
             "flash_fwd": (lambda: attention.flash_fwd(q, k, v, causal),
                           lambda: attention.flash_fwd_plain(q, k, v, causal),
-                          sdpa_f, "src/repro/kernels/attention.py:60"),
+                          sdpa_f),
             "flash_dq": (
                 lambda: attention.flash_dq(q, k, v, do, lse, delta, causal),
                 lambda: attention.flash_dq_plain(q, k, v, do, lse, delta,
                                                  causal),
-                sdpa_b, "src/repro/kernels/attention.py:151"),
+                sdpa_b),
             "flash_dkv": (
                 lambda: attention.flash_dkv(q, k, v, do, lse, delta, causal),
                 lambda: attention.flash_dkv_plain(q, k, v, do, lse, delta,
                                                   causal),
-                sdpa_b, "src/repro/kernels/attention.py:176"),
+                sdpa_b),
         }
-        for name, (kern, plain, lib_ms, replaces) in timed.items():
+        out = {}
+        for name, (kern, plain, lib_ms) in timed.items():
             (b, by), (b_cc, by_cc) = flash_bound(bh, s, d, causal, name)
-            key = flash_row_name(name, d)
-            rows.append(dict(
-                name=key, counter=name, head_dim=d, route="cuda",
-                source="src/repro_torch/kernels/csrc/flash_attn.cu",
-                replaces=replaces, shape=[bh, s, d], max_abs_err=errs[key],
-                ms=cuda_ms(kern), plain_ms=cuda_ms(plain), bound_ms=b,
-                bound_by=by, library_ms=lib_ms,
-                **resources[d][name]))
-            r = rows[-1]
-            print(f"{key:16s} {r['shape']} causal: kernel {r['ms']:.4f} ms, "
-                  f"plain {r['plain_ms']:.4f} ms, sdpa {lib_ms:.4f} ms "
+            out[name] = dict(shape=[bh, s, d], ms=cuda_ms(kern),
+                             plain_ms=cuda_ms(plain), bound_ms=b,
+                             bound_by=by, library_ms=lib_ms)
+            r = out[name]
+            print(f"{flash_row_name(name, d):16s} {r['shape']} causal: "
+                  f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                  f"sdpa {lib_ms:.4f} ms "
                   f"({'forward' if name == 'flash_fwd' else 'backward, dq+dk+dv'}"
                   f"), bound {b:.4f} ms ({by}, 3xTF32 tensor cores; "
                   f"{b_cc:.4f} ms ({by_cc}) on the fp32 CUDA cores)")
         del q, k, v, do, o, lse, delta
+        return out
+
+    replaces = {"flash_fwd": "src/repro/kernels/attention.py:60",
+                "flash_dq": "src/repro/kernels/attention.py:151",
+                "flash_dkv": "src/repro/kernels/attention.py:176"}
+    rows = []
+    for bh, s, d, causal, heads in mains:
+        got = timed_at(bh, s, d, causal, heads)
+        zoo = (timed_at(*FLASH_ZOO_TIMED[d]) if d in FLASH_ZOO_TIMED
+               else None)
+        for name, m in got.items():
+            key = flash_row_name(name, d)
+            rows.append(dict(
+                name=key, counter=name, head_dim=d, route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attn.cu",
+                replaces=replaces[name], max_abs_err=errs[key], **m,
+                **resources[d][name]))
+            if zoo is not None:
+                rows[-1]["at_main_path"] = zoo[name]
     return rows
 
 
@@ -1683,8 +1747,9 @@ def femnist_config(mode, execution, rounds=3, clients=10):
 #: are the datasets' defaults: ``init`` is given the dataset alone)
 M3_MODELS = {"shakespeare_lstm": "shakespeare", "cifar_resnet18": "cifar10"}
 #: phase 4h's card-vs-CPU runs (rounds, clients a round): cut from phase
-#: 5's 2 x 4 to 1 x 2 (the CPU side of either took over half a minute)
-M3_CPU_CUT = {"shakespeare_lstm": (1, 2), "cifar_resnet18": (1, 2)}
+#: 5's 2 x 4 to 1 x 2 (the CPU side of either took over half a minute),
+#: the ResNet's to 1 x 1 (its CPU side of 1 x 2 took 115 s)
+M3_CPU_CUT = {"shakespeare_lstm": (1, 2), "cifar_resnet18": (1, 1)}
 
 
 def model_config(model, mode, execution, rounds=3, clients=10):
@@ -3491,25 +3556,11 @@ def moe_dropped(params, arch, dev, layers=LLM_LAYERS, shape=(2, 512)):
     layers) on the run's first batch of ``shape``."""
     from repro_torch.configs import get_arch
     from repro_torch.launch.train import synthetic_lm_batches
-    from repro_torch.models import moe as moe_mod
     from repro_torch.models.model import Model
 
     cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
     tokens = next(synthetic_lm_batches(cfg.vocab, *shape, 0, dev))["tokens"]
-    shares = []
-    real = moe_mod._dispatch_local
-
-    def spy(cfg, x_flat, top_w, top_ids, C):
-        buf, meta = real(cfg, x_flat, top_w, top_ids, C)
-        shares.append(1.0 - meta[-1].float().mean().item())
-        return buf, meta
-    moe_mod._dispatch_local = spy
-    try:
-        with torch.no_grad():
-            Model(cfg).forward(params, tokens)
-    finally:
-        moe_mod._dispatch_local = real
-    return shares
+    return moe_drop_share(lambda t: Model(cfg).forward(params, t), tokens)
 
 
 def run_fed(ops, dev, smi):
@@ -3765,6 +3816,327 @@ def llm_card_vs_cpu(smi):
             require(diff <= bar, f"[5d {case}] card vs CPU {diff} > {bar}")
     finally:
         mattn.set_flash_attention(None)
+
+
+# ---------------------------------------------------------------------------
+# Phase 4n: a MoE transformer_lm in the batched engine; phase 4o: the dry run
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "qwen3-moe-30b-a3b"
+
+
+def qwen3_moe_2layer():
+    """Qwen3-30B-A3B at its published width (d_model 2048, 32 / 4 heads of
+    128, 128 experts top 8 of FFN 768, vocab 151,936), depth cut 48 -> 2,
+    f32, as a ``transformer_lm`` (its QK-norm keeps the default init's
+    attention unsaturated)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.llm import transformer_lm
+
+    arch = dataclasses.replace(get_arch(MOE_ARCH), n_layers=2,
+                               dtype="float32", max_seq_len=LORA_SEQ_LEN)
+    return transformer_lm(arch, name="qwen3-moe-2l")
+
+
+def moe_drop_share(forward, tokens):
+    """The share of (token, expert) assignments each MoE layer drops at
+    capacity in a no-grad ``forward(tokens)``."""
+    from repro_torch.models import moe as moe_mod
+
+    shares = []
+    real = moe_mod._dispatch_local
+
+    def spy(cfg, x_flat, top_w, top_ids, C):
+        buf, meta = real(cfg, x_flat, top_w, top_ids, C)
+        shares.append(1.0 - meta[-1].float().mean().item())
+        return buf, meta
+    moe_mod._dispatch_local = spy
+    try:
+        with torch.no_grad():
+            forward(tokens)
+    finally:
+        moe_mod._dispatch_local = real
+    return shares
+
+
+def run_moe_lora(repro_torch, ops, flash_on, smi):
+    """Phase 4n: ``qwen3_moe_2layer`` through ``init``/``run`` with phase
+    4b's configuration (``lm512``: 4 of 8 clients a round, batch 4 x 512
+    tokens, 2 rounds, LoRA rank 8 on attention, ``aggregation_kernel``),
+    batched: every client's step under ``torch.func.vmap``, the MoE
+    dispatch batched over the cohort.  -> the final adapters, the launch
+    counts and the drop shares."""
+    tag = f"[4n moe lora flash {'on' if flash_on else 'off'}]"
+    from repro_torch.models import attention as mattn
+    from repro_torch.models.lora import adapter_param_count
+    from repro_torch.utils.tree import tree_leaves
+
+    release(repro_torch)
+    model = qwen3_moe_2layer()
+    cfg = lora_config(model)
+    repro_torch.init(cfg)
+    mattn.set_flash_attention(flash_on)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        res = repro_torch.run()
+        torch.cuda.synchronize()
+    finally:
+        mattn.set_flash_attention(None)
+    total = time.perf_counter() - t0
+    used = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    hist = res["history"]
+    walls = [h["wall_time"] for h in hist]
+    rounds = cfg["server"]["rounds"]
+    print(f"{tag} round wall s {[round(w, 4) for w in walls]} (round 0 "
+          f"includes first use); run total {total:.3f} s (base init "
+          f"included); peak device memory {peak:.2f} GiB; train_loss "
+          f"{[round(h['train_loss'], 6) for h in hist]}; launches "
+          f"{ {k: v for k, v in used.items() if v} } ({smi})")
+    require(used["fedavg_agg"] == rounds, f"{tag} fedavg_agg launched "
+            f"{used['fedavg_agg']} times, expected {rounds}")
+    for k in ("flash_fwd", "flash_dq", "flash_dkv"):
+        require((used[k] > 0) == flash_on, f"{tag} {k} launched {used[k]} "
+                f"times with the flag {'on' if flash_on else 'off'}")
+    for k in ("stc_batched", "int8_rowmax", "int8_qdq"):
+        require(used[k] == 0, f"{tag} {k} launched without compression")
+    require(all(math.isfinite(h["train_loss"]) for h in hist),
+            f"{tag} non-finite loss")
+    out = tree_leaves(res["params"])
+    want = adapter_param_count(repro_torch.core.api._ctx.model,
+                               LORA_CLIENT["lora_rank"],
+                               LORA_CLIENT["lora_targets"])
+    require(sum(t.numel() for t in out) == want,
+            f"{tag} trained parameters are not the {want} adapter elements")
+    require(all(bool(torch.isfinite(t).all()) for t in out),
+            f"{tag} non-finite adapters")
+    require(peak < 70, f"{tag} peak device memory {peak:.2f} GiB >= 70")
+    shares = None
+    if flash_on:
+        # the drop share on the run's own data: the trained model (the
+        # frozen base merged with the final adapters) on the first
+        # client's first batch
+        ctx = repro_torch.core.api._ctx
+        cid = sorted(ctx.fed_data.clients)[0]
+        tokens = torch.as_tensor(ctx.fed_data.clients[cid].x[:4],
+                                 device=ctx.trainer.device)
+        shares = moe_drop_share(
+            lambda t: ctx.trainer.model.apply(res["params"], t), tokens)
+        print(f"{tag} share of (token, expert) assignments dropped at "
+              f"capacity 1.25 a layer, final params, 4 x 512 tokens: "
+              f"{[round(x, 4) for x in shares]}")
+        require(len(shares) == 2 and all(0 <= x < 1 for x in shares),
+                f"{tag} drop shares {shares}")
+    release(repro_torch)
+    return {"params": [t.cpu() for t in out], "launches": used,
+            "walls": walls, "peak": peak, "shares": shares}
+
+
+def run_moe_lm(repro_torch, ops, smi):
+    """Phase 4n: the MoE LoRA run flash on and off; the adapters within
+    phase 4b's 1e-4.  -> the flash-on run's launch counts."""
+    on = run_moe_lora(repro_torch, ops, True, smi)
+    off = run_moe_lora(repro_torch, ops, False, smi)
+    diff = max_param_diff(on["params"], off["params"])
+    print(f"[4n moe lora] flash on vs off: max |adapter diff| {diff:.3g} "
+          f"(bar 1e-4)")
+    require(diff <= 1e-4, f"[4n] flash on vs off adapters differ by {diff}")
+    return on["launches"]
+
+
+def start_dryruns():
+    """Start phase 4o's dry runs: ``python -m repro_torch.launch.dryrun``
+    for every arch id at its train shape (train_4k on the (16, 16) mesh,
+    fsdp_tp), one child process an arch, all at once, at the lowest CPU
+    priority and with no card visible (they trace fake tensors on the
+    CPU, so they run beside the card-bound phases 4l and 4n).  ->
+    (processes, output directory, start time); an exit handler kills any
+    child still running."""
+    import atexit
+    import tempfile
+
+    from repro_torch.configs import list_archs
+
+    out = tempfile.mkdtemp(prefix="dryrun-")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   [os.path.join(ROOT, "src")]
+                   + [x for x in [os.environ.get("PYTHONPATH")] if x]))
+    procs = {arch: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", "train_4k", "--out", out], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        preexec_fn=lambda: os.nice(19))
+        for arch in list_archs()}
+
+    def stop():
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    atexit.register(stop)
+    return procs, out, time.perf_counter()
+
+
+def run_dryrun_phase(dev, smi, started):
+    """Phase 4o: collect the dry runs ``start_dryruns`` started (each
+    record must say CUDA stayed uninitialized, and this process's device
+    memory must not move meanwhile); then one reduced glm4-9b train step
+    (bf16 activations) timed on the card beside its counted FLOPs,
+    ``model_flops`` and its roofline on one H100."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.train import synthetic_lm_batches
+    from repro_torch.models.model import (
+        Model, init_train_state, make_train_step,
+    )
+    from repro_torch.optim import sgd
+
+    procs, out, t0 = started
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    waited = time.perf_counter()
+    try:
+        logs = {a: p.communicate(timeout=300)[0] for a, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    waited = time.perf_counter() - waited
+    for arch, p in procs.items():
+        require(p.returncode == 0 and "[OK]" in logs[arch],
+                f"[4o] the dry run of {arch} failed: {logs[arch][-2000:]}")
+        path = os.path.join(
+            out, f"{arch}__train_4k__single__train__fsdp_tp.json")
+        with open(path) as f:
+            rec = json.load(f)
+        os.remove(path)
+        rl = rec["roofline"]
+        print(f"[4o dryrun {arch}] train_4k on {rec['mesh_shape']}: traced "
+              f"depths {rec['traced_depths']} in {rec['trace_s']:.2f} s; "
+              f"per device {rec['per_device_bytes']['total'] / 2**30:.3f} "
+              f"GiB held; {rl['flops']:.4g} FLOPs, {rl['hbm_bytes']:.4g} "
+              f"HBM bytes, {rl['collective_bytes']:.4g} collective bytes a "
+              f"device; compute {rl['compute_s']:.4g} s, memory "
+              f"{rl['memory_s']:.4g} s, collective {rl['collective_s']:.4g} "
+              f"s: {rl['dominant']}-bound; model_flops / counted "
+              f"{rl['useful_compute_ratio']:.3f}")
+        require(rl["flops"] > 0 and rl["hbm_bytes"] > 0
+                and rec["collectives"]["total_bytes"] > 0
+                and rl["dominant"] in ("compute", "memory", "collective")
+                and rec["device"] == {"cuda_initialized": False,
+                                      "bytes_allocated": 0},
+                f"[4o] {arch}: record {rl} {rec['device']}")
+    os.rmdir(out)
+    after = torch.cuda.memory_allocated()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[4o] the dry run of {len(procs)} arch ids, one process each "
+          f"without the card, took {wall:.1f} s from their start (beside "
+          f"phases 4l and 4n), {waited:.1f} s of it waited for here; this "
+          f"process's device memory allocated {before} -> {after} bytes, "
+          f"peak {peak}")
+    require(after == before and peak == before,
+            f"[4o] device memory moved: {before} -> {after}, peak {peak}")
+
+    cfg = dataclasses.replace(get_arch("glm4-9b", reduced=True),
+                              dtype="bfloat16")
+    shape = InputShape("step", 1024, 8, "train")
+    model = Model(cfg)
+    counts = dryrun.trace_step(model, shape, "train")
+    mf = roofline.model_flops(cfg, shape, text_len=model.text_len(shape))
+    rl = roofline.Roofline(flops=counts["flops"],
+                           hbm_bytes=counts["hbm_bytes"],
+                           collective_bytes=0.0, chips=1, model_flops=mf)
+    opt = sgd(0.01, momentum=0.9)
+    state = init_train_state(model, opt, torch.Generator(
+        device=dev).manual_seed(0), dev)
+    step = make_train_step(model, opt, remat=True)
+    data = synthetic_lm_batches(cfg.vocab, 8, 1024, 0, dev)
+    walls = []
+    for _ in range(6):
+        batch = next(data)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    steady = float(np.median(walls[1:]))
+    print(f"[4o step] reduced glm4-9b (d_model {cfg.d_model}, "
+          f"{cfg.n_layers} layers, bf16 activations), B 8 x 1024, remat: "
+          f"step wall s {[round(w, 5) for w in walls]} (step 1 includes "
+          f"first use), median of 2-6 {steady:.5f} s; counted "
+          f"{counts['flops']:.4g} FLOPs and {counts['hbm_bytes']:.4g} HBM "
+          f"bytes (fake-tensor trace, {counts['ops']} ops), model_flops "
+          f"{mf:.4g}; roofline on one {roofline.CARD}: compute "
+          f"{rl.compute_s * 1e3:.4f} ms, memory {rl.memory_s * 1e3:.4f} ms "
+          f"({rl.dominant}-bound), {rl.bound_s * 1e3:.4f} ms = "
+          f"{100 * rl.bound_s / steady:.2f}% of the measured step ({smi})")
+    require(math.isfinite(float(metrics["loss"])), "[4o step] loss")
+    del state, step
+    return wall
+
+
+def moe_round_card_vs_cpu(smi, card="cuda"):
+    """Phase 5d: one batched round of the reduced qwen3-moe-30b-a3b as a
+    ``transformer_lm`` without LoRA (4 of 8 ``tiny_lm`` clients, flash on:
+    K6/K7 on the card, their plain versions on the CPU), on the card and on
+    the CPU from the same params; params within max(1e-4, 2 x how far the
+    card's round moves from a 1e-7-perturbed start)."""
+    import repro_torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core import api
+    from repro_torch.core.rounds import Trainer
+    from repro_torch.models import attention as mattn
+    from repro_torch.models.llm import transformer_lm
+    from repro_torch.models.model import Model
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    arch = get_arch(MOE_ARCH, reduced=True)
+    model = transformer_lm(arch)
+    cfg = {"model": model.name, "dataset": "tiny_lm",
+           "data": {"num_clients": 8, "batch_size": 32},
+           "server": {"rounds": 1, "clients_per_round": 4},
+           "client": {"local_epochs": 1, "lr": 0.1},
+           "resources": {"execution": "batched"}}
+    params = well_conditioned(Model(arch), 12)
+
+    def run(device, start):
+        repro_torch.reset()
+        repro_torch.set_device(device)
+        repro_torch.register_model(model)
+        repro_torch.init(cfg)
+        ctx = api._ctx
+        trainer = Trainer(ctx.config, ctx.model, ctx.fed_data,
+                          tracker=ctx.tracker)
+        trainer.server.params = tree_map(lambda t: t.to(device), start)
+        try:
+            res = trainer.run()
+        finally:
+            repro_torch.set_device(None)
+            repro_torch.reset()
+        return [t.cpu() for t in tree_leaves(res["params"])]
+
+    mattn.set_flash_attention(True)
+    try:
+        got = run(card, params)
+        cpu = run("cpu", params)
+        reach = max_diff(run(card, perturbed(params, 1)), got)
+    finally:
+        mattn.set_flash_attention(None)
+    diff = max_diff(got, cpu)
+    bar = max(1e-4, 2 * reach)
+    print(f"[5d {MOE_ARCH} batched round] card vs CPU: max |param diff| "
+          f"{diff:.4g} ({'within' if diff <= 1e-4 else 'above'} 1e-4); the "
+          f"card from a 1e-7-perturbed start moves {reach:.4g}; bar "
+          f"{bar:.4g} ({smi})")
+    require(diff <= bar, f"[5d moe round] card vs CPU {diff} > {bar}")
 
 
 # ---------------------------------------------------------------------------

@@ -295,7 +295,7 @@ class AsyncEngine:
         if hasattr(type(self.server), "buffered_apply"):
             # FedBuff-family servers own the weighted application
             for e, s in zip(batch, staleness):
-                e.result["_staleness"] = float(s)
+                e.result["_staleness"] = float(s)  # flcheck: ignore[FLC102]  -- host np scalar
             self.server.buffered_apply(results)
         else:
             updates = [comp.decompress(r["update"]) for r in results]
@@ -344,7 +344,7 @@ class AsyncEngine:
                     simulated_time=e.finish_time - e.dispatch_time,
                     dispatch_time=e.dispatch_time,
                     finish_time=e.finish_time,
-                    staleness=float(s),
+                    staleness=float(s),  # flcheck: ignore[FLC102]  -- host np scalar
                     **e.result["metrics"])
         return metrics
 

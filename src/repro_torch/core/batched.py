@@ -750,9 +750,9 @@ class BatchedExecutor:
                               self._put(n_steps), self._vec(vec))
         _note_dispatch()
         # the timing boundary: ``wall`` feeds the virtual clock
-        fetched = torch.stack([gather_rows([p[i] for p in parts],
-                                           self.device)
-                               for i in (1, 2)]).cpu().numpy()
+        stacked = torch.stack([gather_rows([p[i] for p in parts],
+                                           self.device) for i in (1, 2)])
+        fetched = stacked.cpu().numpy()  # flcheck: ignore[FLC101]  -- the staged cohort's one fetch, the timing boundary
         _note_host_sync()
         wall = time.perf_counter() - t0
         sharded = self.mesh is not None
@@ -846,7 +846,7 @@ class BatchedExecutor:
         def fetch():
             # the round's ONE batched device->host transfer
             guard = [] if ok is None else [ok.to(loss.dtype)]
-            fetched = torch.stack([loss, acc, *guard, *nnz]).cpu().numpy()
+            fetched = torch.stack([loss, acc, *guard, *nnz]).cpu().numpy()  # flcheck: ignore[FLC101]  -- the fused round's single batched fetch
             _note_host_sync()
             counts = iter(fetched[2 + len(guard):])
             st["loss"], st["acc"] = fetched[0], fetched[1]
@@ -908,7 +908,8 @@ class BatchedExecutor:
         if "clients" in state:
             self._ef.load_state(state)
             return
-        rows = {str(k): int(v) for k, v in state.get("rows", {}).items()}
+        rows = {str(k): int(v)  # flcheck: ignore[FLC102]  -- checkpoint dict holds host ints
+                for k, v in state.get("rows", {}).items()}
         store = [np.asarray(m, np.float32) for m in state.get("store", [])]
         self._ef.load_state(
             {"clients": {cid: [m[r] for m in store]
@@ -1062,11 +1063,11 @@ class BatchedExecutor:
         totals = np.full((n,), base, np.int64)
         stc_nnz = [a for a in st["nnz"] if a is not None]
         if any(isinstance(a, torch.Tensor) for a in stc_nnz):
-            stc_nnz = list(torch.stack(stc_nnz).cpu().numpy())
+            stc_nnz = list(torch.stack(stc_nnz).cpu().numpy())  # flcheck: ignore[FLC101]  -- one batched nnz fetch
             _note_host_sync()
         for counts in stc_nnz:
             totals += stc_leaf_bytes(np.asarray(counts)[:n].astype(np.int64))
-        return totals.tolist()
+        return totals.tolist()  # flcheck: ignore[FLC101]  -- a numpy array, already on the host
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -1079,8 +1080,8 @@ class BatchedExecutor:
         (the staged path aggregates them stacked)."""
         n_steps, wall = st["n_steps"], st["wall"]
         total_steps = max(int(n_steps.sum()), 1)
-        loss, acc = st["loss"].tolist(), st["acc"].tolist()
-        steps_f = n_steps.astype(np.float64).tolist()
+        loss, acc = st["loss"].tolist(), st["acc"].tolist()  # flcheck: ignore[FLC101]  -- numpy arrays of the cohort's one fetch
+        steps_f = n_steps.astype(np.float64).tolist()  # flcheck: ignore[FLC101]  -- a numpy array, already on the host
         results = []
         for i, c in enumerate(clients):
             res = {

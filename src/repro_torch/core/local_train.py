@@ -83,7 +83,7 @@ def cyclic_batches(n: int, batch_size: int, seed: int):
     return padded.reshape(n_batches, batch_size)
 
 
-def local_train(model: FLModel, params, data_x, data_y, *,
+def local_train(model: FLModel, params, data_x, data_y, *,  # flcheck: hot
                 epochs: int, batch_size: int, optimizer: Optimizer,
                 proximal_mu: float = 0.0, max_grad_norm: float = 0.0,
                 seed: int = 0, global_params=None):
@@ -106,15 +106,15 @@ def local_train(model: FLModel, params, data_x, data_y, *,
             params, opt_state, {"x": x[bidx], "y": y[bidx]}, gp)
         losses.append(metrics["loss"])
         accs.append(metrics["accuracy"])
-    fetched = torch.stack(losses + accs).cpu().numpy()
+    fetched = torch.stack(losses + accs).cpu().numpy()  # flcheck: ignore[FLC101]  -- single end-of-loop fetch
     n = len(losses)
     return params, {"loss": float(np.mean(fetched[:n])),
                     "accuracy": float(np.nanmean(fetched[n:])),
-                    "batches": float(n)}
+                    "batches": float(len(losses))}
 
 
 @torch.no_grad()
-def evaluate(model: FLModel, params, data_x, data_y,
+def evaluate(model: FLModel, params, data_x, data_y,  # flcheck: hot
              batch_size: int = 256) -> Dict[str, float]:
     """Sample-weighted full-dataset eval.  ``data_x``/``data_y`` may be
     numpy arrays or tensors; they are moved to the parameters' device.
@@ -135,7 +135,7 @@ def evaluate(model: FLModel, params, data_x, data_y,
         accs.append(m["accuracy"])
         weights.append(min(batch_size, len(x) - s))
     # one transfer for the whole evaluation, after every batch is enqueued
-    fetched = torch.stack(losses + accs).cpu().numpy()
+    fetched = torch.stack(losses + accs).cpu().numpy()  # flcheck: ignore[FLC101]  -- single end-of-loop fetch
     w = np.asarray(weights, dtype=np.float64)
     n = len(losses)
     return {"loss": float(np.average(fetched[:n], weights=w)),

@@ -283,7 +283,7 @@ class Trainer:
         return t
 
     # ------------------------------------------------------------------
-    def _run_batched(self, selected: List[str], payload: Dict[str, Any],
+    def _run_batched(self, selected: List[str], payload: Dict[str, Any],  # flcheck: hot
                      round_id: int,
                      plans: Optional[Dict[str, FaultPlan]] = None,
                      counts: Optional[Dict[str, int]] = None):
@@ -417,7 +417,7 @@ class Trainer:
                 sync=self.cfg.tracking.round_sync)
             self.server.params = new_params
             total_steps = max(int(st["n_steps"][: len(clients)].sum()), 1)
-            steps_f = st["n_steps"].astype(np.float64).tolist()
+            steps_f = st["n_steps"].astype(np.float64).tolist()  # flcheck: ignore[FLC101]  -- a numpy array, already on the host
             results = [
                 {"client_id": c.client_id, "num_samples": len(c.data),
                  "train_time": st["wall"] * steps_f[i] / total_steps}
@@ -428,7 +428,7 @@ class Trainer:
                 single fetch."""
                 if fetch is not None:
                     fetch()
-                loss, acc = st["loss"].tolist(), st["acc"].tolist()
+                loss, acc = st["loss"].tolist(), st["acc"].tolist()  # flcheck: ignore[FLC101]  -- numpy arrays of the round's one fetch
                 for i, (res, pb) in enumerate(zip(results, payloads(st))):
                     res["metrics"] = {"loss": loss[i], "accuracy": acc[i],
                                       "batches": steps_f[i]}
@@ -487,7 +487,7 @@ class Trainer:
             if plans is not None:
                 # one small host sync (N_b bools), only under faults
                 label_rejected(results, labels,
-                               st["guard_ok"].cpu().numpy())
+                               st["guard_ok"].cpu().numpy())  # flcheck: ignore[FLC101]  -- N bools, faults only
             return results, True, None
         if is_async and default_post and method in ("stc", "int8"):
             # async wave: compress in-program, hand back each client's sent
@@ -564,12 +564,12 @@ class Trainer:
         results.sort(key=lambda r: order[r["client_id"]])
         return results, wall_times, sim_times
 
-    def run_round(self, round_id: int) -> Dict[str, float]:
+    def run_round(self, round_id: int) -> Dict[str, float]:  # flcheck: hot
         """Run round ``round_id`` and return its metrics: the dispatch and
         its finalize back to back (see :meth:`_dispatch_round`)."""
         return self._dispatch_round(round_id)()
 
-    def _dispatch_round(self, round_id: int
+    def _dispatch_round(self, round_id: int  # flcheck: hot
                         ) -> Callable[[], Dict[str, float]]:
         """Run round ``round_id`` up to its metrics; return the finalize
         closure that fetches them (a deferred fused round's single batched

@@ -147,7 +147,7 @@ def _check(name: str, q: torch.Tensor, *rest: torch.Tensor) -> None:
                 f"got {tuple(t.shape)} {t.dtype} on {t.device}")
 
 
-def _fwd_cuda(q, k, v, causal):
+def _fwd_cuda(q, k, v, causal: bool):
     global fwd_launches
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     _check("flash_fwd", q, k, v)

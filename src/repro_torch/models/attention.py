@@ -53,14 +53,14 @@ def attn_defs(cfg: ArchConfig):
     d = cfg.d_model
     hd = cfg.resolved_head_dim
     defs = {
-        "wq": ParamDef((d, cfg.n_heads, hd)),
-        "wk": ParamDef((d, cfg.n_kv_heads, hd)),
-        "wv": ParamDef((d, cfg.n_kv_heads, hd)),
-        "wo": ParamDef((cfg.n_heads, hd, d)),
+        "wq": ParamDef((d, cfg.n_heads, hd), axes=("embed", "heads", None)),
+        "wk": ParamDef((d, cfg.n_kv_heads, hd), axes=("embed", "kv", None)),
+        "wv": ParamDef((d, cfg.n_kv_heads, hd), axes=("embed", "kv", None)),
+        "wo": ParamDef((cfg.n_heads, hd, d), axes=("heads", None, "embed")),
     }
     if cfg.qk_norm:
-        defs["q_norm"] = ParamDef((hd,), init=zeros_init)
-        defs["k_norm"] = ParamDef((hd,), init=zeros_init)
+        defs["q_norm"] = ParamDef((hd,), init=zeros_init, axes=(None,))
+        defs["k_norm"] = ParamDef((hd,), init=zeros_init, axes=(None,))
     return defs
 
 
@@ -69,10 +69,10 @@ def cross_attn_defs(cfg: ArchConfig):
     d = cfg.d_model
     hd = cfg.resolved_head_dim
     return {
-        "wq": ParamDef((d, cfg.n_heads, hd)),
-        "wk": ParamDef((d, cfg.n_heads, hd)),
-        "wv": ParamDef((d, cfg.n_heads, hd)),
-        "wo": ParamDef((cfg.n_heads, hd, d)),
+        "wq": ParamDef((d, cfg.n_heads, hd), axes=("embed", "heads", None)),
+        "wk": ParamDef((d, cfg.n_heads, hd), axes=("embed", "heads", None)),
+        "wv": ParamDef((d, cfg.n_heads, hd), axes=("embed", "heads", None)),
+        "wo": ParamDef((cfg.n_heads, hd, d), axes=("heads", None, "embed")),
     }
 
 
@@ -81,21 +81,26 @@ def mla_defs(cfg: ArchConfig):
     d = cfg.d_model
     H = cfg.n_heads
     defs = {
-        "w_dkv": ParamDef((d, m.kv_lora_rank)),
-        "w_kr": ParamDef((d, m.qk_rope_head_dim)),
-        "kv_norm": ParamDef((m.kv_lora_rank,), init=zeros_init),
-        "w_uk": ParamDef((m.kv_lora_rank, H, m.qk_nope_head_dim)),
-        "w_uv": ParamDef((m.kv_lora_rank, H, m.v_head_dim)),
-        "w_o": ParamDef((H, m.v_head_dim, d)),
+        "w_dkv": ParamDef((d, m.kv_lora_rank), axes=("embed", None)),
+        "w_kr": ParamDef((d, m.qk_rope_head_dim), axes=("embed", None)),
+        "kv_norm": ParamDef((m.kv_lora_rank,), init=zeros_init, axes=(None,)),
+        "w_uk": ParamDef((m.kv_lora_rank, H, m.qk_nope_head_dim),
+                         axes=(None, "heads", None)),
+        "w_uv": ParamDef((m.kv_lora_rank, H, m.v_head_dim),
+                         axes=(None, "heads", None)),
+        "w_o": ParamDef((H, m.v_head_dim, d), axes=("heads", None, "embed")),
     }
     if m.q_lora_rank:
-        defs["w_dq"] = ParamDef((d, m.q_lora_rank))
-        defs["q_norm"] = ParamDef((m.q_lora_rank,), init=zeros_init)
+        defs["w_dq"] = ParamDef((d, m.q_lora_rank), axes=("embed", None))
+        defs["q_norm"] = ParamDef((m.q_lora_rank,), init=zeros_init,
+                                  axes=(None,))
         defs["w_uq"] = ParamDef(
-            (m.q_lora_rank, H, m.qk_nope_head_dim + m.qk_rope_head_dim))
+            (m.q_lora_rank, H, m.qk_nope_head_dim + m.qk_rope_head_dim),
+            axes=(None, "heads", None))
     else:
         defs["w_q"] = ParamDef(
-            (d, H, m.qk_nope_head_dim + m.qk_rope_head_dim))
+            (d, H, m.qk_nope_head_dim + m.qk_rope_head_dim),
+            axes=("embed", "heads", None))
     return defs
 
 

@@ -7,10 +7,12 @@ the leaves in flatten order (sorted keys).  The draws differ from the
 reference's threefry keys, so parity tests inject the reference's initial
 parameters (``repro_torch.convert.params_from_jax``).
 
-A leaf's ``axes`` is ``("layers",)`` when it is stacked over a
-transformer segment's layers (:func:`stack_defs`); LoRA adapts such a leaf
-with one adapter per layer.  (The reference names every axis for its
-sharding rules; the port reads only this one.)
+A leaf's ``axes`` are the reference's *logical* axis names, one a dim
+(``"embed"``, ``"heads"``, ``"mlp"``, ...); they begin with ``"layers"``
+when the leaf is stacked over a transformer segment's layers
+(:func:`stack_defs`), and LoRA adapts such a leaf with one adapter per
+layer.  The dry run resolves them to per-device shards through a rule
+table (``repro_torch.launch.shardings``).
 
 The norms and RoPE compute in float32 and cast back to the input dtype, as
 the reference does (``repro.models.layers``).  :func:`einsum_f32` is the
@@ -91,7 +93,7 @@ def stack_defs(defs, n: int):
             return torch.stack([_fn(gen, shape[1:], dtype)
                                 for _ in range(shape[0])])
         return ParamDef((n,) + tuple(pd.shape), pd.dtype, stacked_init,
-                        ("layers",))
+                        ("layers",) + tuple(pd.axes))
     return tree_map(stack_one, defs)
 
 
@@ -206,10 +208,11 @@ def layernorm(x, scale, bias, eps: float = 1e-5):
 
 def norm_defs(cfg):
     if cfg.norm == "rmsnorm":
-        return {"scale": ParamDef((cfg.d_model,), init=zeros_init)}
+        return {"scale": ParamDef((cfg.d_model,), init=zeros_init,
+                                  axes=("embed",))}
     return {
-        "scale": ParamDef((cfg.d_model,), init=ones_init),
-        "bias": ParamDef((cfg.d_model,), init=zeros_init),
+        "scale": ParamDef((cfg.d_model,), init=ones_init, axes=("embed",)),
+        "bias": ParamDef((cfg.d_model,), init=zeros_init, axes=("embed",)),
     }
 
 

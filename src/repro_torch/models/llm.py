@@ -24,14 +24,11 @@ TINY_LM_SEQ_LEN = 16
 
 
 def transformer_lm(arch: ArchConfig, name: str = None) -> FLModel:
-    """Wrap a decoder-only dense ``ArchConfig`` as an :class:`FLModel`
-    whose ``loss_and_metrics`` is next-token cross-entropy
-    (``is_sequence=True``)."""
-    if arch.family != "dense":
-        if arch.family == "moe":
-            raise NotImplementedError(
-                "transformer_lm of a moe arch is not ported to repro_torch "
-                "yet (ROADMAP M9)")
+    """Wrap a decoder-only dense or MoE ``ArchConfig`` as an
+    :class:`FLModel` whose ``loss_and_metrics`` is next-token
+    cross-entropy (``is_sequence=True``).  ``apply`` keeps the logits and
+    drops the MoE aux loss, as the reference's does."""
+    if arch.family not in ("dense", "moe"):
         raise ValueError(
             f"transformer_lm supports dense/moe decoder archs, got "
             f"family={arch.family!r}")
@@ -39,7 +36,7 @@ def transformer_lm(arch: ArchConfig, name: str = None) -> FLModel:
         raise ValueError("transformer_lm is decoder-only")
     defs = transformer.model_defs(arch)
 
-    def apply(p, x):
+    def apply(p, x):  # flcheck: hot
         return transformer.forward(arch, p, x)[0]
 
     return FLModel(name or arch.name, defs, apply, arch.vocab,

@@ -87,7 +87,7 @@ def adapter_defs(defs: PyTree, rank: int,
         split = min(range(1, len(dims)),
                     key=lambda i: math.prod(dims[:i]) + math.prod(dims[i:]))
         d_in, d_out = math.prod(dims[:split]), math.prod(dims[split:])
-        axes = ("layers",) * lead
+        axes = ("layers",) * lead + (None, None)
         out[p] = {
             "a": ParamDef(lead_shape + (d_in, rank), d.dtype, axes=axes),
             "b": ParamDef(lead_shape + (rank, d_out), d.dtype, zeros_init,
@@ -102,6 +102,7 @@ def merge_lora(base_params: PyTree, adapters: Dict[str, Dict[str, Any]],
     float32, cast back); with no adapters the base tree itself."""
     if not adapters:
         return base_params
+    scale = float(scale)
 
     def merge(node, prefix):
         if isinstance(node, dict):
@@ -115,7 +116,7 @@ def merge_lora(base_params: PyTree, adapters: Dict[str, Dict[str, Any]],
             return node
         delta = torch.matmul(ab["a"], ab["b"])       # batches leading dims
         return (node.to(torch.float32)
-                + float(scale) * delta.reshape(node.shape)).to(node.dtype)
+                + scale * delta.reshape(node.shape)).to(node.dtype)
 
     return merge(base_params, "")
 
@@ -137,7 +138,7 @@ def lora_wrap(model: FLModel, base_params: PyTree, rank: int,
             copies[device] = tree_map(lambda t: t.to(device), base_params)
         return copies[device]
 
-    def apply(adapters, x):
+    def apply(adapters, x):  # flcheck: hot
         base = base_on(x.device) if copies else base_params
         return base_apply(merge_lora(base, adapters, scale), x)
 

@@ -14,10 +14,10 @@ GATED_ACTS = ("swiglu", "geglu")
 
 def mlp_defs(cfg: ArchConfig, d_ff: int = 0):
     d, ff = cfg.d_model, d_ff or cfg.d_ff
-    defs = {"w_down": ParamDef((ff, d)),
-            "w_up": ParamDef((d, ff))}
+    defs = {"w_down": ParamDef((ff, d), axes=("mlp", "embed")),
+            "w_up": ParamDef((d, ff), axes=("embed", "mlp"))}
     if cfg.act in GATED_ACTS:
-        defs["w_gate"] = ParamDef((d, ff))
+        defs["w_gate"] = ParamDef((d, ff), axes=("embed", "mlp"))
     return defs
 
 

@@ -10,9 +10,19 @@ convention); the Switch Transformer's load-balance loss is the ``aux``.
 Shared experts are fused into one wide dense FFN.
 
 The expert products are plain ``torch.bmm``: the reference runs them
-outside any Pallas kernel too.  One card has no "model" mesh axis, so
-``moe_ffn_expert_parallel`` takes the reference's no-mesh route,
-:func:`moe_ffn`.
+outside any Pallas kernel too.  ``moe_ffn_expert_parallel`` takes the
+reference's expert-parallel route under an ambient mesh with a "model"
+axis (``models.sharding``; the dry run's meshes) and :func:`moe_ffn`
+without one, as on one card.
+
+**Under vmap.**  The batched engine runs each client's step under
+``torch.func.vmap``, so the dispatch uses only ops with batching rules:
+the per-expert counts are a one-hot sum over the fixed E (``bincount``
+has none), the inverse permutation is ``argsort`` of the sort order (an
+in-place write of a batched value into a fresh tensor is refused), and
+the buffer is filled with the out-of-place ``index_put``.  For one
+client every value equals, bit for bit, what ``bincount`` and an in-place
+inverse give (``tests/test_torch_moe_lm.py``).
 
 **Deterministic combine.**  The reference adds each kept (token, expert)
 output into its token with a scatter-add, in the sorted (expert-ascending)
@@ -40,12 +50,16 @@ def moe_defs(cfg: ArchConfig):
     d = cfg.d_model
     de = m.d_expert or cfg.d_ff
     defs = {
-        "router": ParamDef((d, m.n_experts), init=normal_init(0.02)),
-        "w_up": ParamDef((m.n_experts, d, de)),
-        "w_down": ParamDef((m.n_experts, de, d)),
+        "router": ParamDef((d, m.n_experts), init=normal_init(0.02),
+                           axes=("embed", None)),
+        "w_up": ParamDef((m.n_experts, d, de),
+                         axes=("expert", "embed", "mlp")),
+        "w_down": ParamDef((m.n_experts, de, d),
+                           axes=("expert", "mlp", "embed")),
     }
     if cfg.act in GATED_ACTS:
-        defs["w_gate"] = ParamDef((m.n_experts, d, de))
+        defs["w_gate"] = ParamDef((m.n_experts, d, de),
+                                  axes=("expert", "embed", "mlp"))
     if m.n_shared:
         # shared experts fused into one wide FFN (equivalent compute)
         defs["shared"] = mlp_defs(cfg, d_ff=m.n_shared * de)
@@ -70,10 +84,17 @@ def load_balance_loss(cfg: ArchConfig, probs, top_ids):
     """Switch-style auxiliary loss: E * sum_e f_e * P_e."""
     m = cfg.moe
     T = probs.shape[0]
-    counts = torch.bincount(top_ids.reshape(-1), minlength=m.n_experts)
+    counts = _expert_counts(top_ids.reshape(-1), m.n_experts)
     f = counts.to(torch.float32) / (T * m.top_k)  # dispatch fraction
     P_e = probs.mean(dim=0)
     return m.n_experts * torch.sum(f * P_e)
+
+
+def _expert_counts(flat_e, E: int):
+    """Assignments per expert, ``bincount(flat_e, minlength=E)``, as a
+    one-hot sum over the fixed E (``bincount`` has no ``vmap`` rule)."""
+    return (flat_e.unsqueeze(-1)
+            == torch.arange(E, device=flat_e.device)).sum(0)
 
 
 def capacity(cfg: ArchConfig, n_tokens: int, factor: float = 1.25) -> int:
@@ -93,7 +114,7 @@ def _dispatch_local(cfg: ArchConfig, x_flat, top_w, top_ids, C: int):
     flat_w = top_w.reshape(T * k).to(x_flat.dtype)
     order = torch.argsort(flat_e, stable=True)
     sorted_e, sorted_w = flat_e[order], flat_w[order]
-    counts = torch.bincount(flat_e, minlength=E)
+    counts = _expert_counts(flat_e, E)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(T * k, device=dev) - starts[sorted_e]
     keep = pos < C
@@ -117,8 +138,7 @@ def _combine_local(meta, out_buf, T: int):
     gathered = gathered * (sorted_w * keep.to(out_buf.dtype))[:, None]
     # sorted position of each (token, slot); sorted along the slots, a
     # token's entries come in ascending expert order
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(order.numel(), device=order.device)
+    inv = torch.argsort(order)             # the inverse permutation
     per_token = gathered[inv.view(T, k).sort(dim=1).values]   # (T, k, d)
     out = per_token[:, 0]
     for j in range(1, k):
@@ -126,27 +146,28 @@ def _combine_local(meta, out_buf, T: int):
     return out
 
 
-def moe_ffn(cfg: ArchConfig, p, x, capacity_factor: float = 1.25):
-    """x: (B, S, d) -> (out, aux_loss)."""
-    m = cfg.moe
-    B, S, d = x.shape
-    T = B * S
-    dt = x.dtype
-    x_flat = x.reshape(T, d)
-    top_w, top_ids, probs = _router(cfg, p, x_flat)
-    aux = load_balance_loss(cfg, probs, top_ids)
-    C = capacity(cfg, T, capacity_factor)
-    buf, meta = _dispatch_local(cfg, x_flat, top_w, top_ids, C)
-
-    # expert FFN as batched GEMMs
+def _experts(cfg: ArchConfig, p, buf):
+    """The expert FFN on an (E, C, d) dispatch buffer: batched GEMMs."""
+    dt = buf.dtype
     up = torch.bmm(buf, p["w_up"].to(dt))
     gate = None
     if cfg.act in GATED_ACTS:
         gate = torch.bmm(buf, p["w_gate"].to(dt))
     h = _act(cfg.act, gate, up)
-    out_buf = torch.bmm(h, p["w_down"].to(dt))
+    return torch.bmm(h, p["w_down"].to(dt))
 
-    out = _combine_local(meta, out_buf, T)
+
+def moe_ffn(cfg: ArchConfig, p, x, capacity_factor: float = 1.25):
+    """x: (B, S, d) -> (out, aux_loss)."""
+    m = cfg.moe
+    B, S, d = x.shape
+    T = B * S
+    x_flat = x.reshape(T, d)
+    top_w, top_ids, probs = _router(cfg, p, x_flat)
+    aux = load_balance_loss(cfg, probs, top_ids)
+    C = capacity(cfg, T, capacity_factor)
+    buf, meta = _dispatch_local(cfg, x_flat, top_w, top_ids, C)
+    out = _combine_local(meta, _experts(cfg, p, buf), T)
     if m.n_shared:
         out = out + mlp(cfg, p["shared"], x).reshape(T, d)
     return out.reshape(B, S, d), aux
@@ -154,9 +175,57 @@ def moe_ffn(cfg: ArchConfig, p, x, capacity_factor: float = 1.25):
 
 def moe_ffn_expert_parallel(cfg: ArchConfig, p, x,
                             capacity_factor: float = 1.25):
-    """The reference's expert-parallel MoE without a mesh "model" axis:
-    :func:`moe_ffn` (one card holds every expert)."""
-    return moe_ffn(cfg, p, x, capacity_factor)
+    """The reference's expert-parallel MoE.
+
+    Without an ambient mesh that has a "model" axis (one card), or when
+    the experts do not divide over it, this is :func:`moe_ffn`.  Under
+    such a mesh (``repro_torch.models.sharding.use_mesh``) it computes
+    what the reference's ``shard_map`` body computes on each device: the
+    batch split over the ``pod`` / ``data`` axes (whole when it does not
+    divide), each shard's tokens padded and split over ``model``, and
+    every such group routed on its own, with its own capacity
+    ``C_my = ceil(T_my * k * factor / E)`` rounded up to a multiple of 8
+    and its own aux loss (their mean is the aux).  The all-to-alls move
+    buffers between devices and change no value, so one process runs the
+    groups one after another with every expert at hand."""
+    from repro_torch.models.sharding import current_mesh
+
+    mesh = current_mesh()
+    m = cfg.moe
+    sizes = mesh.shape if mesh is not None else {}
+    n_model = sizes.get("model", 1)
+    if n_model <= 1 or m.n_experts % n_model:
+        return moe_ffn(cfg, p, x, capacity_factor)
+    B, S, d = x.shape
+    E, k = m.n_experts, m.top_k
+    n_batch = 1
+    for a in ("pod", "data"):
+        n_batch *= sizes.get(a, 1)
+    if B % n_batch:
+        n_batch = 1                   # tiny decode batches: replicate
+    B_loc = B // n_batch
+    T_loc = B_loc * S
+    T_my = -(-T_loc // n_model)       # ceil; pad if needed
+    pad = T_my * n_model - T_loc
+    C_my = max(8, -(-int(math.ceil(T_my * k * capacity_factor / E)) // 8)
+               * 8)
+    outs, auxes = [], []
+    for b in range(n_batch):
+        xf = x[b * B_loc:(b + 1) * B_loc].reshape(T_loc, d)
+        if pad:
+            xf = torch.cat([xf, xf.new_zeros((pad, d))])
+        ys = []
+        for mi in range(n_model):
+            x_my = xf[mi * T_my:(mi + 1) * T_my]
+            top_w, top_ids, probs = _router(cfg, p, x_my)
+            auxes.append(load_balance_loss(cfg, probs, top_ids))
+            buf, meta = _dispatch_local(cfg, x_my, top_w, top_ids, C_my)
+            ys.append(_combine_local(meta, _experts(cfg, p, buf), T_my))
+        outs.append(torch.cat(ys)[:T_loc].reshape(B_loc, S, d))
+    out = torch.cat(outs)
+    if m.n_shared:
+        out = out + mlp(cfg, p["shared"], x)
+    return out, torch.stack(auxes).mean()
 
 
 # impl switch: "global" (baseline) | "expert_parallel"

@@ -45,18 +45,19 @@ def rglru_defs(cfg: ArchConfig):
     W = cfg.lru_width or D
     K = cfg.conv1d_width
     return {
-        "w_x": ParamDef((D, W)),
-        "w_gate": ParamDef((D, W)),
-        "conv_w": ParamDef((K, W), init=normal_init(0.1)),
-        "conv_b": ParamDef((W,), init=zeros_init),
+        "w_x": ParamDef((D, W), axes=("embed", "heads")),
+        "w_gate": ParamDef((D, W), axes=("embed", "heads")),
+        "conv_w": ParamDef((K, W), init=normal_init(0.1),
+                           axes=(None, "heads")),
+        "conv_b": ParamDef((W,), init=zeros_init, axes=("heads",)),
         # diagonal RG-LRU gates
-        "gate_r_w": ParamDef((W,), init=normal_init(0.1)),
-        "gate_r_b": ParamDef((W,), init=zeros_init),
-        "gate_i_w": ParamDef((W,), init=normal_init(0.1)),
-        "gate_i_b": ParamDef((W,), init=zeros_init),
+        "gate_r_w": ParamDef((W,), init=normal_init(0.1), axes=("heads",)),
+        "gate_r_b": ParamDef((W,), init=zeros_init, axes=("heads",)),
+        "gate_i_w": ParamDef((W,), init=normal_init(0.1), axes=("heads",)),
+        "gate_i_b": ParamDef((W,), init=zeros_init, axes=("heads",)),
         # Lambda parameterizes the stable decay a = exp(-c softplus(L) r)
-        "lam": ParamDef((W,), init=_lambda_init),
-        "w_out": ParamDef((W, D)),
+        "lam": ParamDef((W,), init=_lambda_init, axes=("heads",)),
+        "w_out": ParamDef((W, D), axes=("heads", "embed")),
     }
 
 

@@ -41,27 +41,33 @@ def rwkv_defs(cfg: ArchConfig):
     return {
         "time": {
             # static token-shift lerp coefficients for r,k,v,g,w
-            "mu": ParamDef((5, D), init=uniform_init(0.0, 1.0)),
+            "mu": ParamDef((5, D), init=uniform_init(0.0, 1.0),
+                           axes=(None, "embed")),
             # data-dependent decay LoRA: w = exp(-exp(w0 + tanh(x A) B))
-            "w0": ParamDef((D,), init=constant_like_decay),
-            "wA": ParamDef((D, DECAY_LORA), init=normal_init(0.01)),
-            "wB": ParamDef((DECAY_LORA, D), init=normal_init(0.01)),
-            "wr": ParamDef((D, D)),
-            "wk": ParamDef((D, D)),
-            "wv": ParamDef((D, D)),
-            "wg": ParamDef((D, D)),
-            "wo": ParamDef((D, D)),
-            "u": ParamDef((H, hd), init=normal_init(0.3)),
+            "w0": ParamDef((D,), init=constant_like_decay, axes=("embed",)),
+            "wA": ParamDef((D, DECAY_LORA), init=normal_init(0.01),
+                           axes=("embed", None)),
+            "wB": ParamDef((DECAY_LORA, D), init=normal_init(0.01),
+                           axes=(None, "embed")),
+            "wr": ParamDef((D, D), axes=("embed", "heads")),
+            "wk": ParamDef((D, D), axes=("embed", "heads")),
+            "wv": ParamDef((D, D), axes=("embed", "heads")),
+            "wg": ParamDef((D, D), axes=("embed", "heads")),
+            "wo": ParamDef((D, D), axes=("heads", "embed")),
+            "u": ParamDef((H, hd), init=normal_init(0.3),
+                          axes=("heads", None)),
             # per-head group-norm on the wkv output
-            "ln_scale": ParamDef((D,), init=ones_init),
-            "ln_bias": ParamDef((D,), init=zeros_init),
+            "ln_scale": ParamDef((D,), init=ones_init, axes=("embed",)),
+            "ln_bias": ParamDef((D,), init=zeros_init, axes=("embed",)),
         },
         "channel": {
-            "mu_k": ParamDef((D,), init=uniform_init(0.0, 1.0)),
-            "mu_r": ParamDef((D,), init=uniform_init(0.0, 1.0)),
-            "wk": ParamDef((D, ff)),
-            "wv": ParamDef((ff, D)),
-            "wr": ParamDef((D, D)),
+            "mu_k": ParamDef((D,), init=uniform_init(0.0, 1.0),
+                             axes=("embed",)),
+            "mu_r": ParamDef((D,), init=uniform_init(0.0, 1.0),
+                             axes=("embed",)),
+            "wk": ParamDef((D, ff), axes=("embed", "mlp")),
+            "wv": ParamDef((ff, D), axes=("mlp", "embed")),
+            "wr": ParamDef((D, D), axes=("embed", "heads")),
         },
     }
 

@@ -117,15 +117,18 @@ def _layer_defs(cfg: ArchConfig, seg: Segment, cross: bool):
 
 def model_defs(cfg: ArchConfig):
     defs: Dict[str, Any] = {
-        "embed": ParamDef((cfg.vocab, cfg.d_model), init=normal_init(0.02)),
+        "embed": ParamDef((cfg.vocab, cfg.d_model), init=normal_init(0.02),
+                          axes=("vocab", "embed")),
         "final_norm": norm_defs(cfg),
     }
     if cfg.pos_embedding == "learned":
         defs["pos_embed"] = ParamDef((cfg.max_seq_len, cfg.d_model),
-                                     init=normal_init(0.02))
+                                     init=normal_init(0.02),
+                                     axes=(None, "embed"))
     if not cfg.tie_embeddings:
         defs["unembed"] = ParamDef((cfg.d_model, cfg.vocab),
-                                   init=normal_init(0.02))
+                                   init=normal_init(0.02),
+                                   axes=("embed", "vocab"))
     cross = cfg.encoder_layers > 0
     defs["segments"] = [stack_defs(_layer_defs(cfg, s, cross), s.count)
                         for s in segments(cfg)]
@@ -133,7 +136,8 @@ def model_defs(cfg: ArchConfig):
         enc_seg = Segment("attn", "dense", cfg.encoder_layers, 0)
         defs["encoder"] = {
             "pos_embed": ParamDef((cfg.n_frames, cfg.d_model),
-                                  init=normal_init(0.02)),
+                                  init=normal_init(0.02),
+                                  axes=(None, "embed")),
             "layers": stack_defs(_layer_defs(cfg, enc_seg, cross=False),
                                  cfg.encoder_layers),
             "final_norm": norm_defs(cfg),
