@@ -37,9 +37,13 @@ Phases, in order; any failed check raises, so the script exits non-zero:
    clients x 4 sequences x 32 heads = 512, S = 512, D = 128, causal), at
    (512, 512, 192 / 256, causal), at phase 4m's main-path shapes (96,
    1024, 192), (16, 512, 256) and (48, 448, 64), causal, at (3, 200, 72 /
-   160 / 200, causal) and (2, 130, 128 / 192 / 256, not causal), and at
-   ragged S in {1, 63, 200} x D in {20, 64}, causal and not; forward within
-   1e-5, gradients within 1e-4 at unit-scale inputs; time each instance at
+   160 / 200, causal) and (2, 130, 128 / 192 / 256, not causal), at
+   ragged S in {1, 63, 200} x D in {20, 64}, causal and not, and at the
+   edges of the 8-warp pair kernels' head-dim split above D 128
+   (``FLASH_PAIR_EDGES``: D 129, 130, 136, 193, 255 x S 1, 65, 520 x BH 1,
+   133, causal and not); forward within 1e-5, gradients within 1e-4 at
+   unit-scale inputs; print each instance's grid at its timed shape and
+   threads a CTA; time each instance at
    ``FLASH_TIMED``'s shape (whisper's (48, 448, 64) for DP 64, (512, 512,
    D) for the others), causal, next to its plain version and fp32 ``scaled_dot_product_attention`` (its
    forward for the forward kernel, its backward — forward + backward minus
@@ -308,7 +312,10 @@ phase-4h model, batched and sequential, under none, one steady LoRA round
 of phase 4b's configuration,
 and one ``rwkv6-1.6b`` prefill and 8 decode steps of phase 4c's
 configuration, with ``torch.profiler`` (device time by operator and the
-device's busy share); ``--profile rwkv6`` profiles the last alone.
+device's busy share); ``--profile rwkv6`` profiles the last alone, and
+``--profile paligemma`` one steady ``paligemma-3b`` prefill and train step
+of phase 4m's configuration alone (:func:`profile_zoo`), with the flash
+kernels' share.
 
 ``python3 chip_smoke.py --cards`` instead runs the sharded cohort over
 two or more distinct cards, one shard a card (:func:`cards_check`).
@@ -722,11 +729,26 @@ FLASH_TIMED = {64: (48, 448, 64, True, 12), 128: (512, 512, 128, True, 32),
 FLASH_ZOO_TIMED = {192: (96, 1024, 192, True, 96),
                    256: (16, 512, 256, True, 8)}
 
+#: the edges of the pair kernels' head-dim split (phase 3b and the card
+#: test): D 129 / 136 (DP 192, a ragged second half), 130 (4-byte copies),
+#: 193 / 255 (DP 256, a ragged half); S 1, 65 (a second, one-row tile) and
+#: 520; BH 1 and 133 (more CTAs than SMs); causal and not
+FLASH_PAIR_EDGES = [(bh, s, d, c) for d in (129, 130, 136, 193, 255)
+                    for bh, s in ((3, 1), (1, 65), (133, 65), (2, 520))
+                    for c in (True, False)]
+
 
 def flash_instance(d):
     """Head dim of the template instance that ``flash_attn.cu``'s
     ``dp_for`` runs at head dim ``d``."""
     return next(x for x in (16, 32, 64, 128, 192, 256) if d <= x)
+
+
+def flash_symbol(name, r):
+    """The CUDA kernel behind counter ``name`` at an instance whose
+    resources are ``r``: above D 128 the forward and dK/dV run the 8-warp
+    pair kernels."""
+    return f"{name}_pair_kernel" if r["threads"] == 256 else f"{name}_kernel"
 
 
 def flash_build_report(attention, build):
@@ -737,13 +759,16 @@ def flash_build_report(attention, build):
     for d in FLASH_DIMS:
         for name, r in info[d].items():
             print_resources(name, r, f"D {d}")
-    counts = hmma_counts(build, "flash_attn", "flash_(?:fwd|dq|dkv)_kernel")
+            print(f"    {flash_symbol(name, r)}<{d}>: {r['threads']} threads "
+                  f"a CTA, grid (BH, ceil(S / 64), {r['grid_z']})")
+    counts = hmma_counts(build, "flash_attn",
+                         "flash_(?:fwd|dq|dkv)(?:_pair)?_kernel")
     if counts is None:
         print("HMMA count: not available (no cuobjdump in the toolkit)")
         return info
     for d in FLASH_DIMS:
-        for name in info[d]:
-            n = counts.get(f"{name}_kernel<{d}>", 0)
+        for name, r in info[d].items():
+            n = counts.get(f"{flash_symbol(name, r)}<{d}>", 0)
             require(n > 0, f"{name} at D {d}: no tensor-core instruction in "
                     f"its SASS")
             info[d][name]["hmma"] = n
@@ -778,7 +803,7 @@ def check_flash(dev, attention, build):
                      (3, 200, 160, True), (2, 130, 192, False),
                      (3, 200, 200, True), (2, 130, 256, False)] + [
         (3, s, d, c) for s in (1, 63, 200) for d in (20, 64)
-        for c in (True, False)]
+        for c in (True, False)] + FLASH_PAIR_EDGES
     errs = {}
     for bh, s, d, causal in cases:
         q, k, v, do = qkv(bh, s, d)
@@ -854,11 +879,17 @@ def check_flash(dev, attention, build):
                else None)
         for name, m in got.items():
             key = flash_row_name(name, d)
+            r = resources[d][name]
+            grid = [bh, -(-s // 64), r["grid_z"]]
+            print(f"{key:16s} grid {grid} of {r['threads']} threads, "
+                  f"{r['registers']} registers, {r['spill_bytes']} spill "
+                  f"bytes, {r['smem_bytes']} bytes of shared memory, "
+                  f"{r['ctas_per_sm']} CTAs per SM")
             rows.append(dict(
                 name=key, counter=name, head_dim=d, route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attn.cu",
                 replaces=replaces[name], max_abs_err=errs[key], **m,
-                **resources[d][name]))
+                grid=grid, **r))
             if zoo is not None:
                 rows[-1]["at_main_path"] = zoo[name]
     return rows
@@ -4505,6 +4536,10 @@ def profile_window(fn, tag):
               f"{sum(e.count for e in flash)} launches "
               f"({100 * ms / busy:.1f}% of the device busy time, "
               f"{100 * ms / (wall * 1e3):.1f}% of the wall)")
+        for e in sorted(flash, key=dev_us, reverse=True):
+            print(f"      {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} "
+                  f"{100 * dev_us(e) / 1e3 / busy:5.1f}% of busy  "
+                  f"{e.key[:70]}")
     cpu = sorted(rows, key=lambda e: e.self_cpu_time_total,
                  reverse=True)[:8]
     print(f"[{tag}: top host self time:")
@@ -4541,6 +4576,63 @@ def profile_rwkv6():
     decode(0)
     profile_window(lambda: decode(8),
                    f"rwkv6] 8 decode steps at batch {RWKV_BATCH}")
+
+
+def profile_zoo(arch):
+    """``--profile paligemma``: one steady prefill and one steady train step
+    of ``arch`` at phase 4m's configuration (``ZOO``: params from seed 0,
+    flash on; the train step through ``launch.train.main`` from the
+    well-conditioned redraw), each after warm-up calls, under
+    ``torch.profiler``: device time by kernel, the flash kernels' (K6 /
+    K7a / K7b) share and the busy share."""
+    from repro_torch.launch import train
+    from repro_torch.models import attention as mattn
+    from repro_torch.models.model import Model, make_prefill_step
+
+    dev = torch.device("cuda", 0)
+    layers, B, S, _, (tb, ts) = ZOO[arch]
+    cfg = zoo_cfg(arch)
+    model = Model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(gen, dev)
+    batch = zoo_inputs(cfg, B, S, gen, dev)
+    prefill = make_prefill_step(model)
+    real = train.make_train_step
+
+    def make(model, opt, remat=True):
+        step, done = real(model, opt, remat), []
+
+        def profiled(state, batch):
+            if not done:
+                well_conditioned_(model, state.params)
+            done.append(1)
+            if len(done) < 3:                 # warm-up steps
+                return step(state, batch)
+            out = []
+            profile_window(lambda: out.append(step(state, batch)),
+                           f"{arch}] train step B {tb} x {ts} tokens")
+            return out[0]
+        return profiled
+
+    positions = S + (cfg.n_frames if cfg.family == "vlm" else 0)
+    mattn.set_flash_attention(True)
+    train.make_train_step = make
+    try:
+        for _ in range(2):
+            prefill(params, batch)
+        profile_window(lambda: prefill(params, batch),
+                       f"{arch}] prefill B {B} x {positions} positions")
+        del params, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        cut = ["--full", "--batch", str(tb), "--seq", str(ts)]
+        if layers:
+            cut += ["--layers", str(layers)]
+        train.main(["--arch", arch, *cut, "--steps", "3", "--log-every",
+                    "1"])
+    finally:
+        train.make_train_step = real
+        mattn.set_flash_attention(None)
 
 
 def cards_ms(fn, reps=REPS, warmup=3):
@@ -4734,7 +4826,8 @@ def cards_check():
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] in (["--profile"], ["--profile", "rwkv6"]):
+    if sys.argv[1:] in (["--profile"], ["--profile", "rwkv6"],
+                        ["--profile", "paligemma"]):
         if not torch.cuda.is_available():
             sys.exit("CUDA is not available; --profile needs a CUDA card")
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -4742,9 +4835,12 @@ if __name__ == "__main__":
         import repro_torch as _rt
         from repro_torch.kernels import build as _build
         _build.build_all()
-        if sys.argv[2:] != ["rwkv6"]:
-            profile_rounds(_rt)
-        profile_rwkv6()
+        if sys.argv[2:] == ["paligemma"]:
+            profile_zoo("paligemma-3b")
+        else:
+            if sys.argv[2:] != ["rwkv6"]:
+                profile_rounds(_rt)
+            profile_rwkv6()
     elif sys.argv[1:] == ["--resume-check"]:
         if not torch.cuda.is_available():
             sys.exit("CUDA is not available; --resume-check needs a CUDA "
@@ -4753,7 +4849,8 @@ if __name__ == "__main__":
     elif sys.argv[1:] == ["--cards"]:
         cards_check()
     elif sys.argv[1:]:
-        sys.exit(f"usage: python3 chip_smoke.py [--profile [rwkv6] | "
+        sys.exit(f"usage: python3 chip_smoke.py [--profile [rwkv6 | "
+                 f"paligemma] | "
                  f"--resume-check | --cards]; got {sys.argv[1:]}")
     else:
         main()

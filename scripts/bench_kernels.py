@@ -8,9 +8,11 @@ the kernel's source into ``DIR/build/kernels``, and prints the card
 (``nvidia-smi`` name and power limit) and one JSON line:
 
 * ``flash``: milliseconds of K6 (forward), K7a (dQ) and K7b (dK/dV) and of
-  fp32 ``scaled_dot_product_attention`` at BH 512 (4 clients x 4
-  sequences x 32 heads), S 512, D 128, causal — the GLM-4 LoRA path's
-  shape (``chip_smoke.py`` phase 3b);
+  fp32 ``scaled_dot_product_attention`` at each causal shape that
+  ``chip_smoke.py`` phase 3b times at D 128, 192 and 256
+  (``FLASH_TIMED``: BH 512 = 4 clients x 4 sequences x 32 heads, S 512,
+  the GLM-4 LoRA path's shape at D 128; ``FLASH_ZOO_TIMED``: nemotron-4-
+  340b's (96, 1024, 192) and paligemma-3b's (16, 512, 256));
 * ``wkv6``: milliseconds of K8 at (B 16, T 512, H 32, hd 64), one layer of
   the ``rwkv6-1.6b`` prefill, on phase 3c's inputs (``chip_smoke.
   wkv_inputs``); its distance from that tree's plain version; and its
@@ -62,29 +64,34 @@ import time
 import torch
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FLASH_SHAPE = (512, 512, 128)   # BH, S, D of the LoRA path (phase 3b)
-
-
 def bench_flash(smoke):
     from repro_torch.kernels import attention
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4321)
-    q, k, v, do = (torch.randn(FLASH_SHAPE, generator=gen, device=dev)
-                   for _ in range(4))
-    o, lse = attention.flash_fwd(q, k, v, True)
-    delta = (do * o).sum(dim=-1)
-    res = {
-        "repro_torch": os.path.relpath(attention.__file__),
-        "shape": list(FLASH_SHAPE), "causal": True,
-        "flash_fwd": smoke.cuda_ms(
-            lambda: attention.flash_fwd(q, k, v, True)),
-        "flash_dq": smoke.cuda_ms(lambda: attention.flash_dq(
-            q, k, v, do, lse, delta, True)),
-        "flash_dkv": smoke.cuda_ms(lambda: attention.flash_dkv(
-            q, k, v, do, lse, delta, True)),
-    }
-    res["sdpa_fwd"], res["sdpa_bwd"] = smoke.sdpa_ms(q, k, v, do)
+    shapes = [smoke.FLASH_TIMED[d] for d in (128, 192, 256)] + [
+        smoke.FLASH_ZOO_TIMED[d] for d in (192, 256)]
+    res = {"repro_torch": os.path.relpath(attention.__file__),
+           "causal": True, "shapes": []}
+    for bh, s, d, causal, heads in shapes:
+        q, k, v, do = (torch.randn((bh, s, d), generator=gen, device=dev)
+                       for _ in range(4))
+        o, lse = attention.flash_fwd(q, k, v, causal)
+        delta = (do * o).sum(dim=-1)
+        row = {
+            "shape": [bh, s, d],
+            "flash_fwd": smoke.cuda_ms(
+                lambda: attention.flash_fwd(q, k, v, causal)),
+            "flash_dq": smoke.cuda_ms(lambda: attention.flash_dq(
+                q, k, v, do, lse, delta, causal)),
+            "flash_dkv": smoke.cuda_ms(lambda: attention.flash_dkv(
+                q, k, v, do, lse, delta, causal)),
+        }
+        row["sdpa_fwd"], row["sdpa_bwd"] = smoke.sdpa_ms(q, k, v, do, heads)
+        assert all(math.isfinite(x) for x in row.values()
+                   if isinstance(x, float))
+        res["shapes"].append(row)
+        del q, k, v, do, o, lse, delta
     return res
 
 

@@ -22,8 +22,22 @@ import tempfile
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def kernel_name(symbol):
+    """(name, first template argument) of a mangled kernel symbol, its
+    namespaces (the anonymous one's hash differs between trees) left out:
+    ``_ZN<n><namespace>...<n><name>ILi<N>E...``; None for another form."""
+    m = re.match(r"_ZN?", symbol)
+    i, name = m.end() if m else 0, None
+    while m and (m := re.match(r"\d+", symbol[i:])):
+        n, i = int(m.group()), i + m.end()
+        name, i = symbol[i:i + n], i + n
+    t = re.match(r"ILi(\d+)E", symbol[i:])
+    return (name, t.group(1)) if name and t else None
+
+
 def sass(nvcc, flags, src, match):
-    """{"<kernel><N>": [instruction text]} of ``src`` compiled."""
+    """{"<kernel><N>": [instruction text]} of ``src`` compiled, for each
+    kernel whose whole name matches ``match``."""
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     with tempfile.TemporaryDirectory() as tmp:
         lib = os.path.join(tmp, "lib.so")
@@ -33,10 +47,13 @@ def sass(nvcc, flags, src, match):
                               check=True).stdout
     funcs, cur = {}, None
     for line in text.splitlines():
-        m = re.search(rf"Function : \S*?({match})ILi(\d+)E", line)
+        m = re.search(r"Function : (\S+)", line)
         if m:
-            cur = f"{m.group(1)}<{m.group(2)}>"
-            funcs[cur] = []
+            name = kernel_name(m.group(1))
+            cur = (f"{name[0]}<{name[1]}>" if name and
+                   re.fullmatch(match, name[0]) else None)
+            if cur:
+                funcs[cur] = []
         elif cur and "/*" in line and ";" in line:
             body = line.split("*/", 1)[1].rsplit("/*", 1)[0].strip()
             funcs[cur].append(re.sub(r"_GLOBAL__N__\w+", "ANON", body))

@@ -16,18 +16,22 @@ reference.  The semantics are the reference's: scale ``1/sqrt(D)`` of the
 real head dim, validity from global indices, masked scores ``-1e30``,
 denominator floor ``1e-30``.  The kernels take any S and D <= 256 (the
 reference's config zoo tops out at 256: PaliGemma and RecurrentGemma; 192
-for Nemotron-4); above 128 each CTA owns half of the output columns and
-recomputes the scores over the full head dim (``csrc/flash_attn.cu``).
+for Nemotron-4).  Above 128 the forward and dK/dV run one CTA of 8 warps a
+64-row tile: 4 pairs of warps, the two warps of a pair splitting the head
+dim and swapping their partial score tiles through shared memory, so each
+score product runs once; dQ splits its output columns over two CTAs
+(``csrc/flash_attn.cu``).
 
 They run every product on the H100's tensor cores (``mma.sync`` m16n8k8
 TF32) in 3xTF32 — each fp32 operand split into a TF32 ``big`` and the
 remainder ``small``, three TF32 products a fp32-accurate one — so they keep
 fp32 accuracy ("TF32 off": within 1e-5 of the plain versions on O and LSE,
-1e-4 on the gradients at unit-scale inputs).  FA2-style tiles: 4 warps of
-16 rows a CTA, the score tile's C fragment reused as the next product's A
-fragment, K/V (or Q/dO) streamed with ``cp.async``; the design and its
-bound are in the source's header.  :func:`kernel_info` reports each
-kernel's registers, spills, shared memory and CTAs per SM.
+1e-4 on the gradients at unit-scale inputs).  FA2-style tiles: 16 rows a
+warp (a warp pair above D 128), the score tile's C fragment reused as the
+next product's A fragment, K/V (or Q/dO) streamed with ``cp.async``; the
+design and its bound are in the source's header.  :func:`kernel_info`
+reports each kernel's registers, spills, shared memory, CTAs per SM,
+threads a CTA and grid z.
 
 Two ``torch.library`` custom ops carry them through ``torch.func``:
 ``repro_torch::flash_fwd`` -> (O, LSE) and ``repro_torch::flash_bwd`` ->
@@ -194,15 +198,16 @@ def flash_dkv(q, k, v, do, lse, delta, causal: bool
 
 
 def kernel_info(d: int = 128) -> dict:
-    """{kernel: {"registers", "spill_bytes", "smem_bytes", "ctas_per_sm"}}
-    of the three CUDA kernels built for head dim ``d`` (needs a card)."""
+    """{kernel: {"registers", "spill_bytes", "smem_bytes", "ctas_per_sm",
+    "threads", "grid_z"}} of the three CUDA kernels built for head dim
+    ``d`` (needs a card); a launch's grid is (BH, ceil(S / 64), grid_z)."""
     lib = build.load("flash_attn")
     out = {}
     for which, name in enumerate(("flash_fwd", "flash_dq", "flash_dkv")):
-        vals = (ctypes.c_int * 4)()
+        vals = (ctypes.c_int * 6)()
         build.check(lib.flash_kernel_info(which, d, vals), "flash_kernel_info")
         out[name] = dict(zip(("registers", "spill_bytes", "smem_bytes",
-                              "ctas_per_sm"), vals))
+                              "ctas_per_sm", "threads", "grid_z"), vals))
     return out
 
 

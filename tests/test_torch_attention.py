@@ -214,6 +214,47 @@ def test_3xtf32_products_keep_the_flash_kernels_within_their_bars(s, d,
         assert (o1 - po).abs().max().item() > 1e-5
 
 
+def _mm_3xtf32_pair(eq, a, b):
+    """``_mm_3xtf32`` with the head-dim products (S = Q K^T, dP = dO V^T)
+    taken as the pair kernels take them above D 128: each warp of a pair
+    over its half of the padded head dim (DP / 2 = 96 or 128 columns, the
+    second half ragged below DP), the two partials added, lo + hi, by
+    either warp (the same sum bit for bit: fp32 addition commutes)."""
+    if eq != "bqd,bkd->bqk":
+        return _mm_3xtf32(eq, a, b)
+    dc = (192 if a.shape[-1] <= 192 else 256) // 2
+    lo = _mm_3xtf32(eq, a[..., :dc], b[..., :dc])
+    hi = _mm_3xtf32(eq, a[..., dc:], b[..., dc:])
+    assert torch.equal(lo + hi, hi + lo)
+    return lo + hi
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [136, 200, 256])
+@pytest.mark.parametrize("s", [70, 200])
+def test_3xtf32_pair_split_keeps_the_wide_flash_kernels_within_their_bars(
+        s, d, causal):
+    """Above D 128 the forward and dK/dV kernels split each score product's
+    head dim between the two warps of a pair and add the partials: with
+    3xTF32 operands that stays within the bars of the plain fp32 versions
+    (1e-5 on O and LSE, 1e-4 on dQ, dK, dV), at a ragged second half (D
+    136, 200) and a full one (256)."""
+    rs = np.random.RandomState(s + d + causal)
+    q, k, v, do = (torch.from_numpy(rs.standard_normal((2, s, d))
+                                    .astype(np.float32)) for _ in range(4))
+    o, lse = _flash_fwd_emulated(q, k, v, causal, _mm_3xtf32_pair)
+    po, plse = flash.flash_fwd_plain(q, k, v, causal)
+    assert (o - po).abs().max().item() <= 1e-5
+    assert (lse - plse).abs().max().item() <= 1e-5
+    delta = (do * po).sum(dim=-1)
+    grads = _flash_bwd_emulated(q, k, v, do, plse, delta, causal,
+                                _mm_3xtf32_pair)
+    want = (flash.flash_dq_plain(q, k, v, do, plse, delta, causal),
+            *flash.flash_dkv_plain(q, k, v, do, plse, delta, causal))
+    for got, exp in zip(grads, want):
+        assert (got - exp).abs().max().item() <= 1e-4
+
+
 # ---------------------------------------------------------------------------
 # transformer forward and gradients against the reference
 # ---------------------------------------------------------------------------

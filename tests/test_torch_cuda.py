@@ -271,6 +271,15 @@ def test_tiered_store_state_round_trips_bitwise_on_card(cuda_device):
                        for g, r in zip(got, rows))
 
 
+# the edges of the 8-warp pair kernels' head-dim split above D 128: D 129
+# and 136 (DP 192, a ragged second half), 130 (4-byte copies), 193 and 255
+# (DP 256, a ragged half); S 1, 65 and 520; BH 1 and 133 (more CTAs than
+# SMs); causal and not (chip_smoke.FLASH_PAIR_EDGES)
+_PAIR_EDGES = [(bh, s, d, c) for d in (129, 130, 136, 193, 255)
+               for bh, s in ((3, 1), (1, 65), (133, 65), (2, 520))
+               for c in (True, False)]
+
+
 # the LoRA path's shape (4 clients x 4 sequences x 32 heads, S 512, D 128),
 # ragged sequence lengths and head dims, a head dim that is not a power of
 # two, and the full head dim without the causal mask; the instances above
@@ -280,7 +289,7 @@ def test_tiered_store_state_round_trips_bitwise_on_card(cuda_device):
     (3, 200, 20, True), (3, 200, 64, False), (2, 130, 16, True),
     (3, 200, 72, True), (2, 130, 128, False), (3, 200, 160, True),
     (2, 130, 192, False), (3, 200, 200, True), (2, 130, 256, False),
-    (96, 256, 192, True), (16, 512, 256, True)])
+    (96, 256, 192, True), (16, 512, 256, True)] + _PAIR_EDGES)
 def test_flash_kernels_match_plain_versions(cuda_device, bh, s, d, causal):
     gen = torch.Generator(device=cuda_device).manual_seed(s * d)
     q, k, v, do = (torch.randn((bh, s, d), generator=gen, device=cuda_device)
