@@ -746,8 +746,8 @@ def flash_instance(d):
 
 def flash_symbol(name, r):
     """The CUDA kernel behind counter ``name`` at an instance whose
-    resources are ``r``: above D 128 the forward and dK/dV run the 8-warp
-    pair kernels."""
+    resources are ``r``: above D 128 all three run the 8-warp pair
+    kernels."""
     return f"{name}_pair_kernel" if r["threads"] == 256 else f"{name}_kernel"
 
 

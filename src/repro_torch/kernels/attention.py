@@ -16,11 +16,10 @@ reference.  The semantics are the reference's: scale ``1/sqrt(D)`` of the
 real head dim, validity from global indices, masked scores ``-1e30``,
 denominator floor ``1e-30``.  The kernels take any S and D <= 256 (the
 reference's config zoo tops out at 256: PaliGemma and RecurrentGemma; 192
-for Nemotron-4).  Above 128 the forward and dK/dV run one CTA of 8 warps a
-64-row tile: 4 pairs of warps, the two warps of a pair splitting the head
-dim and swapping their partial score tiles through shared memory, so each
-score product runs once; dQ splits its output columns over two CTAs
-(``csrc/flash_attn.cu``).
+for Nemotron-4).  Above 128 all three run one CTA of 8 warps a 64-row
+tile: 4 pairs of warps, the two warps of a pair splitting the head dim and
+swapping their partial score tiles through shared memory, so each score
+product runs once (``csrc/flash_attn.cu``).
 
 They run every product on the H100's tensor cores (``mma.sync`` m16n8k8
 TF32) in 3xTF32 — each fp32 operand split into a TF32 ``big`` and the
@@ -200,7 +199,9 @@ def flash_dkv(q, k, v, do, lse, delta, causal: bool
 def kernel_info(d: int = 128) -> dict:
     """{kernel: {"registers", "spill_bytes", "smem_bytes", "ctas_per_sm",
     "threads", "grid_z"}} of the three CUDA kernels built for head dim
-    ``d`` (needs a card); a launch's grid is (BH, ceil(S / 64), grid_z)."""
+    ``d`` (needs a card); a launch's grid is (BH, ceil(S / 64), grid_z),
+    grid_z 1 at every head dim; threads 128, or 256 above D 128 (the warp
+    pairs)."""
     lib = build.load("flash_attn")
     out = {}
     for which, name in enumerate(("flash_fwd", "flash_dq", "flash_dkv")):

@@ -67,32 +67,29 @@
 //     blockIdx.y; dK/dV's key tile 0, first already, has the longest loop);
 //   * above D 128 (DP 192 and 256: Nemotron-4 and the Gemma family) a warp's
 //     16 x DP accumulator would not fit in registers (the forward's O alone
-//     is DP / 2 floats a thread, and dK/dV holds two).  So the forward and
-//     dK/dV run there on CTAs of 8 warps, one CTA a 64-row tile over the
-//     full head dim (flash_fwd_pair_kernel, flash_dkv_pair_kernel; grid z
-//     1): 4 row groups of 16 rows, each a pair of warps that split the head
-//     dim, DC = DP / 2 columns a warp.  Each warp of a pair computes its
-//     partial of the 16 x 32 score tile over its DC columns (S = Q K^T; in
-//     dK/dV S^T = K Q^T and dP^T = V dO^T), the pair swaps its partials
-//     through shared memory (a slot a warp, 16 KB), and each warp adds the
-//     two, lo + hi: fp32 addition commutes, so both hold the same tile bit
-//     for bit, and the same row statistics, P and dS.  Each warp then takes
-//     its DC output columns (O = P V, dK = dS^T Q, dV = P^T dO) as below
-//     D 128, and the column-half-0 warp writes the LSE.  Each head-dim
-//     product thus runs once a tile.  The swap of S (and S^T) rides on the
-//     tile's own __syncthreads: the partials are stored before the barrier
-//     that frees K (forward) or says dO has landed (dK/dV), and read after
-//     it.  dP^T needs the pair's own named barrier (bar.sync 1 + row group,
-//     64 threads), and a thread writes its dP^T partial into the partner's
-//     slot at the places it has just read S^T from, so one buffer serves
-//     both swaps.  Shared memory: forward 116,736 / 149,504 bytes, dK/dV
-//     167,168 / 216,320 at DP 192 / 256 (`prepare` raises the dynamic
-//     limit): one CTA, 8 warps, an SM.  dQ keeps one CTA a column block of
-//     DC output columns there (blockIdx.z: dQ = dS K takes its columns from
-//     K alone), with S and dP over the full head dim in each CTA: the two
-//     CTAs of a tile repeat them, 1.67x dQ's operations; its shared memory
-//     holds full-width tiles (150,528 / 199,680 bytes), its registers are
-//     those of DP 128.
+//     is DP / 2 floats a thread, and dK/dV holds two).  So all three
+//     kernels run there on CTAs of 8 warps, one CTA a 64-row tile over the
+//     full head dim (flash_fwd_pair_kernel, flash_dq_pair_kernel,
+//     flash_dkv_pair_kernel; grid z 1): 4 row groups of 16 rows, each a
+//     pair of warps that split the head dim, DC = DP / 2 columns a warp.
+//     Each warp of a pair computes its partial of the 16 x 32 score tiles
+//     over its DC columns (S = Q K^T; in dQ also dP = dO V^T, in dK/dV
+//     S^T = K Q^T and dP^T = V dO^T), the pair swaps its partials through
+//     shared memory (a slot a warp, 16 KB), and each warp adds the two,
+//     lo + hi: fp32 addition commutes, so both hold the same tile bit for
+//     bit, and the same row statistics, P and dS.  Each warp then takes its
+//     DC output columns (O = P V, dQ = dS K, dK = dS^T Q, dV = P^T dO) as
+//     below D 128, and the column-half-0 warp writes the LSE.  Each
+//     head-dim product thus runs once a tile.  The first swap of a step
+//     rides on the tile's own __syncthreads: the partials are stored before
+//     the barrier that frees K (forward), frees V (dQ, for dP) or says dO
+//     has landed (dK/dV), and read after it.  The second (dQ's S, dK/dV's
+//     dP^T) needs the pair's own named barrier (bar.sync 1 + row group, 64
+//     threads), and a thread writes its partial into the partner's slot at
+//     the places it has just read the first one from, so one buffer serves
+//     both swaps.  Shared memory: forward 116,736 / 149,504 bytes, dQ
+//     166,912 / 216,064, dK/dV 167,168 / 216,320 at DP 192 / 256
+//     (`prepare` raises the dynamic limit): one CTA, 8 warps, an SM.
 // Not done here: wgmma and TMA (TF32 wgmma takes B only K-major from shared
 // memory, and 3xTF32 on it needs split big/small copies of every B tile).
 #include "tf32x3.cuh"
@@ -111,12 +108,8 @@ constexpr float TINY = 1e-30f;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int XCH = 16 * 32;  // floats of a warp's partial score tile
 
-// output columns a dQ CTA owns at padded head dim DP (the header's column
-// blocks above 128), and the head-dim blocks mma_cols takes in one group:
-// g, or g / 2 where g does not divide the nd blocks (DC 96: 12 blocks)
-__host__ __device__ constexpr int cols_for(int DP) {
-  return DP <= 128 ? DP : DP / 2;
-}
+// the head-dim blocks mma_cols takes in one group: g, or g / 2 where g
+// does not divide the nd blocks (DC 96: 12 blocks)
 __host__ __device__ constexpr int fit(int nd, int g) {
   return nd < g || nd % g == 0 ? g : g / 2;
 }
@@ -478,8 +471,8 @@ flash_fwd_pair_kernel(const float* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// K7a: dQ.  grid (BH, ceil(S / 64), DP / DC), one CTA per query tile (and
-// column block of dQ) over key tiles
+// K7a: dQ up to D 128.  grid (BH, ceil(S / 64)), one CTA per query tile
+// over key tiles
 // ---------------------------------------------------------------------------
 template <int DP>
 __global__ void __launch_bounds__(THREADS, 2)
@@ -488,13 +481,13 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, float* __restrict__ dq,
                 int S, int D, float scale, int causal, int vec) {
-  constexpr int LD = DP + 4, NB = DQ_KEYS / 8, DC = cols_for(DP);
+  static_assert(DP <= 128, "above 128: flash_dq_pair_kernel");
+  constexpr int LD = DP + 4, NB = DQ_KEYS / 8;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* Gs = Qs + TILE * LD;  // dO
   float* Ks = Gs + TILE * LD;
   float* Vs = Ks + DQ_KEYS * LD;
-  const int c0 = DC == DP ? 0 : (int)blockIdx.z * DC;  // dQ's column block
   const int w = threadIdx.x >> 5, g = (threadIdx.x >> 2) & 7,
             t = threadIdx.x & 3;
   const int64_t bh = blockIdx.x;
@@ -514,9 +507,9 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     lr[h] = row[h] < S ? __ldg(lse + bh * S + row[h]) : 0.0f;
     dr[h] = row[h] < S ? __ldg(delta + bh * S + row[h]) : 0.0f;
   }
-  float acc[DC / 8][4];
+  float acc[DP / 8][4];
 #pragma unroll
-  for (int nd = 0; nd < DC / 8; ++nd)
+  for (int nd = 0; nd < DP / 8; ++nd)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[nd][c] = 0.0f;
   const int nk = (S + DQ_KEYS - 1) / DQ_KEYS;
@@ -553,11 +546,116 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float p = ok ? expf(s[nb][c] * scale - lr[h]) : 0.0f;
           s[nb][c] = p * (dp[nb][c] - dr[h]) * scale;
         }
-      mma_cols<DC, NB, fit(DC / 8, 8), true, LD>(acc, s, Ks + c0, g, t);
+      mma_cols<DP, NB, fit(DP / 8, 8), true, LD>(acc, s, Ks, g, t);
     }
     __syncthreads();  // every warp is done with K(kt)
     if (kt + 1 < kend)
       load_tile<DP, DQ_KEYS>(Ks, k + off, k0 + DQ_KEYS, S, D, vec);
+    cp_commit();
+  }
+  store_rows<DP>(dq + off, acc, q0 + ra + g, S, D, 0, t);
+}
+
+// ---------------------------------------------------------------------------
+// K7a above D 128: grid (BH, ceil(S / 64)), 8 warps; warp w is row group
+// w / 2 (16 queries) and column half w % 2 (the header's warp pairs)
+// ---------------------------------------------------------------------------
+template <int DP>
+__global__ void __launch_bounds__(PAIR_THREADS, 1)
+flash_dq_pair_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dq,
+                     int S, int D, float scale, int causal, int vec) {
+  constexpr int LD = DP + 4, NB = DQ_KEYS / 8, DC = DP / 2;
+  static_assert(NB == 4, "put_tile / add_tile swap 16 x 32 tiles");
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;
+  float* Gs = Qs + TILE * LD;  // dO
+  float* Ks = Gs + TILE * LD;
+  float* Vs = Ks + DQ_KEYS * LD;
+  float* Xs = Vs + DQ_KEYS * LD;  // partial score tiles, a slot a warp
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2,
+            t = lane & 3;
+  const int pair = w >> 1, c0 = (w & 1) * DC;  // dQ's columns
+  float* mine = Xs + w * XCH;
+  float* other = Xs + (w ^ 1) * XCH;
+  const int64_t bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y, q0 = qt * TILE, ra = 16 * pair;
+  const int64_t off = bh * (int64_t)S * D;
+  load_tile<DP, TILE, PAIR_THREADS>(Qs, q + off, q0, S, D, vec);
+  load_tile<DP, TILE, PAIR_THREADS>(Gs, dout + off, q0, S, D, vec);
+  load_tile<DP, DQ_KEYS, PAIR_THREADS>(Vs, v + off, 0, S, D, vec);
+  cp_commit();
+  load_tile<DP, DQ_KEYS, PAIR_THREADS>(Ks, k + off, 0, S, D, vec);
+  cp_commit();
+
+  const int row[2] = {q0 + ra + g, q0 + ra + g + 8};
+  float lr[2], dr[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    lr[h] = row[h] < S ? __ldg(lse + bh * S + row[h]) : 0.0f;
+    dr[h] = row[h] < S ? __ldg(delta + bh * S + row[h]) : 0.0f;
+  }
+  float acc[DC / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < DC / 8; ++nd)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[nd][c] = 0.0f;
+  const int nk = (S + DQ_KEYS - 1) / DQ_KEYS;
+  const int kend = causal ? min((q0 + TILE - 1) / DQ_KEYS + 1, nk) : nk;
+  for (int kt = 0; kt < kend; ++kt) {
+    const int k0 = kt * DQ_KEYS;
+    // the row group has a visible pair in this key tile (the same for both
+    // warps of a pair, so both take the pair's barrier)
+    const bool work = q0 + ra < S && (!causal || k0 <= q0 + ra + 15);
+    const bool full = k0 + DQ_KEYS <= S &&
+                      (!causal || k0 + DQ_KEYS - 1 <= q0 + ra);
+    float s[NB][4], dp[NB][4];
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[nb][c] = dp[nb][c] = 0.0f;
+    cp_wait<1>();
+    __syncthreads();  // V(kt) has landed
+    if (work) {
+      mma_dim<DC, NB, LD>(dp, Gs + c0, ra, Vs + c0, g, t);
+      put_tile(mine, dp, lane);
+    }
+    __syncthreads();  // every warp is done with V(kt); the dP partials are in
+    if (kt + 1 < kend)
+      load_tile<DP, DQ_KEYS, PAIR_THREADS>(Vs, v + off, k0 + DQ_KEYS, S, D,
+                                           vec);
+    cp_commit();
+    if (work) add_tile(dp, other, lane);  // dP = lo + hi, in both warps
+    cp_wait<1>();
+    __syncthreads();  // K(kt) has landed
+    if (work) {
+      mma_dim<DC, NB, LD>(s, Qs + c0, ra, Ks + c0, g, t);
+      // into the partner's slot, at the places this thread has just read:
+      // the partner reads its dP partial from this warp's slot
+      put_tile(other, s, lane);
+      pair_sync(pair);
+      add_tile(s, mine, lane);  // S = lo + hi
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int h = c >> 1;
+          const bool ok = full || visible(row[h], k0 + 8 * nb + 2 * t + (c & 1),
+                                          S, causal);
+          const float p = ok ? expf(s[nb][c] * scale - lr[h]) : 0.0f;
+          s[nb][c] = p * (dp[nb][c] - dr[h]) * scale;
+        }
+      // dQ += dS K over this warp's columns
+      mma_cols<DC, NB, fit(DC / 8, 8), true, LD>(acc, s, Ks + c0, g, t);
+    }
+    __syncthreads();  // every warp is done with K(kt)
+    if (kt + 1 < kend)
+      load_tile<DP, DQ_KEYS, PAIR_THREADS>(Ks, k + off, k0 + DQ_KEYS, S, D,
+                                           vec);
     cp_commit();
   }
   store_rows<DC>(dq + off, acc, q0 + ra + g, S, D, c0, t);
@@ -778,8 +876,8 @@ flash_dkv_pair_kernel(const float* __restrict__ q,
 // ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
-// above D 128 the forward and dK/dV run on warp pairs: 8 warps a CTA and
-// a slot of shared memory a warp for its partial score tiles
+// above D 128 the three kernels run on warp pairs: 8 warps a CTA and a
+// slot of shared memory a warp for its partial score tiles
 constexpr int pair_threads(int DP) {
   return DP <= 128 ? THREADS : PAIR_THREADS;
 }
@@ -795,7 +893,8 @@ constexpr size_t fwd_smem() {
 
 template <int DP>
 constexpr size_t dq_smem() {
-  return sizeof(float) * (2 * TILE + 2 * DQ_KEYS) * (DP + 4);
+  return sizeof(float) * (2 * TILE + 2 * DQ_KEYS) * (DP + 4) +
+         pair_slots(DP);
 }
 
 template <int DP>
@@ -812,6 +911,12 @@ auto fwd_kernel() {
 }
 
 template <int DP>
+auto dq_kernel() {
+  if constexpr (DP <= 128) return flash_dq_kernel<DP>;
+  else return flash_dq_pair_kernel<DP>;
+}
+
+template <int DP>
 auto dkv_kernel() {
   if constexpr (DP <= 128) return flash_dkv_kernel<DP>;
   else return flash_dkv_pair_kernel<DP>;
@@ -822,9 +927,9 @@ bool bad_shape(int64_t BH, int64_t S, int64_t D) {
          S > 0x7fffffff || (S + TILE - 1) / TILE > 65535;
 }
 
-// (BH, query or key tiles, column blocks: dQ's above 128, else 1)
-dim3 grid_for(int64_t BH, int64_t S, int blocks) {
-  return dim3((unsigned)BH, (unsigned)((S + TILE - 1) / TILE), blocks);
+// (BH, query or key tiles)
+dim3 grid_for(int64_t BH, int64_t S) {
+  return dim3((unsigned)BH, (unsigned)((S + TILE - 1) / TILE));
 }
 
 // 16-byte copies need D % 4 == 0 and 16-byte aligned tensors
@@ -839,7 +944,7 @@ int fwd(const float* q, const float* k, const float* v, float* o, float* lse,
   const auto kern = fwd_kernel<DP>();
   cudaError_t err = prepare((const void*)kern, fwd_smem<DP>());
   if (err != cudaSuccess) return (int)err;
-  kern<<<grid_for(BH, S, 1), pair_threads(DP), fwd_smem<DP>(), st>>>(
+  kern<<<grid_for(BH, S), pair_threads(DP), fwd_smem<DP>(), st>>>(
       q, k, v, o, lse, (int)S, (int)D, scale, causal,
       D % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v));
   return (int)cudaGetLastError();
@@ -849,11 +954,10 @@ template <int DP>
 int dq(const float* q, const float* k, const float* v, const float* dout,
        const float* lse, const float* delta, float* dq_, int64_t BH,
        int64_t S, int64_t D, float scale, int causal, cudaStream_t st) {
-  const void* fn = (const void*)flash_dq_kernel<DP>;
-  cudaError_t err = prepare(fn, dq_smem<DP>());
+  const auto kern = dq_kernel<DP>();
+  cudaError_t err = prepare((const void*)kern, dq_smem<DP>());
   if (err != cudaSuccess) return (int)err;
-  flash_dq_kernel<DP><<<grid_for(BH, S, DP / cols_for(DP)), THREADS,
-                        dq_smem<DP>(), st>>>(
+  kern<<<grid_for(BH, S), pair_threads(DP), dq_smem<DP>(), st>>>(
       q, k, v, dout, lse, delta, dq_, (int)S, (int)D, scale, causal,
       D % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
           aligned16(dout));
@@ -868,7 +972,7 @@ int dkv(const float* q, const float* k, const float* v, const float* dout,
   const auto kern = dkv_kernel<DP>();
   cudaError_t err = prepare((const void*)kern, dkv_smem<DP>());
   if (err != cudaSuccess) return (int)err;
-  kern<<<grid_for(BH, S, 1), pair_threads(DP), dkv_smem<DP>(), st>>>(
+  kern<<<grid_for(BH, S), pair_threads(DP), dkv_smem<DP>(), st>>>(
       q, k, v, dout, lse, delta, dk, dv, (int)S, (int)D, scale, causal,
       D % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
           aligned16(dout));
@@ -876,20 +980,19 @@ int dkv(const float* q, const float* k, const float* v, const float* dout,
 }
 
 // registers, local (spill) bytes, dynamic shared memory bytes, resident
-// CTAs per SM, threads a CTA and grid z (column blocks) of kernel `which`
-// (0 forward, 1 dQ, 2 dK/dV)
+// CTAs per SM, threads a CTA and grid z (1: one CTA a tile) of kernel
+// `which` (0 forward, 1 dQ, 2 dK/dV)
 template <int DP>
 int info(int which, int* out) {
   const void* fn = which == 0   ? (const void*)fwd_kernel<DP>()
-                   : which == 1 ? (const void*)flash_dq_kernel<DP>
+                   : which == 1 ? (const void*)dq_kernel<DP>()
                                 : (const void*)dkv_kernel<DP>();
   const size_t smem = which == 0   ? fwd_smem<DP>()
                       : which == 1 ? dq_smem<DP>()
                                    : dkv_smem<DP>();
-  const int threads = which == 1 ? THREADS : pair_threads(DP);
-  const int err = kernel_resources(fn, threads, smem, out);
-  out[4] = threads;
-  out[5] = which == 1 ? DP / cols_for(DP) : 1;
+  const int err = kernel_resources(fn, pair_threads(DP), smem, out);
+  out[4] = pair_threads(DP);
+  out[5] = 1;
   return err;
 }
 

@@ -216,10 +216,11 @@ def test_3xtf32_products_keep_the_flash_kernels_within_their_bars(s, d,
 
 def _mm_3xtf32_pair(eq, a, b):
     """``_mm_3xtf32`` with the head-dim products (S = Q K^T, dP = dO V^T)
-    taken as the pair kernels take them above D 128: each warp of a pair
-    over its half of the padded head dim (DP / 2 = 96 or 128 columns, the
-    second half ragged below DP), the two partials added, lo + hi, by
-    either warp (the same sum bit for bit: fp32 addition commutes)."""
+    taken as the three pair kernels take them above D 128 (the forward's
+    S, dQ's S and dP, dK/dV's S^T and dP^T): each warp of a pair over its
+    half of the padded head dim (DP / 2 = 96 or 128 columns, the second
+    half ragged below DP), the two partials added, lo + hi, by either warp
+    (the same sum bit for bit: fp32 addition commutes)."""
     if eq != "bqd,bkd->bqk":
         return _mm_3xtf32(eq, a, b)
     dc = (192 if a.shape[-1] <= 192 else 256) // 2
@@ -230,15 +231,16 @@ def _mm_3xtf32_pair(eq, a, b):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", [136, 200, 256])
+@pytest.mark.parametrize("d", [136, 193, 200, 256])
 @pytest.mark.parametrize("s", [70, 200])
 def test_3xtf32_pair_split_keeps_the_wide_flash_kernels_within_their_bars(
         s, d, causal):
-    """Above D 128 the forward and dK/dV kernels split each score product's
-    head dim between the two warps of a pair and add the partials: with
-    3xTF32 operands that stays within the bars of the plain fp32 versions
-    (1e-5 on O and LSE, 1e-4 on dQ, dK, dV), at a ragged second half (D
-    136, 200) and a full one (256)."""
+    """Above D 128 the forward, dQ and dK/dV kernels split each score
+    product's head dim between the two warps of a pair and add the
+    partials: with 3xTF32 operands that stays within the bars of the plain
+    fp32 versions (1e-5 on O and LSE, 1e-4 on dQ, dK, dV), at a ragged
+    second half (D 136, 200; D 193, one column past DP 256's first half)
+    and a full one (256)."""
     rs = np.random.RandomState(s + d + causal)
     q, k, v, do = (torch.from_numpy(rs.standard_normal((2, s, d))
                                     .astype(np.float32)) for _ in range(4))

@@ -307,6 +307,32 @@ def test_flash_kernels_match_plain_versions(cuda_device, bh, s, d, causal):
         assert (got - exp).abs().max().item() <= 1e-4
 
 
+@pytest.mark.parametrize("d", [192, 256])
+def test_flash_kernels_above_128_run_one_pair_cta_a_tile(cuda_device, d):
+    """Above D 128 the forward, dQ and dK/dV each run one 8-warp CTA a
+    64-row tile (grid z 1) without spills, and fit on an SM."""
+    for name, r in attention.kernel_info(d).items():
+        assert (r["threads"], r["grid_z"], r["spill_bytes"]) == (256, 1, 0), \
+            (name, r)
+        assert r["ctas_per_sm"] >= 1, (name, r)
+
+
+@pytest.mark.parametrize("bh,s,d,causal", [(133, 65, 193, True),
+                                           (2, 520, 136, False)])
+def test_flash_dq_pair_kernel_is_deterministic(cuda_device, bh, s, d,
+                                               causal):
+    """dQ has one writer an element and no atomics: two launches on the
+    same inputs agree bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(s + d)
+    q, k, v, do = (torch.randn((bh, s, d), generator=gen, device=cuda_device)
+                   for _ in range(4))
+    o, lse = attention.flash_fwd(q, k, v, causal)
+    delta = (do * o).sum(dim=-1)
+    first = attention.flash_dq(q, k, v, do, lse, delta, causal)
+    second = attention.flash_dq(q, k, v, do, lse, delta, causal)
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+
+
 def test_flash_lora_round_on_card_matches_cpu(cuda_device):
     from repro_torch.models import attention as mattn
 
