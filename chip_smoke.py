@@ -76,7 +76,10 @@ Phases, in order; any failed check raises, so the script exits non-zero:
    on ``femnist_cnn`` / ``femnist`` at full width, 3 rounds of 10 clients,
    ``execution="batched"``, ``aggregation_kernel=True``, once per
    ``client.compression`` in none / stc / int8, with the kernel launch
-   counters set to 0 just before each run and read just after;
+   counters set to 0 just before each run and read just after; on the card
+   a fused round runs as one CUDA graph a bucket (round 0 eager, round 1
+   captured, round 2 replayed: ``core/batched.py::CapturedRound``), and
+   the counters count each replay's launches (phase 4p compares);
 4b. drive the LoRA path the same way: GLM-4-9B at its published width cut
    to 2 layers (f32, 1.65 B base parameters, attention projections drawn
    at the published models' scale: ``glm4_2layer``), ``make_tiny_lm``
@@ -138,17 +141,35 @@ Phases, in order; any failed check raises, so the script exits non-zero:
    launches) and kill-and-resume of fused stc with dropout and sequential
    int8 with crashes (EF device tier cut to 8 rows; 3 rounds, killed after
    2), final params and the step-3 checkpoint bit for bit, with the
-   checkpoint's bytes and save and load seconds;
+   checkpoint's bytes and save and load seconds; in the same child,
+   captured fused none / stc / int8 rounds and the EF-growth case (below)
+   bit for bit their eager runs;
+4p. (after 4g) the captured round (``run_captured``): each captured
+   femnist run of phases 4, 4f and 4g (fused none / stc / int8,
+   hierarchical stc, faulty stc under ``FAULTS_4G``, deferred int8)
+   beside its eager twin (``capture=False``): 1 capture and 2 replays in
+   3 rounds, no recapture, 1 dispatch and 1 host sync a round, launches
+   counted through the replays equal to the eager run's, round walls and
+   main-thread CPU seconds of rounds 1-2 (the CPU spins through a round's
+   one sync, so a blocking round's CPU is about its wall; deferred int8's
+   wall is its submission) and peak memory of both;
+   final params within max(1e-4, 2 x the mode's 1e-7-perturbed reach);
+   the EF-growth case (clients 0-9 twice, 10-19, 20-29: the store grows
+   16 -> 32 rows in round 2 and that round recaptures once) against its
+   eager twin; replays run under ``set_sync_debug_mode("error")``; then
+   ``repro_torch.analysis.contracts.check_contracts()`` on the card;
 4h. drive the paper's other two models through ``init({"dataset": ...})``
    and ``run`` at their published widths on their datasets' defaults
    (``shakespeare_lstm``: embed 8, 2 x LSTM 256, vocab 80, sequences of
    80; ``cifar_resnet18``: 11.2 M parameters, GroupNorm): batched fused
    under none and stc and sequential under none, 3 rounds of 10 clients,
    1 local epoch, launch counts as phase 4's, steady round walls and peak
-   memory printed; then each model's batched run on the card against the
-   CPU (1 round of 2 clients, evaluation off): params and train losses
-   within max(1e-4, 2 x how far the card's run moves from six
-   1e-7-perturbed inits);
+   memory printed, ``shakespeare_lstm``'s batched none also beside its
+   eager twin (``capture=False``: its launch-bound step loop is where
+   the captured round shows most); then each model's batched run on the
+   card against the CPU (1 round of 2 clients, evaluation off): params
+   and train losses within max(1e-4, 2 x how far the card's run moves
+   from six 1e-7-perturbed inits);
 4i. drive the async engine (FedBuff on the virtual clock) on phase 4's
    femnist configuration, K 5 of 10 in flight, speeds pinned 1x / 4x
    alternating, K1 on: stc for 6 aggregations with a checkpoint every 2,
@@ -322,6 +343,7 @@ two or more distinct cards, one shard a card (:func:`cards_check`).
 """
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -586,6 +608,10 @@ def main():
         if row.get("counter") in faulty:
             row["launches_faults"] = faulty[row["counter"]]
     check_resume(smi)
+
+    phase("4p. the captured round: phase 4's femnist_cnn fused rounds as "
+          "one CUDA graph a bucket against eager rounds")
+    run_captured(repro_torch, ops, smi, gaps, init)
 
     phase("4h. the paper's other models: shakespeare_lstm and "
           "cifar_resnet18 through init/run")
@@ -1829,6 +1855,31 @@ def conditioning_gap(repro_torch, cfg, init, final, seeds=(1, 2, 3),
 
 
 WALLS = {}    # run tag -> steady round walls (rounds 1-2), for phase 4g
+#: run tag -> the figures phase 4p compares: CUDA-graph captures and
+#: replays, main-thread CPU seconds of rounds 1-2, peak GiB, launches,
+#: params
+RUNS = {}
+
+
+@contextlib.contextmanager
+def round_starts(marks):
+    """Append the main thread's CPU time (``time.thread_time``) to
+    ``marks`` as each synchronous round starts (``Trainer.
+    _dispatch_round``): a round's host CPU is the difference to the next
+    mark."""
+    from repro_torch.core.rounds import Trainer
+
+    dispatch = Trainer._dispatch_round
+
+    def timed(self, round_id):
+        marks.append(time.thread_time())
+        return dispatch(self, round_id)
+
+    Trainer._dispatch_round = timed
+    try:
+        yield
+    finally:
+        Trainer._dispatch_round = dispatch
 
 
 def run_slice(repro_torch, ops, mode, execution="batched", resources=None,
@@ -1863,18 +1914,26 @@ def run_slice(repro_torch, ops, mode, execution="batched", resources=None,
     repro_torch.reset()
     repro_torch.init(cfg)
     d0, h0 = batched.dispatch_count(), batched.host_sync_count()
+    c0, r0 = batched.round_capture_count(), batched.round_replay_count()
     gc.collect()                                     # earlier runs' cycles
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated() / 2**30    # earlier phases' tensors
     ops.reset_launch_counts()
+    starts = []                   # main-thread CPU s at each round's start
     t0 = time.perf_counter()
-    res = repro_torch.run()
+    with round_starts(starts):
+        res = repro_torch.run()
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
+    starts.append(time.thread_time())
+    cpu = [round(b - a, 4) for a, b in zip(starts[1:-1], starts[2:])]
     peak = torch.cuda.max_memory_allocated() / 2**30 - held
     used = ops.launch_counts()
     hist = res["history"]
-    print(f"[{tag}] launches {used}")
+    captures = batched.round_capture_count() - c0
+    replays = batched.round_replay_count() - r0
+    print(f"[{tag}] launches {used} (counted through {replays} CUDA-graph "
+          f"replays; {captures} capture(s))")
     engine = repro_torch.core.api._ctx.trainer.engine
     mesh = None if engine is None else engine.mesh
     require((None if mesh is None else mesh.size) == shards,
@@ -1916,16 +1975,20 @@ def run_slice(repro_torch, ops, mode, execution="batched", resources=None,
             f"[{tag}] non-finite params")
     walls = [h["wall_time"] for h in hist]
     WALLS[tag] = walls[1:]
+    RUNS[tag] = {"captures": captures, "replays": replays, "cpu": cpu,
+                 "peak": peak, "launches": used,
+                 "params": [t.cpu() for t in out]}
     print(f"[{tag}] round wall s: round0 {walls[0]:.4f} "
           f"(first-use setup included), later {[round(x, 4) for x in walls[1:]]};"
-          f" run total {total:.3f} s; peak device memory {peak:.2f} GiB "
+          f" run total {total:.3f} s; main-thread CPU s of rounds 1-2 {cpu}; "
+          f"peak device memory {peak:.2f} GiB "
           f"above the {held:.2f} GiB held before the run")
     print(f"[{tag}] train_loss {[round(h['train_loss'], 5) for h in hist]}"
           f" test loss {[round(h['loss'], 5) for h in hist]} test acc "
           f"{[round(h['accuracy'], 4) for h in hist]} comm_up "
           f"{[h['comm_up_bytes'] for h in hist]}")
     repro_torch.reset()
-    return used, [t.cpu() for t in out]
+    return used, RUNS[tag]["params"]
 
 
 def run_batched_paths(repro_torch, ops, fused, gaps, init):
@@ -2204,6 +2267,138 @@ def run_faults(repro_torch, ops, dev, smi):
     return out
 
 
+#: phase 4p: each captured run of phases 4, 4f and 4g beside its eager
+#: twin: (tag of the captured run, mode, run_slice keywords)
+CAPTURE_CASES = [
+    ("none", "none", {}), ("stc", "stc", {}), ("int8", "int8", {}),
+    ("hierarchical stc", "stc",
+     {"resources": {"aggregation_topology": "hierarchical"},
+      "k1": "fedavg_agg_tree"}),
+    ("faults fused stc", "stc", {}),
+    ("deferred int8", "int8", {"tracking": {"round_sync": False}}),
+]
+
+
+@contextlib.contextmanager
+def eager_rounds():
+    """Every ``BatchedExecutor`` made inside runs its fused rounds eagerly
+    (its ``capture=False``): the eager side of phase 4p's A/B."""
+    from repro_torch.core import batched
+
+    init = batched.BatchedExecutor.__init__
+    batched.BatchedExecutor.__init__ = functools.partialmethod(
+        init, capture=False)
+    try:
+        yield
+    finally:
+        batched.BatchedExecutor.__init__ = init
+
+
+def ef_growth_rounds(repro_torch, capture):
+    """Phase 4p's EF-growth case: phase 4's fused stc round through one
+    executor, femnist clients 0-9 twice (the eager warm-up, the capture),
+    then 10-19 (the store grows from 16 to 32 rows: new storage, a
+    recapture) and 20-29 (it fits: a replay).  -> (final params on the
+    CPU, captures, replays)."""
+    from repro_torch.core import api, batched
+    from repro_torch.core.rounds import Trainer
+    from repro_torch.utils.tree import tree_leaves
+
+    repro_torch.reset()
+    repro_torch.set_device(None)
+    repro_torch.init(femnist_config("stc", "batched"))
+    ctx = api._ctx
+    trainer = Trainer(ctx.config, ctx.model, ctx.fed_data,
+                      tracker=ctx.tracker)
+    engine = batched.BatchedExecutor(ctx.model, trainer.device,
+                                     capture=capture)
+    ids = ctx.fed_data.client_ids
+    params = ctx.model.init(torch.Generator().manual_seed(ctx.config.seed),
+                            trainer.device)
+    n0 = batched.round_capture_count(), batched.round_replay_count()
+    allocs = []
+    for r, lo in enumerate((0, 0, 10, 20)):
+        cohort = [trainer.client(c) for c in ids[lo:lo + 10]]
+        _, params, _ = engine.run_round_fused(
+            cohort, params, r, method="stc",
+            stc_sparsity=ctx.config.client.stc_sparsity, use_kernel=True)
+        allocs.append(engine._ef.alloc)
+    torch.cuda.synchronize()
+    out = [t.cpu() for t in tree_leaves(params)]
+    counts = (batched.round_capture_count() - n0[0],
+              batched.round_replay_count() - n0[1])
+    require(allocs == [16, 16, 32, 32], f"[EF growth] store rows {allocs}, "
+            f"expected [16, 16, 32, 32]")
+    repro_torch.reset()
+    return out, counts
+
+
+def run_captured(repro_torch, ops, smi, gaps, init):
+    """Phase 4p: the fused round as one CUDA graph a bucket.  Each captured
+    run of phases 4, 4f and 4g (``CAPTURE_CASES``: fused none / stc /
+    int8, hierarchical stc, faulty stc, deferred int8; 3 rounds) beside
+    its eager twin (``eager_rounds``): captures, recaptures and replays,
+    dispatches and host syncs a round (``run_slice`` holds them to 1 / 1),
+    launches counted through the replays (equal to the eager run's), round
+    walls and main-thread CPU seconds of rounds 1-2, and peak GiB; final
+    params within max(1e-4, 2 x the mode's 1e-7-perturbed reach), as in
+    4e and 4f.  Then the EF-growth case (``ef_growth_rounds``: one
+    recapture, within the same bar of its eager twin) and
+    ``check_contracts()`` on the card.  Bit-for-bit equality of captured
+    and eager rounds is checked in the deterministic ``--resume-check``
+    child.  -> the faulty run's reach, for phase 4j."""
+    from repro_torch.analysis.contracts import check_contracts
+
+    gaps["faults stc"] = conditioning_gap(
+        repro_torch, dict(femnist_config("stc", "batched"),
+                          faults=FAULTY["faults"]),
+        init, FAULTY["faults fused stc"], seeds=(1, 2))
+    for tag, mode, kw in CAPTURE_CASES:
+        kw = dict(kw)
+        if tag.startswith("faults"):
+            kw["faults"] = FAULTY["faults"]
+        eager = f"eager {tag}"
+        with eager_rounds():
+            run_slice(repro_torch, ops, mode, tag=eager, **kw)
+        cap, eag = RUNS[tag], RUNS[eager]
+        require((cap["captures"], cap["replays"]) == (1, 2),
+                f"[{tag}] {cap['captures']} capture(s), {cap['replays']} "
+                f"replay(s) in 3 rounds, expected 1 and 2")
+        require((eag["captures"], eag["replays"]) == (0, 0),
+                f"[{eager}] captured {eag['captures']} times")
+        require(cap["launches"] == eag["launches"],
+                f"[{tag}] launches {cap['launches']} != the eager run's "
+                f"{eag['launches']}")
+        gap = gaps["faults stc" if tag.startswith("faults") else mode]
+        diff = max_diff(cap["params"], eag["params"])
+        bar = max(1e-4, 2 * gap)
+        print(f"[captured {tag}] 1 capture, 0 recaptures, 2 replays (rounds "
+              f"1-2), 1 dispatch and 1 host sync a round; round walls 1-2 "
+              f"{[round(x, 4) for x in WALLS[tag]]} s captured, "
+              f"{[round(x, 4) for x in WALLS[eager]]} s eager; main-thread "
+              f"CPU s of rounds 1-2 {cap['cpu']} / {eag['cpu']}; peak "
+              f"{cap['peak']:.2f} / {eag['peak']:.2f} GiB; final params max "
+              f"|diff| {diff:.4g}, reach {gap:.4g}, bar {bar:.4g} ({smi})")
+        require(diff <= bar, f"[{tag}] captured vs eager {diff} > {bar}")
+
+    got, counts = ef_growth_rounds(repro_torch, True)
+    want, eager_counts = ef_growth_rounds(repro_torch, False)
+    diff = max_diff(got, want)
+    bar = max(1e-4, 2 * gaps["stc"])
+    print(f"[captured EF growth] captures, replays {counts} (eager "
+          f"{eager_counts}): the store's growth at round 2 recaptured once; "
+          f"final params vs eager max |diff| {diff:.4g}, bar {bar:.4g}")
+    require(counts == (2, 3) and eager_counts == (0, 0),
+            f"[EF growth] captures, replays {counts}, expected (2, 3)")
+    require(diff <= bar, f"[EF growth] captured vs eager {diff} > {bar}")
+
+    repro_torch.set_device(None)
+    report = check_contracts()
+    print(report.format())
+    require(report.ok, "check_contracts() failed on the card")
+    return gaps["faults stc"]
+
+
 def run_models(repro_torch, ops, smi):
     """Phase 4h: the paper's other two models at their published widths on
     their datasets' defaults (``model_config``): ``shakespeare_lstm``
@@ -2232,6 +2427,16 @@ def run_models(repro_torch, ops, smi):
                                 tag=tag, model=model)
             for k, v in used.items():
                 total[k] += v
+        if model == "shakespeare_lstm":
+            # the launch-bound step loop, captured and eager in one call
+            eager = f"{model} eager none"
+            with eager_rounds():
+                run_slice(repro_torch, ops, "none", tag=eager, model=model)
+            print(f"[{model}] batched none, rounds 1-2 (capture, replay): "
+                  f"{WALLS[f'{model} none']} s and main-thread CPU "
+                  f"{RUNS[f'{model} none']['cpu']} s captured, "
+                  f"{WALLS[eager]} s and {RUNS[eager]['cpu']} s eager "
+                  f"({smi})")
         print(f"[{model}] steady round walls s (rounds 1-2): "
               + "; ".join(f"{t}: {WALLS[t]}" for t in WALLS
                           if t.startswith(model)) + f" ({smi})")
@@ -2469,9 +2674,7 @@ def run_sharded(repro_torch, ops, smi, fused, gaps, init):
         repro_torch, femnist_config("stc", "batched", clients=20), init,
         base20, seeds=(1, 2))
     base_faulty = FAULTY["faults fused stc"]
-    reach_faulty = conditioning_gap(
-        repro_torch, dict(femnist_config("stc", "batched"), faults=faults),
-        init, base_faulty, seeds=(1, 2))
+    reach_faulty = gaps["faults stc"]          # phase 4p's
     try:
         for k in (2, 4):
             repro_torch.set_devices([torch.device("cuda", 0)] * k)
@@ -2589,7 +2792,8 @@ def check_resume(smi):
     (``chip_smoke.py --resume-check``) that sets
     ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, ``torch.use_deterministic_algorithms
     (True)`` and ``cudnn.deterministic``: an all-zero ``faults`` block
-    against no block (bit for bit, same counters and launches), and
+    against no block (bit for bit, same counters and launches), captured
+    rounds against eager ones (phase 4p's bit-for-bit rule), and
     kill-and-resume (``resume_check``)."""
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
     t0 = time.perf_counter()
@@ -2609,7 +2813,10 @@ def resume_check():
 
     (a) Phase 4's fused stc configuration with no ``faults`` block and with
     an all-zero one: params bit for bit, the same program builds,
-    dispatches, host syncs and launches.  (b) Kill-and-resume for fused
+    dispatches, host syncs and launches; fused none / stc / int8 rounds
+    captured (the default on the card) and eager (``eager_rounds``), and
+    the EF-growth case (``ef_growth_rounds``) both ways: bit for bit, with
+    the same counters.  (b) Kill-and-resume for fused
     stc with dropout and sequential int8 with crashes, the EF store's device
     tier cut to 8 rows (some rows sit on the host tier when saved): run A
     trains 3 rounds through ``init``/``run`` with a checkpoint every round;
@@ -2663,6 +2870,22 @@ def resume_check():
     print(f"[resume] fused stc, deterministic: an all-zero faults block = "
           f"no faults block bit for bit; builds, dispatches, host syncs "
           f"{n0}; launches {l0}")
+    # phase 4p's bit-for-bit rule: a captured round is the eager round
+    for mode in ("none", "stc", "int8"):
+        mcfg = dict(femnist_config(mode, "batched"), **quiet)
+        got = (p0, n0, l0) if mode == "stc" else counted_run(mcfg)
+        with eager_rounds():
+            want = counted_run(mcfg)
+        require(same_bits_tree(got[0], want[0]) and got[1:] == want[1:],
+                f"[captured {mode}] captured and eager rounds differ: "
+                f"{got[1:]} vs {want[1:]}")
+    got, counts = ef_growth_rounds(repro_torch, True)
+    want, _ = ef_growth_rounds(repro_torch, False)
+    require(same_bits_tree(got, want) and counts == (2, 3),
+            f"[captured EF growth] differs from eager ({counts})")
+    print("[captured] fused none / stc / int8 and the EF-growth case, "
+          "deterministic: captured = eager bit for bit, with the same "
+          "builds, dispatches, host syncs and launches")
     # phase 4j's k = 1 rule: the sharded cohort on the default devices
     # (the one card, 1 shard) is the unsharded run bit for bit
     repro_torch.set_devices(None)

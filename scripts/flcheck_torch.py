@@ -12,6 +12,22 @@ on (or directly above) its def.  The rules share the IDs of
 syncs in hot functions, FLC2xx host-side Python inside ``torch.func``
 transforms, FLC4xx config validation and doc coverage.  Rule catalog:
 ``--list-rules``.
+
+Contract layer (the round programs, ``repro_torch.analysis.contracts``):
+
+    PYTHONPATH=src python scripts/flcheck_torch.py --contracts
+    PYTHONPATH=src python scripts/flcheck_torch.py --contracts --update-baseline
+
+builds the fixed tiny federation's cohort, LoRA cohort, tree and fused
+round programs on the port's device (the card; ``--device cpu`` for the
+CPU) and checks one build a program and none across rounds, no host
+transfer inside a program (and, on a card, a CUDA-graph capture and a
+replay that never synchronizes), one dispatch and one host sync a fused
+round (on a card one capture a bucket and one replay a round), and the
+FLOPs / bytes ratchet against ``scripts/roofline_baseline_torch.json``
+(re-record after an intentional program change with
+``--update-baseline``).  Exit 1 on a violation.  Only these flags import
+torch.
 """
 from __future__ import annotations
 
@@ -53,11 +69,36 @@ def main(argv=None) -> int:
                          "src/repro_torch)")
     ap.add_argument("--list-rules", action="store_true",
                     help="print the rule catalog and exit")
+    ap.add_argument("--contracts", action="store_true",
+                    help="run the round-program contract layer instead of "
+                         "the AST lint layer")
+    ap.add_argument("--update-baseline", action="store_true",
+                    help="with --contracts: re-record "
+                         "scripts/roofline_baseline_torch.json instead of "
+                         "gating")
+    ap.add_argument("--device", default=None,
+                    help="with --contracts: the device to build the "
+                         "programs on (default: the port's, a CUDA card)")
     args = ap.parse_args(argv)
 
     if args.list_rules:
         print(rule_catalog())
         return 0
+
+    if args.contracts:
+        # the package proper (torch included), not the lint's stub, for
+        # this layer alone
+        for name in [m for m in sys.modules
+                     if m == "repro_torch" or m.startswith("repro_torch.")]:
+            del sys.modules[name]
+        from repro_torch.analysis.contracts import check_contracts
+
+        report = check_contracts(update_baseline=args.update_baseline,
+                                 device=args.device)
+        print(report.format())
+        return 0 if report.ok else 1
+    if args.update_baseline or args.device:
+        ap.error("--update-baseline and --device need --contracts")
 
     paths = args.paths or [os.path.join(ROOT, "src", "repro_torch")]
     missing = [p for p in paths if not os.path.exists(p)]

@@ -307,8 +307,11 @@ def reset() -> None:
     """Clear global state: the context and the cached round programs and
     sequential client steps (each closes over its model, and a LoRA model
     over its frozen base — gigabytes on the card for a large LM)."""
-    from repro_torch.core.batched import make_round_program
+    from repro_torch.core.batched import (
+        make_cohort_program, make_round_program,
+    )
     from repro_torch.core.local_train import make_client_step
     _ctx.reset()
+    make_cohort_program.cache_clear()
     make_round_program.cache_clear()
     make_client_step.cache_clear()

@@ -17,8 +17,11 @@ streaming CUDA kernel with ``resources.aggregation_kernel``, else
 ``p + server_lr * delta``.  :meth:`BatchedExecutor.run_round_fused`
 dispatches it and performs the round's ONE device-to-host transfer (loss,
 accuracy and every per-leaf STC count, stacked together) — at once, or
-later through a ``fetch`` closure (``tracking.round_sync=False``).  The
-program runs eagerly; CUDA-graph capture per bucket is ROADMAP M5.3.
+later through a ``fetch`` closure (``tracking.round_sync=False``).  On a
+CUDA device without a mesh the executor runs that program as one CUDA
+graph a bucket (:class:`CapturedRound`): the first round at a bucket runs
+eagerly (the warm-up), the next one captures, every later one replays; on
+the CPU and under ``distributed="data"`` every round runs eagerly.
 
 The staged path (``round_fusion="off"``, or a round the fused program
 cannot take) runs the same arithmetic in three stages —
@@ -110,9 +113,20 @@ class CohortVectors(NamedTuple):
     hp: Any
 
 
+_cohort_builds = 0
 _round_builds = 0
 _dispatches = 0
 _host_syncs = 0
+_captures = 0
+_replays = 0
+
+
+def cohort_trace_count() -> int:
+    """How many cohort programs (:func:`make_cohort_program`) this process
+    has built — the eager analogue of the reference's cohort trace count:
+    one per distinct (model, optimizer, steps, ...) key, flat across rounds
+    at fixed bucket shapes."""
+    return _cohort_builds
 
 
 def round_trace_count() -> int:
@@ -135,6 +149,19 @@ def host_sync_count() -> int:
     process: 1 per fused round (its single batched fetch); on the staged
     path the cohort's metric fetch, plus one for the STC counts."""
     return _host_syncs
+
+
+def round_capture_count() -> int:
+    """CUDA-graph captures of a fused round this process: one a bucket,
+    one more whenever the storage the graph reads in place changes (the EF
+    store grew or was reloaded)."""
+    return _captures
+
+
+def round_replay_count() -> int:
+    """CUDA-graph replays of a fused round this process: one a captured
+    round (the capturing round included)."""
+    return _replays
 
 
 def _note_dispatch(n: int = 1) -> None:
@@ -219,6 +246,24 @@ def _one_client_fn(model: FLModel, optimizer: TracedOptimizer, steps: int,
         return updates, loss_sum / denom, acc_sum / denom
 
     return cohort
+
+
+@lru_cache(maxsize=32)
+def make_cohort_program(model: FLModel, optimizer: TracedOptimizer,
+                        steps: int, use_prox: bool, use_clip: bool):
+    """The cohort's local training (:func:`_one_client_fn`), built once a
+    (model, optimizer, bucketed steps, FedProx, clipping) key and counted
+    by :func:`cohort_trace_count`:
+
+        (params, x, y, idx, n_steps, vec, global_params)
+            -> (updates, loss_mean, acc_mean)
+
+    leading dim N_bucket everywhere except ``global_params``.  The staged
+    path's :meth:`BatchedExecutor.run_cohort_stacked` runs it; the fused
+    round builds the same body inside :func:`make_round_program`."""
+    global _cohort_builds
+    _cohort_builds += 1
+    return _one_client_fn(model, optimizer, steps, use_prox, use_clip)
 
 
 def _row_blocks(mesh, nb: int, device) -> List[Tuple[int, int, Any]]:
@@ -469,6 +514,82 @@ def make_round_program(model: FLModel, optimizer: TracedOptimizer,
     return round_fn
 
 
+def capture_key(program, inputs, ef_leaves) -> Tuple[Any, Any, Any]:
+    """``(program, shapes, storage)``: what a captured round is valid for.
+    ``program`` is the :func:`make_round_program` instance (its cache key),
+    ``shapes`` the structure and (shape, dtype) of every input copied into
+    the graph's static buffers (``inputs``: the bucketed tensors of one
+    round), ``storage`` the address and shape of every tensor the graph
+    reads and writes in place: the EF store's hot-tier leaves, which get
+    new storage when the store grows (``torch.cat``) or is reloaded from a
+    checkpoint.  The cohort's data is an input: the pool's gather happens
+    ahead of the graph, so the pool's storage is not part of the key."""
+    leaves, treedef = tree_flatten(inputs)
+    shapes = (repr(treedef), tuple(
+        None if t is None else (tuple(t.shape), t.dtype) for t in leaves))
+    storage = tuple((t.data_ptr(), tuple(t.shape)) for t in ef_leaves)
+    return program, shapes, storage
+
+
+class CapturedRound:
+    """One bucket's fused round as a CUDA graph.
+
+    Capturing copies the round's inputs into static buffers, captures
+    ``run(inputs)`` with ``torch.cuda.graph(..., capture_error_mode=
+    "global")`` into the graph's private memory pool, and records the
+    kernel launches the capture made per kernel.  A capture that fails
+    raises with its cause; nothing falls back to an eager round.
+
+    Calling it copies a round's inputs into the static buffers, replays
+    the graph under ``torch.cuda.set_sync_debug_mode("error")`` (a replay
+    that synchronizes with the host raises), adds the recorded launches to
+    ``kernels.ops.launch_counts`` (the wrappers count in Python, which a
+    replay skips) and returns a copy of the outputs, so that nothing the
+    caller keeps — the new global params, the deferred fetch's loss,
+    accuracy, guard and counts — aliases a buffer the next replay
+    overwrites."""
+
+    def __init__(self, run, inputs, device: torch.device):
+        from repro_torch.kernels import ops as kops
+
+        global _captures
+        leaves, self._treedef = tree_flatten(inputs)
+        self._static = [None if t is None else t.clone() for t in leaves]
+        static = tree_unflatten(self._treedef, self._static)
+        self.graph = torch.cuda.CUDAGraph()
+        before = kops.launch_counts()
+        try:
+            with torch.cuda.device(device), torch.cuda.graph(
+                    self.graph, capture_error_mode="global"):
+                self._out = run(static)
+        finally:
+            after = kops.launch_counts()
+            # nothing ran on the card yet: the replays count the launches
+            self.launches = {k: after[k] - before[k] for k in after
+                             if after[k] != before[k]}
+            kops.add_launch_counts({k: -n for k, n in self.launches.items()})
+        _captures += 1
+
+    def __call__(self, inputs):
+        from repro_torch.kernels import ops as kops
+
+        global _replays
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for buf, t in zip(self._static, tree_leaves(inputs)):
+                if buf is not None:
+                    buf.copy_(t)
+            self.graph.replay()
+            out = tree_map(lambda t: None if t is None else t.clone(),
+                           self._out)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        kops.add_launch_counts(self.launches)
+        _replays += 1
+        return out
+
+
 def build_client_mesh(devices: Optional[Sequence] = None) -> ClientMesh:
     """1-D client mesh over the largest power-of-two prefix of ``devices``
     (default: :func:`repro_torch.kernels.ops.get_devices`), one shard an
@@ -506,7 +627,17 @@ class BatchedExecutor:
     guards its rows on its device and FedAvg takes the sharded K1 route.
     Under a mesh the staged path's stacked ``updates`` are a list of
     per-shard trees (``st["sharded"]``); :meth:`run_cohort` gathers each
-    client's rows from its shard."""
+    client's rows from its shard.
+
+    On a CUDA ``device`` without a mesh, :meth:`run_round_fused` runs the
+    fused round as one CUDA graph a bucket (:class:`CapturedRound`, keyed
+    by :func:`capture_key`): the first round at a (program, shapes) key
+    runs eagerly — the warm-up: cuDNN's algorithm choice, the kernels'
+    first loads, the allocator's growth —, the next one captures and
+    replays, every later one replays; a change of the EF store's storage
+    recaptures at once.  Rounds run eagerly on the CPU (no graph exists
+    there), under ``distributed="data"`` (a round spans the mesh's
+    devices) and with ``capture=False`` (the eager side of an A/B)."""
 
     #: bound on the *device-resident* tier of the per-client data pool
     #: (rows); evicted rows are recomputed from ``c.data``
@@ -518,7 +649,7 @@ class BatchedExecutor:
 
     def __init__(self, model: FLModel, device: torch.device,
                  distributed: str = "none",
-                 devices: Optional[Sequence] = None):
+                 devices: Optional[Sequence] = None, capture: bool = True):
         if distributed not in ("none", "data"):
             raise ValueError(
                 f"unknown distributed {distributed!r}; expected 'none' or "
@@ -532,6 +663,12 @@ class BatchedExecutor:
         self._pool_maxn = 0
         self._pool_sig = None          # (x tail shape/dtype, y ditto)
         self._ef = None                # lazily-built TieredRowStore
+        # CUDA graphs of the fused round: one a (program, shapes) key,
+        # after one eager round at that key (``_warm``)
+        self.capture = (capture and torch.device(device).type == "cuda"
+                        and self.mesh is None)
+        self._graphs: Dict[Any, Tuple[Any, CapturedRound]] = {}
+        self._warm = set()
 
     # ------------------------------------------------------------------
     def _batch_indices(self, client, round_id: int) -> np.ndarray:
@@ -741,9 +878,9 @@ class BatchedExecutor:
         Nb, S, vec, optimizer, xd, yd, idx, n_steps = self._cohort_inputs(
             clients, round_id)
         # the fused program's own training body
-        cohort = _one_client_fn(self.model, optimizer, S,
-                                use_prox=bool((vec.mu > 0).any()),
-                                use_clip=bool((vec.max_norm > 0).any()))
+        cohort = make_cohort_program(self.model, optimizer, S,
+                                     use_prox=bool((vec.mu > 0).any()),
+                                     use_clip=bool((vec.max_norm > 0).any()))
         t0 = time.perf_counter()
         parts = _train_blocks(cohort, _row_blocks(self.mesh, Nb, self.device),
                               global_params, xd, yd, self._put(idx),
@@ -792,7 +929,11 @@ class BatchedExecutor:
         boundary).  With ``sync=False`` (``tracking.round_sync``) the call
         returns after submission: ``wall`` is the submission time and the
         caller runs ``fetch()`` later, typically after dispatching the next
-        round.  The EF residual store is updated in place."""
+        round.  The EF residual store is updated in place.  On a CUDA
+        device without a mesh the round runs as its bucket's CUDA graph
+        (see the class docstring); the results are copies, so neither the
+        params returned nor a deferred ``fetch`` reads a buffer that the
+        next replay overwrites."""
         Nb, S, vec, optimizer, xd, yd, idx, n_steps = self._cohort_inputs(
             clients, round_id)
         from repro_torch.core.aggregation import fedavg_weights
@@ -831,10 +972,10 @@ class BatchedExecutor:
             server_lr=float(server_lr), mesh=self.mesh)
 
         t0 = time.perf_counter()
-        new_global, loss, acc, ok, nnz = program(
-            global_params, xd, yd, self._put(idx), self._put(n_steps),
-            self._vec(vec), self._put(w), m, nanm, ef_leaves,
-            self._put(rows))
+        new_global, loss, acc, ok, nnz = self._dispatch_round(
+            program, (global_params, xd, yd, self._put(idx),
+                      self._put(n_steps), self._vec(vec), self._put(w), m,
+                      nanm, self._put(rows)), ef_leaves)
         _note_dispatch()
         st: Dict[str, Any] = {
             "n_steps": n_steps,
@@ -862,6 +1003,32 @@ class BatchedExecutor:
             return st, new_global, None
         st["wall"] = time.perf_counter() - t0      # submission time
         return st, new_global, fetch
+
+    # ------------------------------------------------------------------
+    def _dispatch_round(self, program, inputs, ef_leaves):
+        """Run the round program on ``inputs`` (its arguments but the EF
+        leaves, ``ef_rows`` last): eagerly, or as the bucket's CUDA graph
+        (see the class docstring)."""
+        def run(a):
+            return program(*a[:-1], ef_leaves, a[-1])
+
+        if not self.capture:
+            return run(inputs)
+        prog, shapes, storage = capture_key(program, inputs, ef_leaves)
+        bucket = (prog, shapes)
+        held = self._graphs.get(bucket)
+        if held is None and bucket not in self._warm:
+            self._warm.add(bucket)
+            return run(inputs)             # the bucket's warm-up round
+        if held is not None and held[0] == storage:
+            return held[1](inputs)
+        # first capture, or the EF leaves moved: the old graph (and its
+        # pool) goes first
+        del held
+        self._graphs.pop(bucket, None)
+        captured = CapturedRound(run, inputs, self.device)
+        self._graphs[bucket] = (storage, captured)
+        return captured(inputs)
 
     # ------------------------------------------------------------------
     def run_cohort(self, clients: Sequence, global_params: PyTree,

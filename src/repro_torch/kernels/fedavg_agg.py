@@ -37,6 +37,7 @@ ahead of the same K1 launch.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Optional, Tuple
 
@@ -175,26 +176,55 @@ def pad_cohort(updates: torch.Tensor, weights: torch.Tensor,
     return F.pad(updates, (0, 0, 0, nb - n)), F.pad(weights, (0, nb - n))
 
 
+#: tree plans built in this process (:func:`_tree_plan`): one a (rows,
+#: fanout, route), none on a later call at the same shapes
+_tree_builds = 0
+
+
+def tree_trace_count() -> int:
+    """How many hierarchical-aggregation plans this process has built — the
+    eager twin of the reference's tree trace count, held by the contracts
+    layer (``repro_torch.analysis.contracts``) to one a (cohort, fanout)
+    and none across rounds."""
+    return _tree_builds
+
+
+@functools.lru_cache(maxsize=32)
+def _tree_plan(n: int, fanout: int, use_kernel: bool
+               ) -> Optional[Tuple[Tuple[int, int], ...]]:
+    """The tree's shape for ``n`` rows, the reference's rules: None for the
+    flat call, else ``(groups, zero rows padded)`` a tier, from the rows
+    padded by :func:`pad_cohort` up to the single root."""
+    global _tree_builds
+    _tree_builds += 1
+    if fanout <= 0:
+        fanout = max(2, int(math.ceil(math.sqrt(n))))
+    if fanout >= n:                    # one group: the flat call
+        return None
+    rows = bucket_clients(n, TILE_N if use_kernel else 1)
+    group = bucket_clients(fanout, TILE_N) if use_kernel else fanout
+    tiers = []
+    while rows > 1:
+        g = -(-rows // group)
+        tiers.append((g, g * group - rows))
+        rows = g
+    return tuple(tiers)
+
+
 def _tree(updates: torch.Tensor, weights: torch.Tensor, fanout: int,
           use_kernel: bool,
           flat: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
           tier: Callable[[torch.Tensor, torch.Tensor, int], torch.Tensor]
           ) -> torch.Tensor:
-    """The reference's tree shapes with ``flat`` for one group and ``tier``
-    ((G*F, D), (G*F,), G -> (G, D)) for a tier."""
-    n = updates.shape[0]
+    """The reference's tree shapes (:func:`_tree_plan`) with ``flat`` for
+    one group and ``tier`` ((G*F, D), (G*F,), G -> (G, D)) for a tier."""
     u = updates.to(torch.float32)
     w = weights.to(torch.float32)
-    if fanout <= 0:
-        fanout = max(2, int(math.ceil(math.sqrt(n))))
-    if fanout >= n:                    # one group: the flat call
+    plan = _tree_plan(u.shape[0], int(fanout), use_kernel)
+    if plan is None:
         return flat(u.contiguous(), w.contiguous())
     u, w = pad_cohort(u, w, TILE_N if use_kernel else 1)
-    group = bucket_clients(fanout, TILE_N) if use_kernel else fanout
-    while u.shape[0] > 1:
-        n = u.shape[0]
-        g = -(-n // group)
-        pad = g * group - n
+    for g, pad in plan:
         if pad:                        # zero rows + zero weights: no-op terms
             u, w = F.pad(u, (0, 0, 0, pad)), F.pad(w, (0, pad))
         u = tier(u.contiguous(), w.contiguous(), g)

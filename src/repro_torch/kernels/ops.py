@@ -109,32 +109,36 @@ def get_devices() -> List[torch.device]:
             for i in range(torch.cuda.device_count())]
 
 
+#: each kernel's launch counter: (module, attribute)
+_COUNTERS = {"fedavg_agg": (fedavg_agg, "launches"),
+             "fedavg_agg_tree": (fedavg_agg, "grouped_launches"),
+             "stc_batched": (stc_topk, "launches"),
+             "int8_rowmax": (quant, "rowmax_launches"),
+             "int8_qdq": (quant, "qdq_launches"),
+             "flash_fwd": (attention, "fwd_launches"),
+             "flash_dq": (attention, "dq_launches"),
+             "flash_dkv": (attention, "dkv_launches"),
+             "stc_dense": (stc_topk, "dense_launches"),
+             "int8_quantize": (quant, "quantize_launches"),
+             "int8_dequantize": (quant, "dequantize_launches"),
+             "wkv6": (rwkv6_scan, "launches")}
+
+
 def launch_counts() -> Dict[str, int]:
-    """CUDA-kernel launches per kernel in this process."""
-    return {"fedavg_agg": fedavg_agg.launches,
-            "fedavg_agg_tree": fedavg_agg.grouped_launches,
-            "stc_batched": stc_topk.launches,
-            "int8_rowmax": quant.rowmax_launches,
-            "int8_qdq": quant.qdq_launches,
-            "flash_fwd": attention.fwd_launches,
-            "flash_dq": attention.dq_launches,
-            "flash_dkv": attention.dkv_launches,
-            "stc_dense": stc_topk.dense_launches,
-            "int8_quantize": quant.quantize_launches,
-            "int8_dequantize": quant.dequantize_launches,
-            "wkv6": rwkv6_scan.launches}
+    """CUDA-kernel launches per kernel in this process (a replayed CUDA
+    graph adds the launches its capture recorded: ``add_launch_counts``)."""
+    return {k: getattr(m, a) for k, (m, a) in _COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    fedavg_agg.launches = 0
-    fedavg_agg.grouped_launches = 0
-    stc_topk.launches = 0
-    quant.rowmax_launches = 0
-    quant.qdq_launches = 0
-    attention.fwd_launches = 0
-    attention.dq_launches = 0
-    attention.dkv_launches = 0
-    stc_topk.dense_launches = 0
-    quant.quantize_launches = 0
-    quant.dequantize_launches = 0
-    rwkv6_scan.launches = 0
+    for m, a in _COUNTERS.values():
+        setattr(m, a, 0)
+
+
+def add_launch_counts(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (kernel -> launches) to the counters: the wrappers
+    count in Python, which a CUDA-graph replay does not run, so the
+    replaying code adds what its capture launched."""
+    for k, n in counts.items():
+        m, a = _COUNTERS[k]
+        setattr(m, a, getattr(m, a) + n)

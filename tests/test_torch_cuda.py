@@ -522,3 +522,170 @@ def test_prefill_and_decode_on_card_match_cpu(cuda_device, arch):
         lc, c_cpu = step(p_cpu, c_cpu, toks[:, t:t + 1], t)
         np.testing.assert_allclose(lg.cpu().numpy(), lc.numpy(), rtol=1e-4,
                                    atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the fused round as a CUDA graph a bucket (core/batched.py::CapturedRound)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture()
+def deterministic(cuda_device):
+    """cuDNN's deterministic algorithms, so that two runs of one round on
+    the card agree bit for bit whatever stream they run on."""
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    yield cuda_device
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        flags
+
+
+def _bits_equal(a, b):
+    return all(torch.equal(x.cpu().view(torch.int32),
+                           y.cpu().view(torch.int32))
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+@pytest.mark.parametrize("extra", [
+    {"client": {"compression": "none"}},
+    {"client": {"compression": "stc"}},
+    {"client": {"compression": "int8"}},
+    {"resources": {"aggregation_topology": "hierarchical"},
+     "client": {"compression": "stc"}},
+    {"tracking": {"round_sync": False}, "client": {"compression": "int8"}},
+    {"client": {"compression": "stc"},
+     "faults": {"dropout_prob": 0.2, "crash_prob": 0.2,
+                "nan_update_prob": 0.2, "max_update_norm": 100.0,
+                "seed": 8}},
+], ids=["none", "stc", "int8", "hierarchical-stc", "deferred-int8",
+        "faulty-stc"])
+def test_captured_rounds_equal_eager_rounds_bitwise(deterministic, extra):
+    """Five rounds (an eager warm-up, a capture, replays) through the
+    Trainer, captured and eager, bit for bit; one capture and one replay a
+    round after the warm-up, launches counted through the replays."""
+    from repro_torch.core import batched
+    from repro_torch.core.batched import BatchedExecutor
+
+    base = {"model": "linear",
+            "data": {"dataset": "synthetic", "num_clients": 10,
+                     "batch_size": 32},
+            "server": {"rounds": 5, "clients_per_round": 5},
+            "client": {"local_epochs": 2, "lr": 0.1},
+            "resources": {"execution": "batched",
+                          "aggregation_kernel": True}}
+    for key, val in extra.items():
+        base[key] = dict(base.get(key, {}), **val)
+    cfg = Config.make(base)
+    repro_torch.set_device(deterministic)
+    p0 = get_model("linear").init(torch.Generator().manual_seed(0),
+                                  deterministic)
+    out = {}
+    for capture in (True, False):
+        trainer = Trainer(cfg, get_model("linear"),
+                          build_federated_data(cfg.data))
+        trainer.engine = BatchedExecutor(trainer.engine.model,
+                                         trainer.device, capture=capture)
+        trainer.server.params = p0
+        ops.reset_launch_counts()
+        n0 = (batched.round_capture_count(), batched.round_replay_count())
+        res = trainer.run()
+        out[capture] = (res, batched.round_capture_count() - n0[0],
+                        batched.round_replay_count() - n0[1],
+                        ops.launch_counts())
+    (got, caps, reps, launches), (want, ecaps, ereps, elaunches) = \
+        out[True], out[False]
+    assert _bits_equal(got["params"], want["params"])
+    assert [h["train_loss"] for h in got["history"]] == \
+        [h["train_loss"] for h in want["history"]]
+    # the EF store may grow once as new clients arrive: one more capture
+    assert (ecaps, ereps) == (0, 0) and reps == 4 and caps in (1, 2)
+    assert launches == elaunches and launches["fedavg_agg"] + \
+        launches["fedavg_agg_tree"] > 0
+
+
+def _card_clients(n, start=0, seed=0):
+    from repro_torch.core.client import Client
+    from repro_torch.core.config import ClientConfig
+    from repro_torch.data.fed_data import ClientData
+
+    rs = np.random.RandomState(seed)
+    return [Client(f"c{start + i}", get_model("linear"),
+                   ClientData(rs.randn(64, 64).astype(np.float32),
+                              rs.randint(0, 10, 64).astype(np.int32)),
+                   ClientConfig(lr=0.1, local_epochs=1), batch_size=16)
+            for i in range(n)]
+
+
+def _executor_rounds(capture, device, script):
+    """Fused stc rounds through one executor: ``script`` a list of
+    cohorts, or ``"reload"`` for a checkpoint round trip of the EF store
+    into the same executor.  -> (final params, per-round loss, captures,
+    replays)."""
+    from repro_torch.core import batched
+    from repro_torch.core.batched import BatchedExecutor
+
+    model = get_model("linear")
+    ex = BatchedExecutor(model, device, capture=capture)
+    params = model.init(torch.Generator().manual_seed(0), device)
+    n0 = (batched.round_capture_count(), batched.round_replay_count())
+    losses = []
+    r = 0
+    for step in script:
+        if step == "reload":
+            ex.load_ef_state(ex.ef_state())
+            continue
+        st, params, _ = ex.run_round_fused(step, params, r, method="stc",
+                                           use_kernel=True)
+        losses.append(st["loss"].copy())
+        r += 1
+    return (params, losses, batched.round_capture_count() - n0[0],
+            batched.round_replay_count() - n0[1])
+
+
+@pytest.mark.parametrize("case", ["growth", "resume"])
+def test_rounds_recapture_when_the_ef_store_moves(deterministic, case):
+    """The captured round reads the EF store's leaves in place: a store
+    that grows (a cohort of new clients past its rows) or is reloaded
+    from a checkpoint gets new storage, and the next round captures again
+    at once instead of reading the old storage; the run equals the eager
+    run bit for bit."""
+    a, b, c = _card_clients(4), _card_clients(4, 4, 1), \
+        _card_clients(4, 8, 2)
+    script = ([a, a, b, c, c] if case == "growth"
+              else [a, a, a, "reload", a, a])
+    got = _executor_rounds(True, deterministic, script)
+    want = _executor_rounds(False, deterministic, script)
+    assert _bits_equal(got[0], want[0])
+    assert all(np.array_equal(x, y) for x, y in zip(got[1], want[1]))
+    # a capture in round 1, and one more where the store moved
+    assert got[2:] == (2, 4) and want[2:] == (0, 0)
+
+
+def test_deferred_fetch_reads_its_own_round_after_the_next_replay(
+        deterministic):
+    """``sync=False``: round r's fetch, run after round r + 1 replayed the
+    same graph, reads round r's loss (a copy out of the graph's pool),
+    equal to the eager run's."""
+    from repro_torch.core.batched import BatchedExecutor
+
+    clients = _card_clients(4)
+    model = get_model("linear")
+    out = {}
+    for capture in (True, False):
+        ex = BatchedExecutor(model, deterministic, capture=capture)
+        params = model.init(torch.Generator().manual_seed(0), deterministic)
+        sts = []
+        pending = None
+        for r in range(4):
+            st, params, fetch = ex.run_round_fused(
+                clients, params, r, method="int8", use_kernel=True,
+                sync=False)
+            if pending is not None:
+                pending()              # round r - 1, after round r's replay
+            pending = fetch
+            sts.append(st)
+        pending()
+        out[capture] = [s["loss"] for s in sts]
+    assert all(np.array_equal(x, y) for x, y in zip(out[True], out[False]))
+    assert not np.array_equal(out[True][2], out[True][3])
