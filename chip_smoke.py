@@ -96,9 +96,15 @@ Phases, in order; any failed check raises, so the script exits non-zero:
 4c. drive the RWKV6 serving path at full width and depth:
    ``rwkv6-1.6b`` (24 layers, bf16 activations, f32 parameters, 1.6 B
    parameters from seed 0) through ``make_prefill_step`` at 16 x 512
-   tokens, three times (24 K8 launches each), a timed greedy decode of 32
-   tokens at batch 16 through ``make_serve_step``, then the serving CLI
-   ``repro_torch.launch.serve.main([... "--full"])``;
+   tokens, three times (24 K8 launches each); then the serving CLI's
+   decode at batch 16 through ``make_serve_step`` (32 prompt positions
+   stepped in, 32 greedy tokens) as one CUDA graph for every position
+   beside its eager twin (``capture=False``; :func:`serve_ab`: ms a step
+   and tokens/s of both, captures / recaptures / replays, greedy tokens
+   equal, logits within 1e-4 of their scale, peak memory, the busy share
+   of two replayed steps under ``torch.profiler``), then the serving CLI
+   ``repro_torch.launch.serve.main([... "--full"])`` captured and eager
+   (``eager_serving``), its greedy tokens equal;
 4d. drive the compression API path as ``benchmarks/bench_compression.py``
    drives the reference's: dense STC, quantize, dequantize of 2^20 f32;
 4e. drive the default path, phase 4's configuration with the default
@@ -167,9 +173,12 @@ Phases, in order; any failed check raises, so the script exits non-zero:
    memory printed, ``shakespeare_lstm``'s batched none also beside its
    eager twin (``capture=False``: its launch-bound step loop is where
    the captured round shows most); then each model's batched run on the
-   card against the CPU (1 round of 2 clients, evaluation off): params
-   and train losses within max(1e-4, 2 x how far the card's run moves
-   from six 1e-7-perturbed inits);
+   card against the CPU (1 round of 2 clients, the ResNet's of 1,
+   evaluation off): params and train losses within max(1e-4, 2 x how far
+   the card's run moves from six 1e-7-perturbed inits), the card's runs
+   under cuDNN's deterministic algorithms (``deterministic_cudnn``: with
+   the defaults the ResNet's card run moved from run to run by half that
+   reach, and the check passed or failed by the draw);
 4i. drive the async engine (FedBuff on the virtual clock) on phase 4's
    femnist configuration, K 5 of 10 in flight, speeds pinned 1x / 4x
    alternating, K1 on: stc for 6 aggregations with a checkpoint every 2,
@@ -236,9 +245,10 @@ Phases, in order; any failed check raises, so the script exits non-zero:
    one dense0, one MoE of 64 experts, top 6, 2 shared), ``recurrentgemma-
    9b`` (3 of 38 layers, one (rglru, rglru, local_attn) period, S 4096 past
    the 2048 window) and ``whisper-small`` (nothing cut): three prefills
-   through ``make_prefill_step`` and greedy decode steps through
+   through ``make_prefill_step`` and 8 greedy decode steps through
    ``make_serve_step`` from position S against a zero cache (a ring of
-   2048 slots for local attention), then 4 train steps of
+   2048 slots for local attention), the captured step beside its eager
+   twin as in phase 4c (:func:`serve_ab`), then 4 train steps of
    ``launch.train.main`` (its SGD, momentum 0.9; not nemotron) from a
    well-conditioned redraw of the init (``well_conditioned_``: at the
    default init these archs' gradients explode with depth, in the
@@ -332,7 +342,8 @@ per compression mode and engine (phases 4 and 4e), one steady round of each
 phase-4h model, batched and sequential, under none, one steady LoRA round
 of phase 4b's configuration,
 and one ``rwkv6-1.6b`` prefill and 8 decode steps of phase 4c's
-configuration, with ``torch.profiler`` (device time by operator and the
+configuration (the captured serve step's replays, then its eager twin's
+steps), with ``torch.profiler`` (device time by operator and the
 device's busy share); ``--profile rwkv6`` profiles the last alone, and
 ``--profile paligemma`` one steady ``paligemma-3b`` prefill and train step
 of phase 4m's configuration alone (:func:`profile_zoo`), with the flash
@@ -552,7 +563,7 @@ def main():
     kernels += flash_rows
 
     phase("4c. the RWKV6 serving path: rwkv6-1.6b at full width and depth")
-    served, rwkv_params = run_rwkv6(repro_torch, ops, dev)
+    served, rwkv_params = run_rwkv6(repro_torch, ops, dev, smi)
 
     phase("4d. the compression API path: dense STC and int8 of 2^20 f32")
     api = run_compression_api(ops, dev)
@@ -1276,17 +1287,145 @@ RWKV_BATCH, RWKV_PROMPT, RWKV_GEN = 16, 512, 32
 RWKV_SERVE_PROMPT = 32          # the serving CLI's default prompt length
 
 
-def run_rwkv6(repro_torch, ops, dev):
+#: replayed decode steps profiled after a serving A/B's timed block
+PROFILED_STEPS = 2
+
+
+@contextlib.contextmanager
+def eager_serving():
+    """``launch.serve`` makes its serve step eagerly (``capture=False``):
+    the eager side of the serving CLI's A/B."""
+    from repro_torch.launch import serve
+    from repro_torch.models.model import make_serve_step
+
+    serve.make_serve_step = functools.partial(make_serve_step,
+                                              capture=False)
+    try:
+        yield
+    finally:
+        serve.make_serve_step = make_serve_step
+
+
+def serve_ab(model, params, B, prompt, gen, tag, smi, tok0=None, start=0):
+    """Greedy serving of ``model`` through the captured serve step (the
+    default on the card) and, first, its eager twin (``capture=False``),
+    each from a zero cache: ``prompt`` (B, P) stepped in at positions
+    ``start``.. (P may be 0), then ``gen`` greedy tokens (the first from
+    ``tok0`` when P is 0).  Calls 1 and 2 (the captured step's warm-up and
+    capture) are timed alone; the greedy steps after them as one block,
+    synchronized only at its ends.  The captured step then serves
+    ``PROFILED_STEPS`` more under ``torch.profiler`` (the device's busy
+    share of a replayed step).  Requires: the same greedy tokens, every
+    step's logits within 1e-4 of the eager logits' scale (phase 5c's
+    decode bar; whether bit for bit is printed), 1 capture, 0 recaptures,
+    one eager call and a replay for every later call.  -> figures."""
+    from repro_torch.models.model import make_serve_step
+
+    P = 0 if prompt is None else prompt.shape[1]
+    calls = P + gen
+    require(calls > 2, f"[{tag}] serving A/B needs a timed block")
+    length = start + calls + PROFILED_STEPS
+    device = (tok0 if prompt is None else prompt).device
+    out = {}
+    for capture in (False, True):
+        step = make_serve_step(model, capture=capture)
+        gc.collect()
+        torch.cuda.empty_cache()
+        cache = model.init_cache(B, length, device=device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        logits, toks, first = [], [], []
+        tok = tok0
+        t_block = None
+        for i in range(calls):
+            if i == 2:
+                torch.cuda.synchronize()
+                t_block = time.perf_counter()
+            elif i < 2:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            inp = prompt[:, i:i + 1] if i < P else tok
+            lg, cache = step(params, cache, inp, start + i)
+            if i >= P - 1:
+                tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+                if i >= P:
+                    toks.append(tok)
+            logits.append(lg)
+            if i < 2:
+                torch.cuda.synchronize()
+                first.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        block = (time.perf_counter() - t_block) / (calls - 2)
+        rec = {"first_ms": [round(w * 1e3, 3) for w in first],
+               "ms": block * 1e3, "peak": torch.cuda.max_memory_allocated()
+               / 2**30, "tokens": torch.cat(toks, dim=1),
+               "counts": (step.eager_steps, step.captures, step.recaptures,
+                          step.replays)}
+        if capture:
+            want = out[False]["logits"]
+            rec["bitwise"] = all(torch.equal(a, b)
+                                 for a, b in zip(logits, want))
+            rec["diff"] = max((a - b).abs().max().item()
+                              for a, b in zip(logits, want))
+            rec["scale"] = max(1.0, max(b.abs().max().item() for b in want))
+            rec["finite"] = all(bool(torch.isfinite(a).all())
+                                for a in logits)
+            del out[False]["logits"]
+
+            def more(first=start + calls):
+                t = tok
+                for j in range(PROFILED_STEPS):
+                    lg, _ = step(params, cache, t, first + j)
+                    t = torch.argmax(lg[:, -1], dim=-1)[:, None]
+            wall, busy = profile_window(
+                more, f"{tag}] {PROFILED_STEPS} replayed decode steps",
+                detail=False)
+            rec["busy"] = busy / wall if wall > 0 else 0.0
+            rec["counts"] = (step.eager_steps, step.captures,
+                             step.recaptures, step.replays)
+        else:
+            rec["logits"] = logits
+        out[capture] = rec
+        del step, cache, logits
+    cap, eag = out[True], out[False]
+    n = calls + PROFILED_STEPS
+    same = torch.equal(cap["tokens"], eag["tokens"])
+    print(f"[{tag}] decode B {B} from position {start} ({P} prompt steps, "
+          f"{gen} greedy): captured {cap['ms']:.3f} ms a step "
+          f"({B / cap['ms'] * 1e3:.1f} tokens/s), eager {eag['ms']:.3f} ms "
+          f"({B / eag['ms'] * 1e3:.1f} tokens/s), captured / eager "
+          f"{cap['ms'] / eag['ms']:.3f} (steps 3-{calls}); calls 1-2 ms "
+          f"captured {cap['first_ms']} (warm-up, capture), eager "
+          f"{eag['first_ms']}; captured step: eager calls, captures, "
+          f"recaptures, replays {cap['counts']}; greedy tokens equal "
+          f"{same}; logits max |diff| {cap['diff']:.4g} (bitwise "
+          f"{cap['bitwise']}; bar 1e-4 x {cap['scale']:.4g}); peak GiB "
+          f"captured {cap['peak']:.2f}, eager {eag['peak']:.2f}; busy share "
+          f"of a replayed step {100 * cap['busy']:.1f}% ({smi})")
+    require(cap["finite"], f"[{tag}] captured decode logits not finite")
+    require(same, f"[{tag}] captured greedy tokens differ from the eager "
+            f"step's")
+    require(cap["diff"] <= 1e-4 * cap["scale"],
+            f"[{tag}] captured vs eager logits {cap['diff']} > 1e-4 x "
+            f"{cap['scale']}")
+    require(cap["counts"] == (1, 1, 0, n - 1),
+            f"[{tag}] captured step counts {cap['counts']}, expected "
+            f"(1, 1, 0, {n - 1})")
+    require(eag["counts"] == (calls, 0, 0, 0),
+            f"[{tag}] eager step counts {eag['counts']}")
+    return out
+
+
+def run_rwkv6(repro_torch, ops, dev, smi):
     """Phase 4c: ``rwkv6-1.6b`` as published — 24 layers, d_model 2048,
     bf16 activations over f32 parameters — prefilled through
-    ``make_prefill_step`` and decoded through ``make_serve_step`` and the
-    serving CLI.  Returns the launch counts of the run and the parameters
+    ``make_prefill_step`` and decoded through ``make_serve_step`` (captured
+    beside its eager twin, :func:`serve_ab`) and the serving CLI (captured
+    and eager).  Returns the launch counts of the run and the parameters
     (for phase 5c)."""
     from repro_torch.configs import get_arch
     from repro_torch.launch import serve
-    from repro_torch.models.model import (
-        Model, make_prefill_step, make_serve_step,
-    )
+    from repro_torch.models.model import Model, make_prefill_step
     from repro_torch.utils.tree import tree_leaves
 
     repro_torch.set_device(None)
@@ -1327,42 +1466,39 @@ def run_rwkv6(repro_torch, ops, dev):
             and bool(torch.isfinite(logits).all()), "[rwkv6] prefill logits")
     del logits
 
-    # greedy decode at batch 16 through make_serve_step (the CLI's calls)
-    step = make_serve_step(model)
-    cache = model.init_cache(RWKV_BATCH, RWKV_SERVE_PROMPT + RWKV_GEN)
-    torch.cuda.reset_peak_memory_stats()
-    for p in range(RWKV_SERVE_PROMPT):          # prefill by stepping, as
-        lg, cache = step(params, cache, tokens[:, p:p + 1], p)   # the CLI
-    tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = []
-    for i in range(RWKV_GEN):
-        lg, cache = step(params, cache, tok, RWKV_SERVE_PROMPT + i)
-        tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
-        out.append(tok)
-    torch.cuda.synchronize()
-    dec = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    gen = torch.cat(out, dim=1)
+    # the CLI's serving at batch 16 through make_serve_step: prefill by
+    # stepping the decoder over the prompt, then greedy decode; the
+    # captured step (one CUDA graph for every position) beside its eager
+    # twin
+    ab = serve_ab(model, params, RWKV_BATCH, tokens[:, :RWKV_SERVE_PROMPT],
+                  RWKV_GEN, "rwkv6", smi)
+    gen = ab[True]["tokens"]
     require(bool(((gen >= 0) & (gen < cfg.vocab)).all()), "[rwkv6] tokens")
-    print(f"[rwkv6] greedy decode {RWKV_GEN} tokens x batch {RWKV_BATCH}: "
-          f"{dec * 1e3 / RWKV_GEN:.3f} ms per step, "
-          f"{RWKV_GEN * RWKV_BATCH / dec:.1f} tokens/s; peak device memory "
-          f"{peak:.2f} GiB; sample {gen[0, :8].tolist()}")
-    del cache, lg
+    print(f"[rwkv6] greedy decode {RWKV_GEN} tokens x batch {RWKV_BATCH}, "
+          f"captured: sample {gen[0, :8].tolist()}")
 
-    # the serving CLI itself (its own init from --seed)
-    t0 = time.perf_counter()
-    cli = serve.main(["--arch", "rwkv6-1.6b", "--full", "--batch",
-                      str(RWKV_BATCH), "--prompt-len",
-                      str(RWKV_SERVE_PROMPT), "--gen",
-                      str(RWKV_GEN)])
-    torch.cuda.synchronize()
-    require(cli.shape == (RWKV_BATCH, RWKV_GEN), "[rwkv6] CLI tokens")
+    # the serving CLI itself (its own init from --seed), captured and eager
+    cli = {}
+    for capture in (True, False):
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            if not capture:
+                stack.enter_context(eager_serving())
+            cli[capture] = serve.main([
+                "--arch", "rwkv6-1.6b", "--full", "--batch",
+                str(RWKV_BATCH), "--prompt-len", str(RWKV_SERVE_PROMPT),
+                "--gen", str(RWKV_GEN)])
+        torch.cuda.synchronize()
+        print(f"[rwkv6] serve.main --full, "
+              f"{'captured' if capture else 'eager'}: "
+              f"{time.perf_counter() - t0:.2f} s with its init")
+        require(cli[capture].shape == (RWKV_BATCH, RWKV_GEN),
+                "[rwkv6] CLI tokens")
+    require(np.array_equal(cli[True], cli[False]),
+            "[rwkv6] serve.main's greedy tokens captured vs eager differ")
     used = ops.launch_counts()
-    print(f"[rwkv6] serve.main --full: {time.perf_counter() - t0:.2f} s "
-          f"with its init; launches over the phase {used}")
+    print(f"[rwkv6] serve.main --full: greedy tokens captured = eager; "
+          f"launches over the phase {used}")
     require(used["wkv6"] == after_prefill["wkv6"],
             "[rwkv6] decode launched K8 (the decode step is the O(1) "
             "recurrence)")
@@ -3354,9 +3490,29 @@ def run_remote(repro_torch, ops, smi):
             "fedavg_agg_tree": tree_used["fedavg_agg_tree"]}
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms (``cudnn.deterministic``, no
+    benchmark search), as phase 4g's ``--resume-check`` child runs: the
+    card's run of a model repeats bit for bit.  With the defaults a
+    ``cifar_resnet18`` round's train loss moved 6.9e-4 to 9.1e-4 from one
+    card run to the next (PERF.md, PR 30), half its 1e-7-perturbed reach,
+    so phase 4h's card-vs-CPU bar compared two draws of that noise."""
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = flags
+
+
 def card_vs_cpu(repro_torch, execution, model="femnist_cnn"):
     """Phase 5 (femnist_cnn) and phase 4h's card-vs-CPU runs (the other
-    models, ``M3_CPU_CUT``'s rounds and clients, evaluation off)."""
+    models, ``M3_CPU_CUT``'s rounds and clients, evaluation off; their
+    card run and its perturbed runs under :func:`deterministic_cudnn`)."""
     from repro_torch import convert
     from repro_torch.core import api
     from repro_torch.core.rounds import Trainer
@@ -3390,7 +3546,9 @@ def card_vs_cpu(repro_torch, execution, model="femnist_cnn"):
                           tracker=ctx.tracker)
         trainer.server.params = convert.params_from_jax(p0)
         t0 = time.perf_counter()
-        res = trainer.run()
+        with (deterministic_cudnn() if device == "cuda" and not femnist
+              else contextlib.nullcontext()):
+            res = trainer.run()
         out[device] = (res, time.perf_counter() - t0)
     torch.set_num_threads(threads)
     repro_torch.set_device(None)
@@ -3420,9 +3578,10 @@ def card_vs_cpu(repro_torch, execution, model="femnist_cnn"):
         # and the card's run lands 1.5-1.7x that reach from the CPU's:
         # six perturbed runs, not three, so the reach is not undersampled)
         cpu_reach = 0.0
-        gap, loss_gap = conditioning_gap(repro_torch, cfg, init, card,
-                                         seeds=(1, 2, 3, 4, 5, 6),
-                                         final_losses=card_losses)
+        with deterministic_cudnn():
+            gap, loss_gap = conditioning_gap(repro_torch, cfg, init, card,
+                                             seeds=(1, 2, 3, 4, 5, 6),
+                                             final_losses=card_losses)
         loss_bar = max(1e-4, 2 * loss_gap)
         reach = f"their train losses up to {loss_gap:.4g}"
     bar = max(1e-4, 2 * max(gap, cpu_reach))
@@ -4402,7 +4561,7 @@ def moe_round_card_vs_cpu(smi, card="cuda"):
 ZOO = {
     # 96 -> 1 layer: 51.4 GB of f32 params; training (params + grads >
     # 100 GB) does not fit one card
-    "nemotron-4-340b": (1, 1, 1024, 4, None),
+    "nemotron-4-340b": (1, 1, 1024, 8, None),
     # all 18 layers; 256 frames ahead of 256 text tokens
     "paligemma-3b": (None, 2, 256, 8, (2, 256)),
     # 27 -> 2 layers: one dense0, one MoE (64 experts, top 6, 2 shared)
@@ -4441,13 +4600,13 @@ def zoo_inputs(cfg, B, S, gen, dev):
 def serve_zoo(ops, arch, dev, smi):
     """Phase 4m's serving half of ``arch``: params from seed 0 on the card,
     three prefills (``make_prefill_step``, flash on; the first carries first
-    use), then greedy decode steps (``make_serve_step``) from position S on,
-    against a zero cache of S + steps (RecurrentGemma's local attention: a
-    ring of 2048 slots, past its wrap) -> (flash launches, peak GiB)."""
+    use), then greedy decode steps from position S on through the captured
+    serve step beside its eager twin (:func:`serve_ab`), each against a
+    zero cache of S + steps + ``PROFILED_STEPS`` (RecurrentGemma's local
+    attention: a ring of 2048 slots, past its wrap) -> (flash launches,
+    peak GiB)."""
     from repro_torch.models import attention as mattn
-    from repro_torch.models.model import (
-        Model, make_prefill_step, make_serve_step,
-    )
+    from repro_torch.models.model import Model, make_prefill_step
     from repro_torch.utils.tree import tree_leaves
 
     _, B, S, steps, _ = ZOO[arch]
@@ -4460,7 +4619,7 @@ def serve_zoo(ops, arch, dev, smi):
     params = model.init(gen, dev)
     batch = zoo_inputs(cfg, B, S, gen, dev)
     n_params = sum(t.numel() for t in tree_leaves(params))
-    prefill, serve = make_prefill_step(model), make_serve_step(model)
+    prefill = make_prefill_step(model)
     ops.reset_launch_counts()
     mattn.set_flash_attention(True)
     try:
@@ -4478,36 +4637,31 @@ def serve_zoo(ops, arch, dev, smi):
                 f"{bool(torch.isfinite(logits).all())}")
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
         del logits
-        cache = model.init_cache(B, S + steps, device=dev)
-        dwalls = []
-        for i in range(steps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            lg, cache = serve(params, cache, tok, S + i)
-            tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
-            torch.cuda.synchronize()
-            dwalls.append(time.perf_counter() - t0)
-            require(bool(torch.isfinite(lg).all()),
-                    f"[4m {arch}] decode step {i} logits not finite")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        # greedy decode from position S on a zero cache: the captured
+        # step beside its eager twin
+        ab = serve_ab(model, params, B, None, steps, f"4m {arch}", smi,
+                      tok0=tok, start=S)
     finally:
         mattn.set_flash_attention(None)
     used = {k: ops.launch_counts()[k] for k in ("flash_fwd", "flash_dq",
                                                 "flash_dkv")}
-    peak = torch.cuda.max_memory_allocated() / 2**30
     want = {"flash_fwd": 3 * flash_layers(cfg), "flash_dq": 0,
             "flash_dkv": 0}
     require(used == want, f"[4m {arch}] serve launches {used}, expected "
             f"{want}")
-    pre, dec = float(np.mean(walls[1:])), float(np.mean(dwalls[1:]))
+    pre = float(np.mean(walls[1:]))
+    dec = {c: ab[c]["ms"] for c in ab}
+    peak = max(peak, ab[True]["peak"], ab[False]["peak"])
     print(f"[4m {arch} serve] {cfg.n_layers} layers, {n_params / 1e9:.3f} B "
           f"params; prefill B {B} x {positions} positions: walls ms "
           f"{[round(w * 1e3, 3) for w in walls]}, steady {pre * 1e3:.3f} ms "
           f"({B * positions / pre:.1f} tokens/s); decode from position {S}: "
-          f"step ms {[round(w * 1e3, 3) for w in dwalls]}, steady "
-          f"{dec * 1e3:.3f} ms a step ({B / dec:.1f} tokens/s); peak "
-          f"{peak:.2f} GiB; launches {used} ({smi})")
+          f"steady {dec[True]:.3f} ms a step captured, {dec[False]:.3f} "
+          f"eager; peak {peak:.2f} GiB (captured decode "
+          f"{ab[True]['peak']:.2f}); launches {used} ({smi})")
     require(peak < 76, f"[4m {arch}] serve peak {peak:.2f} GiB")
-    del params, cache, batch
+    del params, batch
     return used, peak
 
 
@@ -4723,9 +4877,10 @@ def profile_round(trainer, tag):
     profile_window(lambda: trainer.run_round(2), f"{tag}] profiled round")
 
 
-def profile_window(fn, tag):
+def profile_window(fn, tag, detail=True):
     """Run ``fn`` once under ``torch.profiler``; print its wall time, the
-    device's busy share of it and the top device and host entries."""
+    device's busy share of it and (``detail``) the top device and host
+    entries -> (wall ms, device busy ms)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -4749,6 +4904,8 @@ def profile_window(fn, tag):
           f"busy {busy:.2f} ms ({100 * busy / (wall * 1e3):.1f}%), "
           f"{sum(e.count for e in on_dev)} device entries (kernels, copies, "
           f"memsets)")
+    if not detail:
+        return wall * 1e3, busy
     for e in sorted(on_dev, key=dev_us, reverse=True)[:15]:
         print(f"    {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} "
               f"{e.key[:90]}")
@@ -4769,12 +4926,14 @@ def profile_window(fn, tag):
     for e in cpu:
         print(f"    {e.self_cpu_time_total / 1e3:9.3f} ms  "
               f"x{e.count:<5d} {e.key[:90]}")
+    return wall * 1e3, busy
 
 
 def profile_rwkv6():
     """``--profile``: one ``rwkv6-1.6b`` prefill (16 x 512 tokens) and 8
-    greedy decode steps at batch 16, phase 4c's configuration, after one
-    warm-up of each."""
+    decode steps at batch 16, phase 4c's configuration, after one warm-up
+    of each; the decode steps through the captured serve step (8 replays)
+    and through its eager twin."""
     from repro_torch.configs import get_arch
     from repro_torch.models.model import (
         Model, make_prefill_step, make_serve_step,
@@ -4790,15 +4949,20 @@ def profile_rwkv6():
     prefill(params, {"tokens": tokens})
     profile_window(lambda: prefill(params, {"tokens": tokens}),
                    f"rwkv6] prefill {RWKV_BATCH} x {RWKV_PROMPT}")
-    step = make_serve_step(model)
-    cache = model.init_cache(RWKV_BATCH, RWKV_SERVE_PROMPT + 16)
+    for capture in (True, False):
+        # the captured step (the default on the card: call 1 eager, call 2
+        # captured, then replays) beside its eager twin
+        step = make_serve_step(model, capture=capture)
+        cache = model.init_cache(RWKV_BATCH, RWKV_SERVE_PROMPT + 16)
 
-    def decode(first):
-        for i in range(8):
-            step(params, cache, tokens[:, i:i + 1], first + i)
-    decode(0)
-    profile_window(lambda: decode(8),
-                   f"rwkv6] 8 decode steps at batch {RWKV_BATCH}")
+        def decode(first):
+            for i in range(8):
+                step(params, cache, tokens[:, i:i + 1], first + i)
+        decode(0)
+        profile_window(lambda: decode(8),
+                       f"rwkv6] 8 decode steps at batch {RWKV_BATCH}, "
+                       f"{'captured (replays)' if capture else 'eager'}")
+        del step, cache
 
 
 def profile_zoo(arch):

@@ -94,6 +94,7 @@ from repro_torch.optim import (
     Optimizer, TracedOptimizer, adamw_traced, apply_updates,
     hparams_from_config, sgd_traced,
 )
+from repro_torch.utils.capture import CaptureCounts, CapturedGraph
 from repro_torch.utils.tree import (
     tree_flatten, tree_leaves, tree_map, tree_unflatten,
 )
@@ -117,8 +118,7 @@ _cohort_builds = 0
 _round_builds = 0
 _dispatches = 0
 _host_syncs = 0
-_captures = 0
-_replays = 0
+_round_graphs = CaptureCounts()
 
 
 def cohort_trace_count() -> int:
@@ -155,13 +155,13 @@ def round_capture_count() -> int:
     """CUDA-graph captures of a fused round this process: one a bucket,
     one more whenever the storage the graph reads in place changes (the EF
     store grew or was reloaded)."""
-    return _captures
+    return _round_graphs.captures
 
 
 def round_replay_count() -> int:
     """CUDA-graph replays of a fused round this process: one a captured
     round (the capturing round included)."""
-    return _replays
+    return _round_graphs.replays
 
 
 def _note_dispatch(n: int = 1) -> None:
@@ -531,63 +531,25 @@ def capture_key(program, inputs, ef_leaves) -> Tuple[Any, Any, Any]:
     return program, shapes, storage
 
 
-class CapturedRound:
-    """One bucket's fused round as a CUDA graph.
+class CapturedRound(CapturedGraph):
+    """One bucket's fused round as a CUDA graph
+    (:class:`repro_torch.utils.capture.CapturedGraph`, counted by
+    :func:`round_capture_count` / :func:`round_replay_count`).
 
     Capturing copies the round's inputs into static buffers, captures
-    ``run(inputs)`` with ``torch.cuda.graph(..., capture_error_mode=
-    "global")`` into the graph's private memory pool, and records the
+    ``run(inputs)`` into the graph's private memory pool, and records the
     kernel launches the capture made per kernel.  A capture that fails
     raises with its cause; nothing falls back to an eager round.
 
     Calling it copies a round's inputs into the static buffers, replays
-    the graph under ``torch.cuda.set_sync_debug_mode("error")`` (a replay
-    that synchronizes with the host raises), adds the recorded launches to
-    ``kernels.ops.launch_counts`` (the wrappers count in Python, which a
-    replay skips) and returns a copy of the outputs, so that nothing the
-    caller keeps — the new global params, the deferred fetch's loss,
-    accuracy, guard and counts — aliases a buffer the next replay
-    overwrites."""
+    the graph under ``torch.cuda.set_sync_debug_mode("error")``, adds the
+    recorded launches to ``kernels.ops.launch_counts`` and returns a copy
+    of the outputs, so that nothing the caller keeps — the new global
+    params, the deferred fetch's loss, accuracy, guard and counts —
+    aliases a buffer the next replay overwrites."""
 
     def __init__(self, run, inputs, device: torch.device):
-        from repro_torch.kernels import ops as kops
-
-        global _captures
-        leaves, self._treedef = tree_flatten(inputs)
-        self._static = [None if t is None else t.clone() for t in leaves]
-        static = tree_unflatten(self._treedef, self._static)
-        self.graph = torch.cuda.CUDAGraph()
-        before = kops.launch_counts()
-        try:
-            with torch.cuda.device(device), torch.cuda.graph(
-                    self.graph, capture_error_mode="global"):
-                self._out = run(static)
-        finally:
-            after = kops.launch_counts()
-            # nothing ran on the card yet: the replays count the launches
-            self.launches = {k: after[k] - before[k] for k in after
-                             if after[k] != before[k]}
-            kops.add_launch_counts({k: -n for k, n in self.launches.items()})
-        _captures += 1
-
-    def __call__(self, inputs):
-        from repro_torch.kernels import ops as kops
-
-        global _replays
-        mode = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            for buf, t in zip(self._static, tree_leaves(inputs)):
-                if buf is not None:
-                    buf.copy_(t)
-            self.graph.replay()
-            out = tree_map(lambda t: None if t is None else t.clone(),
-                           self._out)
-        finally:
-            torch.cuda.set_sync_debug_mode(mode)
-        kops.add_launch_counts(self.launches)
-        _replays += 1
-        return out
+        super().__init__(run, inputs, device, _round_graphs)
 
 
 def build_client_mesh(devices: Optional[Sequence] = None) -> ClientMesh:

@@ -386,10 +386,9 @@ def trace_step(model: Model, shape: InputShape, step: str,
             params = _fake_state(model).params
             ins = _fake_inputs(model.input_specs(shape))
             fn = make_serve_step(model, ring=shape.seq_len > 65_536)
-            # the decode step reads its position on the host (``int(pos)``),
-            # which a fake tensor cannot answer: hand it the int
+            # the position is a traced input, as in the reference
             run = lambda: fn(params, ins["cache"], ins["tokens"],  # noqa: E731
-                             shape.seq_len - 1)
+                             ins["pos"])
         else:
             raise ValueError(step)
         traffic = TrafficMode()

@@ -1,15 +1,19 @@
 """Batched decode serving driver (the production-phase inference path).
 
-Randomly initializes an arch from ``--seed``, prefills a prompt batch by
-stepping the decoder over it, then serves greedy autoregressive decode
-steps against the cache — the reference's ``repro.launch.serve`` on the
-port's ``make_serve_step``.
+Randomly initializes an arch from ``--seed`` (drawn on the run's
+device), prefills a prompt batch by stepping the decoder over it, then
+serves greedy autoregressive decode steps against the cache — the
+reference's ``repro.launch.serve`` on the port's ``make_serve_step``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
         --full --batch 16 --prompt-len 32 --gen 32
 
 It runs on the CUDA card; ``repro_torch.set_device("cpu")`` before
-:func:`main` runs it on the CPU.
+:func:`main` runs it on the CPU.  The prompt and the greedy tokens go
+through one serve step (``make_serve_step``): on the card one CUDA graph
+for every position — the first call eager (the warm-up), the second
+captured, the rest replayed — whose counts the run prints before its
+sample; on the CPU every step runs eagerly.
 """
 from __future__ import annotations
 
@@ -40,7 +44,8 @@ def main(argv=None):
     cfg = get_arch(args.arch, reduced=args.reduced)
     model = Model(cfg)
     device = get_device()
-    gen = torch.Generator().manual_seed(args.seed)
+    # params and prompt drawn on the run's device, as launch.train draws
+    gen = torch.Generator(device=device).manual_seed(args.seed)
     params = model.init(gen, device)
     serve = make_serve_step(model, ring=args.ring)
 
@@ -53,7 +58,7 @@ def main(argv=None):
     # stand-in for an encoded prompt, as in the reference's driver)
     cache = model.init_cache(B, args.cache_len, ring=args.ring, device=device)
     prompt = torch.randint(0, cfg.vocab, (B, args.prompt_len),
-                           generator=gen).to(device)
+                           generator=gen, device=device)
 
     # prefill by stepping the decoder over the prompt (serving-path prefill)
     sync()
@@ -79,6 +84,9 @@ def main(argv=None):
           f"gen={args.gen} ring={args.ring}")
     print(f"prefill {prefill_s:.2f}s | decode {decode_s:.2f}s "
           f"({toks_per_s:.1f} tok/s aggregate)")
+    print(f"serve step on {device.type}: captures {serve.captures}, "
+          f"recaptures {serve.recaptures}, replays {serve.replays}, eager "
+          f"steps {serve.eager_steps}")
     print("sample:", gen_tokens[0][:16].tolist())
     return gen_tokens
 

@@ -15,6 +15,12 @@ the reference's functional update, :func:`write_slot` writes the new entry
 into the cache tensor in place — copying a whole cache per token would
 cost O(L) memory traffic per step.
 
+The position is a 0-d integer tensor on the cache's device, as it is a
+traced ``int32`` in the reference's jitted serve step: the slot, the write
+(``index_copy_``) and the mask are computed on the device from it, so one
+captured decode step serves every position (``models/model.py``).  The
+helpers still take a Python int (:func:`as_pos`).
+
 MLA caches the compressed latent + shared RoPE key instead of per-head K/V
 (DeepSeek-V2's memory saving: (r + rope_dim) vs 2·H·D per token).
 """
@@ -53,23 +59,39 @@ def zeros_like_specs(specs, device=None):
                                           device=device), specs)
 
 
-def write_slot(cache_arr, new, slot: int):
-    """Write new (B, 1, ...) into cache (B, L, ...) at ``slot``, in place;
-    returns the cache."""
-    cache_arr[:, slot:slot + 1] = new.to(cache_arr.dtype)
-    return cache_arr
+def as_pos(pos, device=None) -> torch.Tensor:
+    """``pos`` as a 0-d int64 tensor on ``device`` (default: a tensor's own
+    device, the CPU for an int): a Python int through a device fill, which
+    needs no host-to-device copy; a tensor cast and moved (no copy when it
+    is one already)."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device=pos.device if device is None else device,
+                      dtype=torch.int64)
+    return torch.full((), int(pos), dtype=torch.int64, device=device)
 
 
-def cache_slot(pos: int, length: int, ring: bool) -> int:
+def write_slot(cache_arr, new, slot):
+    """Write new (B, 1, ...) into cache (B, L, ...) at ``slot`` (a 0-d
+    tensor or an int), in place; returns the cache."""
+    index = as_pos(slot, cache_arr.device).reshape(1)
+    return cache_arr.index_copy_(1, index, new.to(cache_arr.dtype))
+
+
+def cache_slot(pos, length: int, ring: bool):
+    """The slot of position ``pos``: ``pos mod length`` in a ring
+    (``torch.remainder`` for a tensor), else ``pos``."""
     return pos % length if ring else pos
 
 
-def cache_mask(batch: int, pos: int, length: int, ring: bool, device=None):
-    """(B, L) bool — valid cache slots after writing position ``pos``.
+def cache_mask(batch: int, pos, length: int, ring: bool, device=None):
+    """(B, L) bool — valid cache slots after writing position ``pos``,
+    built on ``pos``'s device (or ``device``).
 
     For a ring buffer every slot is valid once pos+1 >= W; earlier, only the
     first pos+1 slots.  For linear layout, slots <= pos.
     """
-    idx = torch.arange(length, device=device)
-    valid = idx <= pos if not ring else idx < min(pos + 1, length)
+    pos = as_pos(pos, device)
+    idx = torch.arange(length, device=pos.device)
+    valid = (idx <= pos if not ring
+             else idx < torch.clamp_max(pos + 1, length))
     return valid[None, :].expand(batch, length)

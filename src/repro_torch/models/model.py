@@ -5,7 +5,11 @@ The layer the drivers program against: ``repro_torch.launch.train``
 (``make_train_step`` over ``Model.loss``), ``repro_torch.core.federated``
 (the cross-pod round) and ``repro_torch.launch.serve`` (``make_prefill_step``
 and ``make_serve_step``, both under ``torch.no_grad()``, so an RWKV6 model's
-prefill and decode take the WKV6 kernel: ``models/transformer``).
+prefill and decode take the WKV6 kernel: ``models/transformer``).  On a
+card the serve step is one CUDA graph for every position (:class:`ServeStep`),
+as the reference compiles ``make_serve_step`` once with a traced position;
+the prefill step stays eager, as the reference compiles it only in the dry
+run.
 
 A train step is ``(state, batch) -> (state, metrics)`` as in the reference:
 autograd takes the gradients of ``Model.loss`` with respect to every
@@ -26,6 +30,7 @@ from repro_torch.models import kvcache as kvc
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import init_params
 from repro_torch.optim import Optimizer, apply_updates
+from repro_torch.utils.capture import CaptureCounts, CapturedGraph
 from repro_torch.utils.tree import tree_flatten, tree_unflatten
 
 
@@ -61,6 +66,8 @@ class Model:
         return tfm.loss_fn(self.cfg, params, batch, remat=remat)
 
     def decode_step(self, params, cache, tokens, pos, ring=False):
+        """``(logits, cache)``, the cache updated in place; ``pos`` a 0-d
+        integer tensor on the cache's device or a Python int."""
         return tfm.decode_step(self.cfg, params, cache, tokens, pos,
                                ring=ring)
 
@@ -171,13 +178,119 @@ def make_prefill_step(model: Model):
     return step
 
 
-def make_serve_step(model: Model, ring: bool = False):
-    """(params, cache, tokens, pos) -> (logits, cache), one decode step
-    without autograd (the cache is updated in place)."""
-    def step(params, cache, tokens, pos):
+_serve_graphs = CaptureCounts()
+
+
+def serve_capture_count() -> int:
+    """CUDA-graph captures of a serve step this process (every
+    :class:`ServeStep`'s, recaptures included)."""
+    return _serve_graphs.captures
+
+
+def serve_replay_count() -> int:
+    """CUDA-graph replays of a serve step this process: one a captured
+    decode step (the capturing call included)."""
+    return _serve_graphs.replays
+
+
+def serve_key(params, cache, tokens, ring: bool):
+    """``(shapes, storage)``: what a captured decode step is valid for.
+    ``shapes``: ``ring``, the token batch's shape and dtype, and the tree
+    structure, shape and dtype of every param and cache leaf; ``storage``:
+    the address and strides of every param and cache leaf, which the graph
+    reads (the params) and writes (the cache) in place."""
+    p, ptree = tree_flatten(params)
+    c, ctree = tree_flatten(cache)
+    leaves = p + c
+    shapes = (ring, tuple(tokens.shape), tokens.dtype, repr(ptree),
+              repr(ctree), tuple((tuple(t.shape), t.dtype) for t in leaves))
+    storage = tuple((t.data_ptr(), t.stride()) for t in leaves)
+    return shapes, storage
+
+
+class ServeStep:
+    """``(params, cache, tokens, pos) -> (logits, cache)``: one decode step
+    without autograd, the cache updated in place and returned as the same
+    object; the port's ``jax.jit(make_serve_step(model, ring=...),
+    donate_argnums=(1,))``.
+
+    On a CUDA device (``tokens``' device) with ``capture`` on, the step is
+    one CUDA graph (:class:`repro_torch.utils.capture.CapturedGraph`) that
+    serves every position: the first call at a ``shapes`` key of
+    :func:`serve_key` runs eagerly (the warm-up: cuBLAS's and the
+    allocator's first use), the next one captures and replays, every later
+    one replays.  Only ``tokens`` and ``pos`` are copied into the graph's
+    static buffers (a Python ``pos`` by a device ``fill_``, a tensor by a
+    device copy: no host sync either way); the graph reads the caller's
+    params and writes the caller's cache in their own storage — the
+    counterpart of donating the cache — so a new cache or new params
+    (another ``storage`` key) recapture at once, after the old graph and
+    its pool are freed: one graph a step object.  The logits come back as
+    a copy.  A capture or replay that fails raises; nothing falls back to
+    an eager step.  The step runs eagerly on the CPU (no graph exists
+    there) and with ``capture=False`` (the eager side of an A/B).
+
+    ``captures``, ``recaptures`` (captures after the first), ``replays``
+    and ``eager_steps`` count this object's calls; process-wide counts:
+    :func:`serve_capture_count`, :func:`serve_replay_count`."""
+
+    #: device types whose steps run as a graph (the CPU tests stand a
+    #: recording graph in for the CUDA one on "cpu")
+    graph_device_types = ("cuda",)
+
+    def __init__(self, model: Model, ring: bool = False,
+                 capture: bool = True):
+        self.model = model
+        self.ring = ring
+        self.capture = capture
+        self._graph = None          # (shapes, storage, CapturedGraph)
+        self._warm = set()          # shapes keys that ran their warm-up
+        self.captures = self.recaptures = self.replays = 0
+        self.eager_steps = 0
+
+    def _decode(self, params, cache, tokens, pos):
         with torch.no_grad():
-            return model.decode_step(params, cache, tokens, pos, ring=ring)
-    return step
+            return self.model.decode_step(params, cache, tokens, pos,
+                                          ring=self.ring)
+
+    def __call__(self, params, cache, tokens, pos):
+        device = tokens.device
+        if not (self.capture and device.type in self.graph_device_types):
+            self.eager_steps += 1
+            return self._decode(params, cache, tokens, pos)
+        if isinstance(pos, torch.Tensor) and pos.device != device:
+            pos = int(pos)              # a host value: filled, not copied
+        shapes, storage = serve_key(params, cache, tokens, self.ring)
+        held = self._graph
+        if held is not None and held[:2] == (shapes, storage):
+            logits = held[2]((tokens, pos))
+            self.replays += 1
+            return logits, cache
+        if shapes not in self._warm:
+            self._warm.add(shapes)
+            self.eager_steps += 1
+            return self._decode(params, cache, tokens, pos)  # the warm-up
+        if held is not None:
+            self.recaptures += 1
+        # the old graph and its private pool go first
+        self._graph = held = None
+        static = (tokens, kvc.as_pos(pos, device))
+        graph = CapturedGraph(
+            lambda s: self._decode(params, cache, s[0], s[1])[0], static,
+            device, _serve_graphs)
+        self.captures += 1
+        self._graph = (shapes, storage, graph)
+        logits = graph((tokens, pos))
+        self.replays += 1
+        return logits, cache
+
+
+def make_serve_step(model: Model, ring: bool = False,
+                    capture: bool = True) -> ServeStep:
+    """(params, cache, tokens, pos) -> (logits, cache), one decode step
+    without autograd (the cache is updated in place): a
+    :class:`ServeStep`, one CUDA graph for every position on a card."""
+    return ServeStep(model, ring, capture)
 
 
 def init_train_state(model: Model, optimizer: Optimizer, gen: torch.Generator,

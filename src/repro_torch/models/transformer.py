@@ -340,12 +340,21 @@ def init_cache(cfg: ArchConfig, batch: int, length: int, ring: bool,
     return kvc.zeros_like_specs(cache_specs(cfg, batch, length, ring), device)
 
 
-def _decode_attn(cfg: ArchConfig, p, h, cache, pos: int, ring: bool):
-    """One-token GQA against the layer's cache (written in place)."""
+def _positions(pos, batch: int):
+    """(B, 1) int64 positions of the one decoded token, a view of the 0-d
+    device ``pos`` (the dtype ``torch.full((B, 1), int)`` gives, so RoPE
+    rounds as it did from a host int)."""
+    return pos.reshape(1, 1).expand(batch, 1)
+
+
+def _decode_attn(cfg: ArchConfig, p, h, cache, pos, ring: bool):
+    """One-token GQA against the layer's cache (written in place); ``pos``
+    a 0-d tensor (or an int) on ``h``'s device."""
     length = cache["k"].shape[1]
+    pos = kvc.as_pos(pos, h.device)
     slot = kvc.cache_slot(pos, length, ring)
     B = h.shape[0]
-    positions = torch.full((B, 1), pos, device=h.device)
+    positions = _positions(pos, B)
     # project q,k,v (rope applied with absolute position), write cache
     q, k, v = attn._project_qkv(cfg, p, h, positions)
     k_cache = kvc.write_slot(cache["k"], k, slot)
@@ -363,13 +372,14 @@ def _decode_attn(cfg: ArchConfig, p, h, cache, pos: int, ring: bool):
     return torch.einsum("bshf,hfd->bsd", ctx, p["wo"].to(h.dtype))
 
 
-def _decode_mla(cfg: ArchConfig, p, h, cache, pos: int, ring: bool):
+def _decode_mla(cfg: ArchConfig, p, h, cache, pos, ring: bool):
     """One-token absorbed MLA against the layer's latent cache (written in
     place)."""
     length = cache["c"].shape[1]
+    pos = kvc.as_pos(pos, h.device)
     slot = kvc.cache_slot(pos, length, ring)
     B = h.shape[0]
-    positions = torch.full((B, 1), pos, device=h.device)
+    positions = _positions(pos, B)
     c_new, kr_new = attn._mla_latent(cfg, p, h, positions)
     c_cache = kvc.write_slot(cache["c"], c_new, slot)
     kr_cache = kvc.write_slot(cache["kr"], kr_new, slot)
@@ -383,7 +393,7 @@ def _copy_state(cache, new):
         cache[key].copy_(t)
 
 
-def _decode_layer(cfg: ArchConfig, seg: Segment, p, x, cache, pos: int,
+def _decode_layer(cfg: ArchConfig, seg: Segment, p, x, cache, pos,
                   ring: bool, enc_kv=None):
     """One-layer one-token decode; updates the layer's ``cache`` (views
     into the segment's stacked cache) in place and returns x."""
@@ -418,15 +428,20 @@ def _decode_layer(cfg: ArchConfig, seg: Segment, p, x, cache, pos: int,
 
 def decode_step(cfg: ArchConfig, params, cache, tokens, pos,
                 ring: bool = False):
-    """One decode step.  tokens: (B,1) int; pos: int (position of this
-    token).  Returns (logits (B,1,V) f32, cache) — the cache updated in
-    place.  An encoder-decoder model's layer l reads its cross-attention
-    K/V from ``cache["enc_kv"]`` at l (segments carry ``first_layer``)."""
-    pos = int(pos)
+    """One decode step.  tokens: (B,1) int; pos: the position of this
+    token, a 0-d integer tensor (or a Python int, filled into one on
+    ``tokens``' device).  Returns (logits (B,1,V) f32, cache) — the cache
+    updated in place.  Nothing here reads ``pos`` on the host or makes a
+    shape from it, so one CUDA graph of this step serves every position
+    (``models/model.py::make_serve_step``).  An encoder-decoder model's
+    layer l reads its cross-attention K/V from ``cache["enc_kv"]`` at l
+    (views: segments carry ``first_layer``)."""
+    pos = kvc.as_pos(pos, tokens.device)
     dt = getattr(torch, cfg.dtype)
     x = params["embed"][tokens].to(dt)
     if cfg.pos_embedding == "learned":
-        x = x + params["pos_embed"][pos][None, None].to(dt)
+        x = x + params["pos_embed"].index_select(
+            0, pos.reshape(1))[None].to(dt)
     for seg, seg_params, seg_cache in zip(segments(cfg), params["segments"],
                                           cache["segments"]):
         for li in range(seg.count):

@@ -689,3 +689,137 @@ def test_deferred_fetch_reads_its_own_round_after_the_next_replay(
         out[capture] = [s["loss"] for s in sts]
     assert all(np.array_equal(x, y) for x, y in zip(out[True], out[False]))
     assert not np.array_equal(out[True][2], out[True][3])
+
+
+# ---------------------------------------------------------------------------
+# the serve step as one CUDA graph for every position
+# (models/model.py::ServeStep)
+# ---------------------------------------------------------------------------
+
+def _serve_case(arch, device, ring=False):
+    """A reduced arch on ``device`` (RecurrentGemma at 3 layers with a
+    window of 8, so that its local attention's ring wraps): ``(model,
+    params, prompt tokens (2, 16))``."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import Model
+
+    cfg = get_arch(arch, reduced=True)
+    if arch == "recurrentgemma-9b":
+        cfg = dataclasses.replace(cfg, n_layers=3, window=8)
+    if ring:
+        cfg = dataclasses.replace(cfg, decode_window=8)
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device)
+    toks = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab, (2, 16))).to(device)
+    return model, params, toks
+
+
+def _greedy(step, model, params, toks, device, ring=False, gen=8):
+    """The prompt stepped in, then ``gen`` greedy tokens -> (logits of
+    every step, greedy tokens, the cache)."""
+    cache = model.init_cache(2, toks.shape[1] + gen, ring=ring,
+                             device=device)
+    logits = []
+    for t in range(toks.shape[1]):
+        lg, cache = step(params, cache, toks[:, t:t + 1], t)
+        logits.append(lg)
+    tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+    out = []
+    for i in range(gen):
+        lg, cache = step(params, cache, tok,
+                         torch.tensor(toks.shape[1] + i, device=device))
+        logits.append(lg)
+        tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+        out.append(tok)
+    return torch.cat(logits, 1), torch.cat(out, 1), cache
+
+
+@pytest.mark.parametrize("arch,ring", [
+    ("glm4-9b", False), ("glm4-9b", True), ("rwkv6-1.6b", False),
+    ("deepseek-v2-lite-16b", True), ("whisper-small", False),
+    ("recurrentgemma-9b", False)])
+def test_captured_serve_step_equals_the_eager_step(cuda_device, arch, ring):
+    """Prefill by stepping 16 positions, then 8 greedy tokens, through the
+    captured step and its eager twin: the same greedy tokens, logits and
+    cache within 1e-4 of the logits' scale (bit for bit printed), one
+    warm-up, one capture and a replay for every later step."""
+    from repro_torch.models import model as model_mod
+
+    model, params, toks = _serve_case(arch, cuda_device, ring)
+    eager = model_mod.make_serve_step(model, ring=ring, capture=False)
+    want, want_tok, want_cache = _greedy(eager, model, params, toks,
+                                         cuda_device, ring)
+    step = model_mod.make_serve_step(model, ring=ring)
+    n0 = model_mod.serve_capture_count(), model_mod.serve_replay_count()
+    got, got_tok, got_cache = _greedy(step, model, params, toks,
+                                      cuda_device, ring)
+    n = want.shape[1]
+    assert (step.eager_steps, step.captures, step.recaptures,
+            step.replays) == (1, 1, 0, n - 1)
+    assert (model_mod.serve_capture_count() - n0[0],
+            model_mod.serve_replay_count() - n0[1]) == (1, n - 1)
+    assert (eager.captures, eager.eager_steps) == (0, n)
+    assert torch.equal(got_tok, want_tok)
+    scale = max(1.0, want.abs().max().item())
+    print(f"{arch} ring={ring}: captured vs eager logits bitwise "
+          f"{torch.equal(got, want)}, max |diff| "
+          f"{(got - want).abs().max().item():.3g}")
+    assert (got - want).abs().max().item() <= 1e-4 * scale
+    for a, b in zip(tree_leaves(got_cache), tree_leaves(want_cache)):
+        assert (a.float() - b.float()).abs().max().item() <= 1e-4 * max(
+            1.0, b.float().abs().max().item())
+
+
+def test_serve_step_recaptures_on_a_new_cache_and_new_params(cuda_device):
+    """The graph reads the params and writes the cache in their own
+    storage: another cache or other params capture again at once (the
+    step keeps one graph), and the replay reads the new storage."""
+    from repro_torch.models import model as model_mod
+
+    model, params, toks = _serve_case("glm4-9b", cuda_device)
+    step = model_mod.make_serve_step(model)
+    eager = model_mod.make_serve_step(model, capture=False)
+    caches = [model.init_cache(2, 16, device=cuda_device) for _ in range(3)]
+    for t in range(3):
+        step(params, caches[0], toks[:, t:t + 1], t)
+    assert (step.eager_steps, step.captures, step.replays) == (1, 1, 2)
+    got, _ = step(params, caches[1], toks[:, :1], 0)
+    want, _ = eager(params, caches[2], toks[:, :1], 0)
+    assert (step.captures, step.recaptures) == (2, 1)
+    assert torch.equal(got, want)
+    other = model.init(torch.Generator().manual_seed(1), cuda_device)
+    got, _ = step(other, caches[0], toks[:, 3:4], 3)
+    want, _ = eager(other, caches[0], toks[:, 3:4], 3)
+    assert (step.captures, step.recaptures, step.eager_steps) == (3, 2, 1)
+    assert torch.equal(got, want)
+
+
+def test_serve_replay_makes_no_host_sync(cuda_device):
+    """A hundred replayed steps with a device position and greedy
+    feedback (argmax, ``pos + 1``), all under
+    ``set_sync_debug_mode("error")``: nothing in the loop makes the host
+    wait for the card."""
+    from repro_torch.models import model as model_mod
+
+    model, params, toks = _serve_case("rwkv6-1.6b", cuda_device)
+    step = model_mod.make_serve_step(model)
+    cache = model.init_cache(2, 128, device=cuda_device)
+    for t in range(2):                              # warm-up, capture
+        lg, cache = step(params, cache, toks[:, t:t + 1], t)
+    torch.cuda.synchronize()
+    pos = torch.tensor(2, device=cuda_device)
+    tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(100):
+            lg, cache = step(params, cache, tok, pos)
+            tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+            pos = pos + 1
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert step.replays == 101 and step.captures == 1
+    assert int(pos) == 102

@@ -142,19 +142,23 @@ def test_cache_specs_match_reference(arch, ring):
         assert a.dtype == b.dtype and a.shape == b.shape and not a.any()
 
 
+@pytest.mark.parametrize("as_tensor", [False, True], ids=["int", "tensor"])
 @pytest.mark.parametrize("ring", [False, True])
 @pytest.mark.parametrize("pos", [0, 5, 15, 16, 40])
-def test_cache_slot_and_mask_match_reference(pos, ring):
-    assert kvc.cache_slot(pos, 16, ring) == int(
+def test_cache_slot_and_mask_match_reference(pos, ring, as_tensor):
+    """The slot and the mask from a Python int and from a 0-d int32 tensor
+    (the serve step's device position)."""
+    p = torch.tensor(pos, dtype=torch.int32) if as_tensor else pos
+    assert int(kvc.cache_slot(p, 16, ring)) == int(
         ref_kvc.cache_slot(jnp.asarray(pos), 16, ring))
     np.testing.assert_array_equal(
-        kvc.cache_mask(2, pos, 16, ring).numpy(),
+        kvc.cache_mask(2, p, 16, ring).numpy(),
         np.asarray(ref_kvc.cache_mask(2, jnp.asarray(pos), 16, ring)))
 
 
-def test_mla_cache_raises_naming_m9():
-    """MLA's latent cache once raised naming M9; ported since, its specs
-    equal the reference's at full and reduced size."""
+def test_mla_cache_specs_match_reference():
+    """MLA's latent cache specs equal the reference's at full and reduced
+    size."""
     for reduced in (False, True):
         cfg = port_arch("deepseek-v2-lite-16b", reduced=reduced)
         ref = ref_kvc.mla_cache_defs(
