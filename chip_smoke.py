@@ -88,7 +88,8 @@ Phases, in order; any failed check raises, so the script exits non-zero:
    with the flash flag on and once off; the flash kernels must launch in
    the first run only and the final adapters of the two runs agree within
    1e-4; then LoRA beyond the batched engine, flash on: the sequential
-   engine (eager per-client steps) and the async engine (2 aggregations of
+   engine (its client step one CUDA graph, K6/K7 inside it: 1 capture, 0
+   recaptures, counts printed) and the async engine (2 aggregations of
    4, uniform speeds: the degenerate case) held against the batched
    flash-on run within max(1e-4, 2 x how far that run moves from a
    1e-7-perturbed start), and batched LoRA with STC and with int8; round
@@ -108,11 +109,17 @@ Phases, in order; any failed check raises, so the script exits non-zero:
 4d. drive the compression API path as ``benchmarks/bench_compression.py``
    drives the reference's: dense STC, quantize, dequantize of 2^20 f32;
 4e. drive the default path, phase 4's configuration with the default
-   ``execution="sequential"``: every client's stages in turn (eager local
-   steps, the compression stage with error feedback on K2 or K3a+K3b, one
-   ``(1, n)`` row a compressed leaf), then ``Server.aggregation`` on K1;
-   the counters as in phase 4 (K1 3 launches, K2 only under stc, K3 only
-   under int8); the ``none`` run's final params against phase 4's batched
+   ``execution="sequential"``: every client's stages in turn (the local
+   steps and the evaluation as CUDA graphs, one a shapes key:
+   ``core/local_train.py::ClientStep``, ``EvalStep``; the compression
+   stage with error feedback on K2 or K3a+K3b, one ``(1, n)`` row a
+   compressed leaf), then ``Server.aggregation`` on K1; the counters as in
+   phase 4 (K1 3 launches, K2 only under stc, K3 only under int8), each
+   step captured once a key and never again (``step_counts``); the
+   ``none`` run again under ``deterministic_cudnn``, beside its eager twin
+   (``eager_sequential``; :func:`sequential_ab`): final params bit for
+   bit, round walls and CPU of rounds 1-2, peak; the ``none`` run's final
+   params (cuDNN's default mode, as users run) against phase 4's batched
    ``none`` params, printed against 1e-4 and held within max(1e-4, twice
    how far phase 4's run moves from three inits perturbed by a relative
    1e-7: ``conditioning_gap``; 3 rounds of 10 clients amplify f32 rounding
@@ -172,7 +179,8 @@ Phases, in order; any failed check raises, so the script exits non-zero:
    1 local epoch, launch counts as phase 4's, steady round walls and peak
    memory printed, ``shakespeare_lstm``'s batched none also beside its
    eager twin (``capture=False``: its launch-bound step loop is where
-   the captured round shows most); then each model's batched run on the
+   the captured round shows most) and its sequential none beside its
+   eager twin as in phase 4e (:func:`sequential_ab`); then each model's batched run on the
    card against the CPU (1 round of 2 clients, the ResNet's of 1,
    evaluation off): params and train losses within max(1e-4, 2 x how far
    the card's run moves from six 1e-7-perturbed inits), the card's runs
@@ -208,7 +216,9 @@ Phases, in order; any failed check raises, so the script exits non-zero:
    127.0.0.1), 4 a round, 3 rounds, through ``start_server().run()``;
    final params against the ``init(); run()`` sequential run of the same
    configuration at phase 4e's bar, train losses within 1e-3; K1 once a
-   round on the server; then 2 rounds under ``aggregation_topology=
+   round on the server; the services' shared client step and the server's
+   eval step captured once a key, never recaptured (counts printed; the
+   handlers take turns on the card under its lock); then 2 rounds under ``aggregation_topology=
    "hierarchical"`` (one grouped K1 a round); (b) registry, tracker, 4
    clients and the server as ``python -m repro_torch.launch.service``
    processes on the card (2 rounds; the tracker's series, the devices
@@ -582,6 +592,8 @@ def main():
     for mode in ("none", "stc", "int8"):
         used, params = run_slice(repro_torch, ops, mode,
                                  execution="sequential")
+        if mode == "none":              # the A/B under deterministic cuDNN
+            sequential_ab(repro_torch, ops, smi)
         for k, v in used.items():
             seq[k] += v
         if mode == "none":
@@ -2114,6 +2126,20 @@ def run_slice(repro_torch, ops, mode, execution="batched", resources=None,
     RUNS[tag] = {"captures": captures, "replays": replays, "cpu": cpu,
                  "peak": peak, "launches": used,
                  "params": [t.cpu() for t in out]}
+    if execution == "sequential":
+        trainer = repro_torch.core.api._ctx.trainer
+        RUNS[tag]["steps"] = steps = step_counts(
+            trainer.client(trainer.fed_data.client_ids[0]),
+            evaluated=trainer.cfg.server.test_every > 0)
+        print(f"[{tag}] sequential steps: {steps}")
+        if sequential_captured():
+            require(all(c["keys"] >= 1 and c["captures"] == c["keys"]
+                        and c["recaptures"] == 0 for c in steps.values()),
+                    f"[{tag}] steps {steps}: expected 1 capture a key, 0 "
+                    f"recaptures")
+        else:
+            require(all(c["captures"] == 0 for c in steps.values()),
+                    f"[{tag}] captured under eager_sequential: {steps}")
     print(f"[{tag}] round wall s: round0 {walls[0]:.4f} "
           f"(first-use setup included), later {[round(x, 4) for x in walls[1:]]};"
           f" run total {total:.3f} s; main-thread CPU s of rounds 1-2 {cpu}; "
@@ -2125,6 +2151,89 @@ def run_slice(repro_torch, ops, mode, execution="batched", resources=None,
           f"{[h['comm_up_bytes'] for h in hist]}")
     repro_torch.reset()
     return used, RUNS[tag]["params"]
+
+
+def step_counts(client, evaluated=True):
+    """The sequential engine's cached client step that ``client`` (a
+    ``core/client.py::Client``) trained with and, where the run evaluated
+    (``evaluated``), its model's eval step (``core/local_train.py``: one
+    CUDA graph a shapes key) -> {"client" / "eval": {keys, captures,
+    recaptures, replays, eager_steps}} (eager_steps: the warm-ups of the
+    graphed steps).  Each step must be a cache hit: a miss would make a
+    new, empty step."""
+    from repro_torch.core import local_train as lt
+
+    factories = ((lt.make_client_step, lt.make_eval_step) if evaluated
+                 else (lt.make_client_step,))
+    sizes = [f.cache_info().currsize for f in factories]
+    steps = {"client": lt.make_client_step(client.model, client.optimizer,
+                                           client.cfg.proximal_mu,
+                                           client.cfg.max_grad_norm)}
+    if evaluated:
+        steps["eval"] = lt.make_eval_step(client.model)
+    now = [f.cache_info().currsize for f in factories]
+    require(now == sizes, f"the client's steps were not cached: cache "
+            f"sizes {sizes} -> {now}")
+    return {name: {"keys": len(st.keys()), "captures": st.captures,
+                   "recaptures": st.recaptures, "replays": st.replays,
+                   "eager_steps": st.eager_steps}
+            for name, st in steps.items()}
+
+
+def sequential_captured():
+    """Whether the sequential steps run as CUDA graphs on the card (not
+    inside :func:`eager_sequential`)."""
+    from repro_torch.core import local_train as lt
+
+    return "cuda" in lt._GraphedStep.graph_device_types
+
+
+@contextlib.contextmanager
+def eager_sequential():
+    """Every sequential client and eval step runs eagerly inside (no
+    device type runs them as a graph): the eager side of phases 4e's and
+    4h's A/B."""
+    from repro_torch.core import local_train as lt
+
+    kept = lt._GraphedStep.graph_device_types
+    lt._GraphedStep.graph_device_types = ()
+    try:
+        yield
+    finally:
+        lt._GraphedStep.graph_device_types = kept
+
+
+def sequential_ab(repro_torch, ops, smi, model="femnist_cnn"):
+    """Phases 4e and 4h: ``model``'s sequential none run (3 rounds of 10
+    clients) with its client and eval steps captured (one CUDA graph a
+    shapes key) beside its eager twin (``eager_sequential``), both under
+    :func:`deterministic_cudnn`: final params bit for bit, 1 capture a key
+    and 0 recaptures of each step, none in the twin (:func:`run_slice`
+    holds the counts); round walls and
+    main-thread CPU s of rounds 1-2 and peak GiB of both.  The replays run
+    under ``set_sync_debug_mode("error")``: a host sync in one raises.
+    -> (launch counts, final params on the CPU) of the captured run."""
+    tag = ("sequential none" if model == "femnist_cnn"
+           else f"{model} sequential none") + " deterministic"
+    eager = f"eager {tag}"
+    with deterministic_cudnn():
+        used, params = run_slice(repro_torch, ops, "none",
+                                 execution="sequential", tag=tag,
+                                 model=model)
+        with eager_sequential():
+            run_slice(repro_torch, ops, "none", execution="sequential",
+                      tag=eager, model=model)
+    cap, eag = RUNS[tag], RUNS[eager]   # run_slice checked their counts
+    same = same_bits_tree(cap["params"], eag["params"])
+    print(f"[captured {tag}] client step {cap['steps']['client']}, eval "
+          f"step {cap['steps']['eval']}; round walls 1-2 "
+          f"{[round(x, 4) for x in WALLS[tag]]} s captured, "
+          f"{[round(x, 4) for x in WALLS[eager]]} s eager; main-thread CPU "
+          f"s of rounds 1-2 {cap['cpu']} / {eag['cpu']}; peak "
+          f"{cap['peak']:.2f} / {eag['peak']:.2f} GiB; final params bit for "
+          f"bit the eager twin's: {same} ({smi})")
+    require(same, f"[{tag}] captured and eager final params differ")
+    return used, params
 
 
 def run_batched_paths(repro_torch, ops, fused, gaps, init):
@@ -2559,8 +2668,13 @@ def run_models(repro_torch, ops, smi):
                                 ("none", "sequential")):
             tag = (f"{model} {mode}" if execution == "batched"
                    else f"{model} sequential {mode}")
-            used, _ = run_slice(repro_torch, ops, mode, execution=execution,
-                                tag=tag, model=model)
+            if model == "shakespeare_lstm" and execution == "sequential":
+                # the launch-bound step loop, captured against eager
+                used, _ = sequential_ab(repro_torch, ops, smi, model)
+            else:
+                used, _ = run_slice(repro_torch, ops, mode,
+                                    execution=execution, tag=tag,
+                                    model=model)
             for k, v in used.items():
                 total[k] += v
         if model == "shakespeare_lstm":
@@ -3223,8 +3337,15 @@ def remote_run(repro_torch, ops, cfg, n_clients):
     require(all(t.device.type == "cuda" and bool(torch.isfinite(t).all())
                 for t in out), "remote params off the card or not finite")
     stats = [t.stats for t in server.transports.values()]
+    # the client services share the model, and with it the client step;
+    # the server's evaluation runs the eval step
+    steps = step_counts(clients[0].client)
+    require(all(c["keys"] >= 1 and c["captures"] == c["keys"]
+                and c["recaptures"] == 0 for c in steps.values()),
+            f"[remote] steps {steps}: expected 1 capture a key, 0 "
+            f"recaptures")
     repro_torch.reset()
-    return used, [t.cpu() for t in out], hist, walls, stats
+    return used, [t.cpu() for t in out], hist, walls, stats, steps
 
 
 class Service:
@@ -3428,8 +3549,11 @@ def run_remote(repro_torch, ops, smi):
     seq_walls = [h["wall_time"] for h in seq["history"]]
     repro_torch.reset()
 
-    used, final, hist, walls, stats = remote_run(repro_torch, ops, cfg, 8)
+    used, final, hist, walls, stats, steps = remote_run(repro_torch, ops,
+                                                        cfg, 8)
     print(f"[remote] launches {used}")
+    print(f"[remote] the client services' shared client step and the "
+          f"server's eval step, captured: {steps}")
     for k, v in used.items():
         want = rounds if k == "fedavg_agg" else 0
         require(v == want, f"[remote] {k} launched {v} times, expected "
@@ -3452,7 +3576,7 @@ def run_remote(repro_torch, ops, smi):
           f"within {loss_gap:.3g} (bar 1e-3)")
     require(diff <= bar, f"remote vs sequential: {diff} > {bar}")
 
-    tree_used, _, tree_hist, _, _ = remote_run(
+    tree_used, _, tree_hist, _, _, _ = remote_run(
         repro_torch, ops, remote_config(8, 4, 2, "hierarchical"), 8)
     print(f"[remote hierarchical] launches {tree_used}")
     for k, v in tree_used.items():
@@ -3717,6 +3841,16 @@ def run_lora(repro_torch, ops, flash_on, execution="batched",
     peak = torch.cuda.max_memory_allocated() / 2**30
     hist = res["history"]
     print(f"{tag} launches {used}")
+    if execution == "sequential":
+        trainer = api._ctx.trainer
+        steps = step_counts(trainer.client(trainer.fed_data.client_ids[0]),
+                            evaluated=trainer.cfg.server.test_every > 0)
+        print(f"{tag} sequential client step, captured (evaluation off): "
+              f"{steps['client']}")
+        require(steps["client"]["captures"] == steps["client"]["keys"] == 1
+                and steps["client"]["recaptures"] == 0,
+                f"{tag} client step {steps['client']}: expected 1 key, 1 "
+                f"capture, 0 recaptures")
     rounds = cfg["server"]["rounds"]
     require(used["fedavg_agg"] == rounds, f"{tag} fedavg_agg launched "
             f"{used['fedavg_agg']} times, expected {rounds}")
@@ -3754,8 +3888,8 @@ def run_lora(repro_torch, ops, flash_on, execution="batched",
 
 def lora_engines(repro_torch, ops, batched_on, smi):
     """Phase 4b beyond the batched engine: the flash-on configuration
-    through the sequential engine (eager per-client steps, K6/K7 without
-    vmap) and the async engine (2 aggregations of 4, uniform speeds: the
+    through the sequential engine (its client step captured, K6/K7
+    without vmap) and the async engine (2 aggregations of 4, uniform speeds: the
     degenerate case), held against the batched flash-on run
     (``batched_on``) within max(1e-4, 2 x how far that run moves from a
     1e-7-perturbed start); then batched LoRA with STC
@@ -3775,6 +3909,76 @@ def lora_engines(repro_torch, ops, batched_on, smi):
                 f"{bar}")
     for compression in ("stc", "int8"):
         run_lora(repro_torch, ops, True, compression=compression)
+    lora_step_memory(repro_torch, smi)
+
+
+def lora_step_memory(repro_torch, smi):
+    """Phase 4b: what the sequential engine's cached steps keep on the card
+    for a large model.  Phase 4b's configuration, flash on, sequential,
+    with evaluation on at 8 sequences a test batch, through ``init``/``run``
+    (a client-step key and an eval-step key; the peak beside the same run's
+    eager twin's, ``eager_sequential``); then one client's local run at
+    batch size 2 through the same client step (a second key, its graph in
+    the first one's memory pool).  The memory the cached steps hold (static
+    buffers, graph pools) is what dropping them frees, allocated and
+    reserved, after the run and after the second key."""
+    from repro_torch.core import api
+    from repro_torch.core import local_train as lt
+    from repro_torch.models import attention as mattn
+
+    def held():
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        return (torch.cuda.memory_allocated() / 2**30,
+                torch.cuda.memory_reserved() / 2**30)
+
+    peaks = {}
+    mattn.set_flash_attention(True)
+    try:
+        for captured in (False, True):
+            release(repro_torch)
+            cfg = lora_config(glm4_2layer(), execution="sequential")
+            cfg["server"]["test_every"] = 1
+            cfg["data"]["test_batch_size"] = 8
+            repro_torch.init(cfg)
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            with (contextlib.nullcontext() if captured
+                  else eager_sequential()):
+                res = repro_torch.run()
+            torch.cuda.synchronize()
+            peaks[captured] = (torch.cuda.max_memory_allocated()
+                               - base) / 2**30
+            require(all(np.isfinite(h["loss"]) for h in res["history"]),
+                    f"[lora step memory] evaluation not finite: "
+                    f"{res['history']}")
+        trainer = api._ctx.trainer
+        client = trainer.client(trainer.fed_data.client_ids[0])
+        one_key = step_counts(client)
+        after_run = held()
+        lt.local_train(client.model, trainer.server.params, client.data.x,
+                       client.data.y, epochs=1, batch_size=2,
+                       optimizer=client.optimizer)
+        two_keys = step_counts(client)
+        after_key = held()
+        lt.make_client_step.cache_clear()
+        lt.make_eval_step.cache_clear()
+        dropped = held()
+    finally:
+        mattn.set_flash_attention(None)
+    release(repro_torch)
+    require(one_key["client"]["keys"] == 1 and one_key["eval"]["keys"] == 1
+            and two_keys["client"]["keys"] == 2
+            and all(c["captures"] == c["keys"] for c in two_keys.values()),
+            f"[lora step memory] steps {one_key} -> {two_keys}")
+    gib = [[round(a - b, 4) for a, b in zip(h, dropped)]
+           for h in (after_run, after_key)]
+    print(f"[lora step memory] sequential, evaluation on: peak "
+          f"{peaks[True]:.4f} GiB captured, {peaks[False]:.4f} GiB eager; "
+          f"the cached steps hold (allocated, reserved) {gib[0]} GiB with a "
+          f"client-step and an eval-step key, {gib[1]} GiB with a second "
+          f"client-step key (batch size 2); steps {two_keys} ({smi})")
 
 
 def release(repro_torch):

@@ -305,13 +305,15 @@ def tracker() -> Tracker:
 
 def reset() -> None:
     """Clear global state: the context and the cached round programs and
-    sequential client steps (each closes over its model, and a LoRA model
-    over its frozen base — gigabytes on the card for a large LM)."""
+    sequential client and eval steps (each closes over its model, and a
+    LoRA model over its frozen base — gigabytes on the card for a large
+    LM; a step's CUDA graphs and their pools go with it)."""
     from repro_torch.core.batched import (
         make_cohort_program, make_round_program,
     )
-    from repro_torch.core.local_train import make_client_step
+    from repro_torch.core.local_train import make_client_step, make_eval_step
     _ctx.reset()
     make_cohort_program.cache_clear()
     make_round_program.cache_clear()
     make_client_step.cache_clear()
+    make_eval_step.cache_clear()

@@ -94,7 +94,9 @@ from repro_torch.optim import (
     Optimizer, TracedOptimizer, adamw_traced, apply_updates,
     hparams_from_config, sgd_traced,
 )
-from repro_torch.utils.capture import CaptureCounts, CapturedGraph
+from repro_torch.utils.capture import (
+    CaptureCounts, CapturedGraph, traced_flags,
+)
 from repro_torch.utils.tree import (
     tree_flatten, tree_leaves, tree_map, tree_unflatten,
 )
@@ -519,14 +521,16 @@ def capture_key(program, inputs, ef_leaves) -> Tuple[Any, Any, Any]:
     ``program`` is the :func:`make_round_program` instance (its cache key),
     ``shapes`` the structure and (shape, dtype) of every input copied into
     the graph's static buffers (``inputs``: the bucketed tensors of one
-    round), ``storage`` the address and shape of every tensor the graph
+    round) and the flags the program reads as it runs
+    (:func:`~repro_torch.utils.capture.traced_flags`), ``storage`` the address and shape of every tensor the graph
     reads and writes in place: the EF store's hot-tier leaves, which get
     new storage when the store grows (``torch.cat``) or is reloaded from a
     checkpoint.  The cohort's data is an input: the pool's gather happens
     ahead of the graph, so the pool's storage is not part of the key."""
     leaves, treedef = tree_flatten(inputs)
     shapes = (repr(treedef), tuple(
-        None if t is None else (tuple(t.shape), t.dtype) for t in leaves))
+        None if t is None else (tuple(t.shape), t.dtype) for t in leaves),
+        traced_flags())
     storage = tuple((t.data_ptr(), tuple(t.shape)) for t in ef_leaves)
     return program, shapes, storage
 

@@ -13,7 +13,8 @@ at the boundary, one copy a leaf: a client trains on tensors on its
 device, and the server's aggregation (K1 under
 ``resources.aggregation_kernel``) reads updates already in device memory.
 Every device is explicit, never the calling thread's current one: the
-RPC handlers run in threads of their own.
+RPC handlers run in threads of their own, and take turns on their
+device (:meth:`RemoteClient._handle`).
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ from repro_torch.core.server import Server
 from repro_torch.deploy.discovery import Registry
 from repro_torch.kernels.ops import get_device
 from repro_torch.tracking import Tracker
+from repro_torch.utils.capture import device_lock
 from repro_torch.utils.tree import tree_map
 
 # shared in-process registry default (a real deploy points at etcd/k8s DNS)
@@ -65,17 +67,25 @@ class RemoteClient:
         self.rpc.stop()
 
     def _handle(self, method: str, payload: Any) -> Any:
+        """One request, on a thread of the RPC server.  A handler's work
+        on the device (the upload, the client's stages, the download)
+        runs under the device's lock: one handler at a time on a device,
+        whose captured steps (``core/local_train.py``) neither share
+        their buffers nor capture or replay beside another thread's
+        work."""
         if self.latency:
             time.sleep(self.latency)
         if method == "train":
-            msg = dict(payload["payload"])
-            msg["params"] = _to_device(msg["params"], self.device)
-            result = self.client.run_round(msg, payload["round_id"])
-            return _to_numpy(result)
+            with device_lock(self.device):
+                msg = dict(payload["payload"])
+                msg["params"] = _to_device(msg["params"], self.device)
+                result = self.client.run_round(msg, payload["round_id"])
+                return _to_numpy(result)
         if method == "test":
-            params = comp.decompress(_to_device(payload["params"],
-                                                self.device))
-            return self.client.test(params)
+            with device_lock(self.device):
+                params = comp.decompress(_to_device(payload["params"],
+                                                    self.device))
+                return self.client.test(params)
         if method == "ping":
             return {"client_id": self.client.client_id, "ok": True}
         raise ValueError(f"unknown method {method}")

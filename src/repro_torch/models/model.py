@@ -30,7 +30,9 @@ from repro_torch.models import kvcache as kvc
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import init_params
 from repro_torch.optim import Optimizer, apply_updates
-from repro_torch.utils.capture import CaptureCounts, CapturedGraph
+from repro_torch.utils.capture import (
+    CaptureCounts, CapturedGraph, traced_flags,
+)
 from repro_torch.utils.tree import tree_flatten, tree_unflatten
 
 
@@ -195,15 +197,18 @@ def serve_replay_count() -> int:
 
 def serve_key(params, cache, tokens, ring: bool):
     """``(shapes, storage)``: what a captured decode step is valid for.
-    ``shapes``: ``ring``, the token batch's shape and dtype, and the tree
-    structure, shape and dtype of every param and cache leaf; ``storage``:
+    ``shapes``: ``ring``, the token batch's shape and dtype, the tree
+    structure, shape and dtype of every param and cache leaf, and the
+    flags the step reads as it runs
+    (:func:`~repro_torch.utils.capture.traced_flags`); ``storage``:
     the address and strides of every param and cache leaf, which the graph
     reads (the params) and writes (the cache) in place."""
     p, ptree = tree_flatten(params)
     c, ctree = tree_flatten(cache)
     leaves = p + c
     shapes = (ring, tuple(tokens.shape), tokens.dtype, repr(ptree),
-              repr(ctree), tuple((tuple(t.shape), t.dtype) for t in leaves))
+              repr(ctree), tuple((tuple(t.shape), t.dtype) for t in leaves),
+              traced_flags())
     storage = tuple((t.data_ptr(), t.stride()) for t in leaves)
     return shapes, storage
 

@@ -87,9 +87,14 @@ class AdamState(NamedTuple):
 def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
           weight_decay: float = 0.0) -> Optimizer:
     def init(params):
+        # the step count on the params' device: a captured step (the
+        # sequential engine's ClientStep) counts on the device
+        leaves = tree_leaves(params)
         return AdamState(tree_map(torch.zeros_like, params),
                          tree_map(torch.zeros_like, params),
-                         torch.zeros((), dtype=torch.int32))
+                         torch.zeros((), dtype=torch.int32,
+                                     device=leaves[0].device if leaves
+                                     else None))
 
     def update(grads, state, params):
         count = state.count + 1

@@ -26,16 +26,52 @@ which a replay skips) and returns a copy of the outputs, so that nothing
 the caller keeps aliases a buffer the next replay overwrites.  A capture
 or replay that fails raises with its cause; nothing falls back to an
 eager call.
+
+A capture fails when another thread works on the card meanwhile
+(``capture_error_mode="global"``), and a replay's sync-debug mode is
+process-wide, so another thread's legitimate host sync during a replay
+raises: callers that run captured programs from several threads hold
+:func:`device_lock` around each thread's work on the device.
+
+What a capture records depends on the flags the model's Python code reads
+as it runs (:func:`traced_flags`: the flash-attention switch), so every
+caller puts them in the key its graph is valid for: a flag flipped after
+a capture selects another key, which warms up and captures anew.
 """
 from __future__ import annotations
 
-from typing import Callable
+import threading
+from typing import Callable, Dict
 
 import torch
 
 from repro_torch.utils.tree import (
     tree_flatten, tree_leaves, tree_map, tree_unflatten,
 )
+
+
+_LOCKS: Dict[torch.device, threading.RLock] = {}
+_LOCKS_GUARD = threading.Lock()
+
+
+def device_lock(device) -> threading.RLock:
+    """The one re-entrant lock of ``device`` in this process: held around
+    a thread's work on the device, it keeps every other thread's off the
+    device during a capture or a replay."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    with _LOCKS_GUARD:
+        return _LOCKS.setdefault(device, threading.RLock())
+
+
+def traced_flags():
+    """The process-wide flags that choose, while a program runs, which
+    kernels it launches (``models.attention.use_flash_attention``): part
+    of every captured program's key."""
+    from repro_torch.models.attention import use_flash_attention
+
+    return (use_flash_attention(),)
 
 
 class CaptureCounts:
@@ -50,10 +86,14 @@ class CaptureCounts:
 class CapturedGraph:
     """``run(inputs)`` as one CUDA graph on ``device``; ``counts`` gets one
     capture now and one replay a call.  ``inputs`` is a tree whose leaves
-    are tensors (copied into the static buffers) or None."""
+    are tensors (copied into the static buffers) or None.  ``pool``: the
+    memory pool of another graph (:meth:`pool`) that this one shares, for
+    graphs that never replay at once and whose callers copy their outputs
+    out before the next replay of any of them, as :meth:`__call__` does;
+    None, a private pool."""
 
     def __init__(self, run: Callable, inputs, device: torch.device,
-                 counts: CaptureCounts):
+                 counts: CaptureCounts, pool=None):
         from repro_torch.kernels import ops as kops
 
         leaves, self._treedef = tree_flatten(inputs)
@@ -64,7 +104,7 @@ class CapturedGraph:
         before = kops.launch_counts()
         try:
             with torch.cuda.device(device), torch.cuda.graph(
-                    self.graph, capture_error_mode="global"):
+                    self.graph, pool=pool, capture_error_mode="global"):
                 self._out = run(static)
         finally:
             after = kops.launch_counts()
@@ -73,6 +113,10 @@ class CapturedGraph:
                              if after[k] != before[k]}
             kops.add_launch_counts({k: -n for k, n in self.launches.items()})
         counts.captures += 1
+
+    def pool(self):
+        """The handle of this graph's memory pool."""
+        return self.graph.pool()
 
     def __call__(self, inputs):
         from repro_torch.kernels import ops as kops

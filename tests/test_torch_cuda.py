@@ -823,3 +823,145 @@ def test_serve_replay_makes_no_host_sync(cuda_device):
     torch.cuda.synchronize()
     assert step.replays == 101 and step.captures == 1
     assert int(pos) == 102
+
+
+# ---------------------------------------------------------------------------
+# the sequential engine's client and eval steps as CUDA graphs
+# (core/local_train.py::ClientStep, EvalStep)
+# ---------------------------------------------------------------------------
+
+def _eager_steps(monkeypatch):
+    """Every client and eval step runs eagerly from here on (no device
+    type runs them as a graph): the eager side of the A/B."""
+    from repro_torch.core import local_train as lt
+
+    monkeypatch.setattr(lt._GraphedStep, "graph_device_types", ())
+
+
+def _sequential_steps(trainer):
+    """The cached client and eval steps the trainer's run used (a cache
+    hit each: a miss would make a new, empty step)."""
+    from repro_torch.core import local_train as lt
+
+    c = trainer.cfg.client
+    opt = trainer.client(trainer.fed_data.client_ids[0]).optimizer
+    factories = (lt.make_client_step, lt.make_eval_step)
+    sizes = [f.cache_info().currsize for f in factories]
+    steps = (lt.make_client_step(trainer.model, opt, c.proximal_mu,
+                                 c.max_grad_norm),
+             lt.make_eval_step(trainer.model))
+    assert [f.cache_info().currsize for f in factories] == sizes
+    return steps
+
+
+def test_captured_sequential_run_equals_eager_bitwise(deterministic,
+                                                      monkeypatch):
+    """femnist_cnn at published width, 2 rounds of 3 clients through the
+    default engine, captured and eager: final params, train losses and
+    ``Server.test``'s metrics bit for bit; 1 capture a key, 0 recaptures,
+    a replay for every step after the warm-up, and a replay fed a host
+    tensor raises."""
+    from repro_torch.core import local_train as lt
+
+    cfg = Config.make({
+        "model": "femnist_cnn",
+        "data": {"dataset": "femnist", "num_clients": 6,
+                 "data_amount": 0.06, "batch_size": 32},
+        "server": {"rounds": 2, "clients_per_round": 3},
+        "client": {"local_epochs": 1, "lr": 0.01}})
+    repro_torch.set_device(deterministic)
+    p0 = get_model("femnist_cnn").init(torch.Generator().manual_seed(0),
+                                       deterministic)
+    out = {}
+    for capture in (True, False):
+        repro_torch.reset()
+        if not capture:
+            _eager_steps(monkeypatch)
+        trainer = Trainer(cfg, get_model("femnist_cnn"),
+                          build_federated_data(cfg.data))
+        trainer.server.params = p0
+        res = trainer.run()
+        out[capture] = (res, *_sequential_steps(trainer))
+    (got, step, ev), (want, estep, eev) = out[True], out[False]
+    assert _bits_equal(got["params"], want["params"])
+    for key in ("train_loss", "loss", "accuracy"):
+        assert [h[key] for h in got["history"]] == \
+            [h[key] for h in want["history"]], key
+    assert (step.captures, step.recaptures, step.eager_steps) == (1, 0, 1)
+    assert (ev.captures, ev.recaptures, ev.eager_steps) == (1, 0, 1)
+    assert len(step.keys()) == 1 and len(ev.keys()) == 1
+    assert step.replays > 6 and ev.replays >= 1
+    assert (estep.captures, eev.captures, estep.replays) == (0, 0, 0)
+    slot = step._slots[step.keys()[0]]
+    x, y = slot.graph._static
+    with pytest.raises(RuntimeError):
+        slot.graph((x.cpu(), y.cpu()))
+    repro_torch.reset()
+
+
+def test_captured_lstm_local_run_equals_eager_bitwise(deterministic,
+                                                      monkeypatch):
+    """``shakespeare_lstm`` at published width (the launch-bound step
+    loop): two clients' local runs through the captured step equal the
+    same step run eagerly bit for bit, 1 capture, 0 recaptures."""
+    from repro_torch.core import local_train as lt
+    from repro_torch.optim import get_optimizer
+
+    model = get_model("shakespeare_lstm")
+    opt = get_optimizer("sgd", 0.8, 0.9)
+    rs = np.random.RandomState(0)
+    x = rs.randint(0, 80, (50, 80)).astype(np.int32)
+    y = rs.randint(0, 80, 50).astype(np.int32)
+    p0 = model.init(torch.Generator().manual_seed(0), deterministic)
+    step = lt.make_client_step(model, opt, 0.0, 0.0)
+    for seed in (1, 2):
+        kw = dict(epochs=1, batch_size=10, optimizer=opt, seed=seed)
+        got = lt.local_train(model, p0, x, y, **kw)
+        with monkeypatch.context() as m:
+            m.setattr(lt._GraphedStep, "graph_device_types", ())
+            want = lt.local_train(model, p0, x, y, **kw)
+        assert got[1] == want[1]
+        assert _bits_equal(got[0], want[0])
+    assert (step.captures, step.recaptures, step.eager_steps,
+            step.replays) == (1, 0, 1, 9)
+    lt.make_client_step.cache_clear()
+
+
+def test_remote_services_on_one_card_give_the_serial_params(deterministic):
+    """Four client services of this process train at once on the card
+    (threads of their RPC servers, each holding the card's lock): the run
+    ends at the serial ``init(); run()`` run's params bit for bit, with
+    one capture of the shared step."""
+    from repro_torch.deploy import Registry
+
+    cfg = {"model": "femnist_cnn",
+           "data": {"dataset": "femnist", "num_clients": 4,
+                    "data_amount": 0.04, "batch_size": 32},
+           "server": {"rounds": 2, "clients_per_round": 4},
+           "client": {"local_epochs": 1, "lr": 0.01}}
+    repro_torch.set_device(deterministic)
+    repro_torch.reset()
+    repro_torch.init(cfg)
+    seq = repro_torch.run()
+    repro_torch.reset()
+    repro_torch.init(cfg)
+    reg = Registry()
+    ids = sorted(repro_torch.core.api._ctx.fed_data.clients)
+    clients = [repro_torch.start_client({"client_id": c, "registry": reg})
+               for c in ids]
+    srv = repro_torch.start_server({"registry": reg})
+    try:
+        hist = srv.run(2)
+    finally:
+        srv.stop()
+        for c in clients:
+            c.stop()
+    assert _bits_equal(srv.server.params, seq["params"])
+    assert [h["train_loss"] for h in hist] == \
+        [h["train_loss"] for h in seq["history"]]
+    step = clients[0].client
+    from repro_torch.core import local_train as lt
+    shared = lt.make_client_step(step.model, step.optimizer,
+                                 step.cfg.proximal_mu, step.cfg.max_grad_norm)
+    assert (shared.captures, shared.recaptures) == (1, 0)
+    repro_torch.reset()
