@@ -19,11 +19,20 @@ Phases, in order; any failed check raises, so the script exits non-zero:
    PyTorch call computes the same function — that call (median of CUDA
    events over 20 runs; K2 also by device time); K3b also with its int8
    output (the sequential int8 stage's q), equal to the plain version's;
-   K1's grouped route (the hierarchical tree) bit for bit against
-   ``fedavg_tree_plain`` / ``fedavg_grouped_plain``: the whole tree at
-   (16, 6,603,710) (a tier of 2 groups of 8, then one of 8), one launch of
-   2 groups of 8, and 10 rows padded to 12 in groups of 3 at D =
-   1,000,003; the first tier timed beside ``einsum("gf,gfd->gd")``;
+   K3a's max and scale (one launch) bit for bit on edge rows (NaN, +-inf,
+   -0.0, subnormals, below 1e-12; ``rowmax_rows``) at every leaf, at the
+   sequential stage's (1, 6,422,528) and on views whose rows start off a
+   16-byte boundary, eagerly and in 3 replays of a captured launch
+   (``check_rowmax``), timed by CUDA events, device and graph time beside
+   ``vector_norm(inf)``'s, also at (1, 6,422,528) and (1, 620,756,992);
+   K1's routes of several blocks or tiers (``check_k1_routes``: the tree at
+   fanout 0 and 3, the sharded route on 2 and 4 shards of the card at
+   fanout 0 and 2) bit for bit their plain versions, eagerly and in 3
+   graph replays, with no padded (rows, D) copy, at (16, 6,603,710) (a
+   tier of 2 groups of 8, then one combining launch of the 2 partials) and
+   (10, 1,000,003); the grouped launch at 2 groups of 8 and 10 rows padded
+   to 12 in groups of 3 at D = 1,000,003; the first tier timed beside
+   ``einsum("gf,gfd->gd")``, the second tier timed on its own;
    K2 and K3a / K3b on the federated round's largest row, glm4-9b's
    embedding leaf as one (1, 620,756,992) row (``check_embed_row``);
 3b. print the three flash-attention kernels' resources at D = 64, 128,
@@ -206,11 +215,11 @@ Phases, in order; any failed check raises, so the script exits non-zero:
    unsharded run of it); each against the unsharded run of its mode,
    printed against 1e-4 and held within max(1e-4, 2 x that run's
    1e-7-perturbed reach), round walls beside the unsharded ones; K1 once
-   a shard a round (flat, or one tier of the tree), K2 / K3 once a leaf a
-   shard a round; (c) the sharded routes of K1-K3 at (16, 6,603,710) over
-   2 and 4 shards against the unsharded kernels (K2 / K3 bit for bit, K1
-   at fanout 0 and 2 within 1e-6 relative), timed beside their plain
-   versions and bounded;
+   a card a round for all its shards (flat, or one tier of the tree), K2 /
+   K3 once a leaf a shard a round; (c) the sharded routes of K1-K3 at (16,
+   6,603,710) over 2 and 4 shards against the unsharded kernels (K2 / K3
+   bit for bit, K1 at fanout 0 and 2 within 1e-6 relative), timed beside
+   their plain versions (K1 also by graph ms) and bounded;
 4k. drive remote training (``run_remote``): (a) femnist_cnn with 8
    client services (``start_client``: threads of this process, sockets on
    127.0.0.1), 4 a round, 3 rounds, through ``start_server().run()``;
@@ -483,7 +492,8 @@ def main():
 
     phase("3. kernels against their plain versions")
     kernels = check_kernels(dev, fedavg_agg, stc_topk, quant)
-    check_embed_row(dev, stc_topk, quant)
+    next(r for r in kernels if r["name"] == "int8_rowmax")["at_rows"][
+        f"1x{EMBED_ROW}"] = check_embed_row(dev, stc_topk, quant)
 
     phase("3b. flash-attention kernels against their plain versions")
     flash_rows = check_flash(dev, attention, build)
@@ -1779,6 +1789,7 @@ def check_kernels(dev, fedavg_agg, stc_topk, quant):
         km = quant.rowmax(x)
         pm = quant.rowmax_plain(x)
         s = quant.int8_scale(pm)
+        check_rowmax(quant, rowmax_rows(gen, n, d), f"({n}, {d})")
         kq = quant.qdq(x, s)
         kq2, ki = quant.qdq(x, s, with_q=True)     # the int8 q as well
         pq, pi = quant.qdq_plain(x, s, with_q=True)
@@ -1794,6 +1805,11 @@ def check_kernels(dev, fedavg_agg, stc_topk, quant):
         errs["qdq"] = max(errs["qdq"], (kq - pq).abs().max().item())
         print(f"stc/int8 ({n}, {d}): masks+nnz bitwise, values <= {u:.3g} "
               f"ulp; rowmax+qdq bitwise, qdq's int8 q equal")
+    for n, d, off in ((1, 6422528, 0), (5, 20002, 1), (6, 4099, 3)):
+        # the sequential stage's (1, n) row; rows of a view that starts
+        # off a 16-byte boundary (every row a plan of its own)
+        x = rowmax_rows(gen, n, d + off).reshape(-1)[off:off + n * d]
+        check_rowmax(quant, x.view(n, d), f"({n}, {d}) at element {off}")
     for d in (8193, 20001):
         x = stc_topk.adversarial_rows(d).to(dev)
         ko, kn = stc_topk.stc_compress_batched(x, 0.01)
@@ -1832,7 +1848,8 @@ def check_kernels(dev, fedavg_agg, stc_topk, quant):
         plain_ms=cuda_ms(lambda: fedavg_agg.fedavg_grouped_plain(u, w, g)),
         bound_ms=b, bound_by=by,
         library_ms=cuda_ms(lambda: torch.einsum(
-            "gf,gfd->gd", w.view(g, -1), u.view(g, -1, d)))))
+            "gf,gfd->gd", w.view(g, -1), u.view(g, -1, d))),
+        second_tier=tree_second_tier(fedavg_agg, u, w)))
     del u
 
     n, d = N_BUCKET, 6422528          # fc1/w, the dominant leaf
@@ -1847,17 +1864,12 @@ def check_kernels(dev, fedavg_agg, stc_topk, quant):
         device_ms=device_ms(lambda: stc_topk.stc_compress_batched(x, 0.01)),
         plain_ms=cuda_ms(lambda: stc_topk.stc_plain(x, 0.01)),
         bound_ms=b, bound_by=by, library_ms=None))
-    b, by = bound(4 * n * d + 4 * n, 2 * n * d)
     rows.append(dict(
         name="int8_rowmax", counter="int8_rowmax", route="cuda",
         source="src/repro_torch/kernels/csrc/quant.cu",
         replaces="src/repro/kernels/quant.py:106",
-        shape=[n, d], max_abs_err=errs["rowmax"],
-        ms=cuda_ms(lambda: quant.rowmax(x)),
-        plain_ms=cuda_ms(lambda: quant.rowmax_plain(x)),
-        bound_ms=b, bound_by=by,
-        library_ms=cuda_ms(
-            lambda: torch.linalg.vector_norm(x, float("inf"), dim=1))))
+        shape=[n, d], max_abs_err=errs["rowmax"], **k3a_times(quant, x),
+        at_rows={"1x6422528": k3a_times(quant, x[0:1])}))
     s = quant.int8_scale(quant.rowmax_plain(x))
     zp = torch.zeros((n,), dtype=torch.int32, device=dev)
     b, by = bound(8 * n * d + 4 * n, 5 * n * d)
@@ -1872,47 +1884,217 @@ def check_kernels(dev, fedavg_agg, stc_topk, quant):
         library_ms=cuda_ms(lambda: torch.fake_quantize_per_channel_affine(
             x, s, zp, 0, -127, 127))))
     del x
+    print(f"K3a at (1, 6422528), the sequential stage's fc1/w row: "
+          f"{json.dumps(rows[-2]['at_rows'])}")
+    print(f"K1 tree's second tier (2 partials, the route's combining "
+          f"launch): {json.dumps(rows[1]['second_tier'])}")
     for r in rows:
         print(f"{r['name']:12s} {r['shape']}: kernel {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, library "
               f"{'-' if r['library_ms'] is None else format(r['library_ms'], '.4f')}"
               f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
               + (f"; device time {r['device_ms']:.4f} ms"
-                 if "device_ms" in r else ""))
+                 if "device_ms" in r else "")
+              + (f", graph {r['graph_ms']:.4f} ms; library device "
+                 f"{r['library_device_ms']:.4f}, graph "
+                 f"{r['library_graph_ms']:.4f} ms"
+                 if "library_device_ms" in r else ""))
     return rows
 
 
-def check_tree(gen, d_total, fedavg_agg):
-    """K1's grouped route (the hierarchical tree) against its plain
-    version, bit for bit: the whole femnist update matrix through the tree
-    (16 rows, fanout 0: a tier of 2 groups of 8, then one group of 8 with
-    the 2 partials), one grouped launch of 2 groups of 8, and a ragged
-    launch (10 rows padded to 12 with zero rows, groups of 3, D =
-    1,000,003: the scalar path) -> the largest |kernel - plain|."""
+def k3a_times(quant, x):
+    """K3a (``quant.rowmax``, the max and scale launch) on ``x``: CUDA-event,
+    device and graph ms beside its plain version, ``vector_norm(inf)``'s
+    CUDA-event, device and graph ms and the bound (reads x, writes m and
+    the scale)."""
+    n, d = x.shape
+    b, by = bound(4 * n * d + 8 * n, 2 * n * d)
+
+    def lib():
+        return torch.linalg.vector_norm(x, float("inf"), dim=1)
+    return dict(ms=cuda_ms(lambda: quant.rowmax(x)),
+                device_ms=device_ms(lambda: quant.rowmax(x)),
+                graph_ms=graph_ms(lambda: quant.rowmax(x)),
+                plain_ms=cuda_ms(lambda: quant.rowmax_plain(x), reps=5),
+                bound_ms=b, bound_by=by, library_ms=cuda_ms(lib),
+                library_device_ms=device_ms(lib),
+                library_graph_ms=graph_ms(lib))
+
+
+def tree_second_tier(fedavg_agg, u, w):
+    """The hierarchical route's second tier at (16, D), fanout 0, as the
+    route calls it: its 2 first-tier partials summed at weight 1 in one
+    combining launch (no padded rows) -> CUDA-event, device and graph ms
+    beside the bound (2 rows read, one written) and the plain version."""
+    parts = fedavg_agg.fedavg_aggregate_grouped(u, w, 2)
+    d = parts.shape[1]
+    b, by = bound(3 * 4 * d + 8, 2 * 2 * d)
+    ones = torch.ones((2,), dtype=torch.float32, device=u.device)
+
+    def tier():       # 2 rows, fanout 1: one tier of one group of 8 rows
+        return fedavg_agg.fedavg_aggregate_tree(parts, ones, fanout=1)
+    got = tier()
+    torch.cuda.synchronize()
+    require(same_bits(got, fedavg_agg.fedavg_plain(parts, ones)),
+            "K1 tree second tier: not bitwise its plain version")
+    return dict(ms=cuda_ms(tier), device_ms=device_ms(tier),
+                graph_ms=graph_ms(tier),
+                plain_ms=cuda_ms(lambda: fedavg_agg.fedavg_plain(parts, ones)),
+                bound_ms=b, bound_by=by)
+
+
+def rowmax_rows(gen, n, d):
+    """K3a's edge rows on ``gen``'s device: ``update_rows``, then, where
+    there are rows for them, a NaN row, a +-inf row, an all -0.0 row, a
+    subnormal-only row and a row whose one non-zero lies below 1e-12."""
+    x = update_rows(gen, n, d)
+    dev = gen.device
+    if n > 1:
+        x[1, d // 3] = float("nan")
+    if n > 2:
+        x[2, d // 2] = float("inf")
+        x[2, (2 * d) // 3] = float("-inf")
+    if n > 3:
+        x[3] = -0.0
+    if n > 4:
+        k = torch.randint(1, 2 ** 23, (d,), generator=gen, device=dev)
+        sign = torch.randint(0, 2, (d,), generator=gen, device=dev) * 2 - 1
+        x[4] = (k * sign).to(torch.float32) * 2.0 ** -149
+    if n > 5:
+        x[5] = 0.0
+        x[5, d - 1] = 3e-13
+    return x
+
+
+def check_rowmax(quant, x, what):
+    """K3a's max and scale (``quant.rowmax_scale``, one launch) against
+    ``rowmax_plain`` and ``int8_scale``, bit for bit (any NaN equal to any
+    NaN): eagerly, then captured in a CUDA graph and replayed three times
+    on new data (x times 2, 0.5, 3), each replay against the plain version
+    on its data: a row's arrival counter that did not reset would leave
+    the row's max and scale unwritten."""
+    def plain(t):
+        pm = quant.rowmax_plain(t)
+        return pm, quant.int8_scale(pm)
+    m, s = quant.rowmax_scale(x)
+    pm, ps = plain(x)
+    torch.cuda.synchronize()
+    require(same_bits(m, pm) and same_bits(s, ps),
+            f"int8 rowmax {what}: max or scale not bitwise the plain version")
+    static = x.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gm, gs = quant.rowmax_scale(static)
+    for i, f in enumerate((2.0, 0.5, 3.0)):
+        torch.mul(x, f, out=static)
+        graph.replay()
+        pm, ps = plain(static)
+        torch.cuda.synchronize()
+        require(same_bits(gm, pm) and same_bits(gs, ps),
+                f"int8 rowmax {what}: replay {i + 1} of the captured launch "
+                f"not bitwise the plain version")
+    del graph, static
+    print(f"int8 rowmax {what}: max and scale bitwise, eagerly and in 3 "
+          f"replays of a captured launch")
+
+
+def k1_routes(fedavg_agg, dev, ks=(2, 4), fanouts=(0, 2)):
+    """K1's routes of more than one row block or tier, each with its plain
+    version: the tree at fanout 0 and 3, and the sharded route over k
+    shards of ``dev`` (one launch for them all) at ``fanouts``, on the
+    row blocks as the round gives them."""
+    from repro_torch.core.batched import build_client_mesh
+
+    routes = [(f"tree fanout {f}",
+               functools.partial(fedavg_agg.fedavg_aggregate_tree, fanout=f),
+               functools.partial(fedavg_agg.fedavg_tree_plain, fanout=f))
+              for f in (0, 3)]
+    for k in ks:
+        mesh = build_client_mesh([dev] * k)
+        for f in fanouts:
+            routes.append((
+                f"sharded k={k} fanout {f}",
+                lambda u, w, m=mesh, f=f: fedavg_agg.fedavg_aggregate_sharded(
+                    list(u.tensor_split(m.size)), w, m, fanout=f),
+                lambda u, w, k=k, f=f: fedavg_agg.fedavg_sharded_plain(
+                    u, w, k, f)))
+    return routes
+
+
+def check_k1_routes(fedavg_agg, u, w, what):
+    """Every route of ``k1_routes`` on (N, D) ``u``: bit for bit its plain
+    version, within 1e-6 relative of flat K1, with a peak allocation under
+    4 rows of D (its tier outputs and result: no padded (rows, D) copy),
+    and, captured in a CUDA graph, bit for bit its plain version in three
+    replays on new data (u times 2, 0.5, 3) -> the largest |route - flat|."""
+    d = u.shape[1]
+    flat = fedavg_agg.fedavg_aggregate(u, w)
     worst = 0.0
-    cases = [("tree", N_BUCKET, d_total, 0), ("grouped", N_BUCKET, d_total, 2),
-             ("grouped", 10, 1000003, 4)]
-    for what, n, d, g in cases:
+    for name, route, plain in k1_routes(fedavg_agg, u.device):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = route(u, w)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        require(same_bits(out, plain(u, w)), f"K1 {name} {what}: not "
+                f"bitwise its plain version")
+        rel = ((out - flat).abs().max()
+               / flat.abs().max().clamp_min(1e-30)).item()
+        require(rel <= 1e-6, f"K1 {name} {what}: {rel} relative from flat")
+        require(peak < 4 * 4 * d, f"K1 {name} {what}: {peak} bytes "
+                f"allocated, 4 rows of D would be {16 * d}: a padded copy")
+        worst = max(worst, (out - flat).abs().max().item())
+        static = u.clone()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            gout = route(static, w)
+        for i, f in enumerate((2.0, 0.5, 3.0)):
+            torch.mul(u, f, out=static)
+            graph.replay()
+            want = plain(static, w)
+            torch.cuda.synchronize()
+            require(same_bits(gout, want), f"K1 {name} {what}: replay "
+                    f"{i + 1} of the captured route not bitwise its plain "
+                    f"version")
+        del graph, static
+        print(f"K1 {name} {what}: bitwise its plain version (eagerly and "
+              f"in 3 graph replays), {rel:.3g} relative from flat K1, peak "
+              f"allocation {peak} bytes ({peak / (4 * d):.2f} rows of D)")
+    return worst
+
+
+def check_tree(gen, d_total, fedavg_agg):
+    """K1's routes of more than one launch or block (``check_k1_routes``:
+    the hierarchical tree, the sharded route on k shards of the card) at
+    the whole femnist update matrix (16 rows: a tier of 2 groups of 8, then
+    one combining launch of the 2 partials) and at a ragged (10,
+    1,000,003) (the scalar path; a last group of 2 real rows); then the
+    grouped launch itself against its plain version, bit for bit: 2 groups
+    of 8 of the femnist matrix, and 10 rows padded to 12 with zero rows in
+    groups of 3 at D = 1,000,003 -> the largest |grouped - plain|."""
+    worst = 0.0
+    for n, d in ((N_BUCKET, d_total), (10, 1000003)):
         u = update_rows(gen, n, d)
         w = torch.rand((n,), generator=gen, device=gen.device)
         w /= w.sum()
-        if what == "tree":
-            k = fedavg_agg.fedavg_aggregate_tree(u, w, fanout=0)
-            p = fedavg_agg.fedavg_tree_plain(u, w, fanout=0)
-        else:
-            rows = -(-n // g) * g
-            u = torch.nn.functional.pad(u, (0, 0, 0, rows - n))
-            w = torch.nn.functional.pad(w, (0, rows - n))
-            k = fedavg_agg.fedavg_aggregate_grouped(u, w, g)
-            p = fedavg_agg.fedavg_grouped_plain(u, w, g)
+        check_k1_routes(fedavg_agg, u, w, f"({n}, {d})")
+    for n, d, g in ((N_BUCKET, d_total, 2), (10, 1000003, 4)):
+        u = update_rows(gen, n, d)
+        w = torch.rand((n,), generator=gen, device=gen.device)
+        w /= w.sum()
+        rows = -(-n // g) * g
+        u = torch.nn.functional.pad(u, (0, 0, 0, rows - n))
+        w = torch.nn.functional.pad(w, (0, rows - n))
+        k = fedavg_agg.fedavg_aggregate_grouped(u, w, g)
+        p = fedavg_agg.fedavg_grouped_plain(u, w, g)
         torch.cuda.synchronize()
         require(torch.equal(k.view(torch.int32), p.view(torch.int32)),
-                f"fedavg_agg {what} ({n}, {d}, groups {g}): not bitwise "
+                f"fedavg_agg grouped ({n}, {d}, groups {g}): not bitwise "
                 f"equal to its plain version")
         worst = max(worst, (k - p).abs().max().item())
-        print(f"fedavg_agg {what} ({n} rows, D {d}, "
-              f"{'fanout 0' if what == 'tree' else f'{g} groups'}): "
-              f"bitwise equal to its plain version")
+        print(f"fedavg_agg grouped ({n} rows, D {d}, {g} groups): bitwise "
+              f"equal to its plain version")
     return worst
 
 
@@ -2046,7 +2228,7 @@ def run_slice(repro_torch, ops, mode, execution="batched", resources=None,
     ``history``, a list, receives the run's history; ``clients`` the
     cohort a round; ``shards`` (phase 4j) the client mesh's size under
     ``resources.distributed="data"``: the sharded K1 route launches once
-    (flat, or one tier of the tree) a shard a round."""
+    (flat, or one tier of the tree) a card a round."""
     from repro_torch.core import batched
 
     rounds = 3
@@ -2086,7 +2268,11 @@ def run_slice(repro_torch, ops, mode, execution="batched", resources=None,
     mesh = None if engine is None else engine.mesh
     require((None if mesh is None else mesh.size) == shards,
             f"[{tag}] client mesh {mesh}, expected {shards} shards")
-    tiers = shards or (2 if k1 == "fedavg_agg_tree" else 1)
+    # the sharded route: one launch a run of shards on one card (flat, or
+    # the one tier of each shard's tree); unsharded: one a tier
+    from repro_torch.kernels.fedavg_agg import shard_runs
+    tiers = (len(shard_runs(mesh.devices)) if shards
+             else 2 if k1 == "fedavg_agg_tree" else 1)
     for k in ("fedavg_agg", "fedavg_agg_tree"):
         want_k1 = rounds * tiers if k == k1 else 0
         require(used[k] == want_k1, f"[{tag}] {k} launched {used[k]} "
@@ -2885,8 +3071,8 @@ def run_sharded(repro_torch, ops, smi, fused, gaps, init):
     run of its mode, printed against 1e-4 and held within max(1e-4, 2 x
     that unsharded run's 1e-7-perturbed reach); its steady round walls
     beside the unsharded run's.  K1 launches once (flat, or one tier of
-    the tree) a shard a round; K2 / K3 once a compressed leaf a shard a
-    round.  -> the launches of the phase."""
+    the tree) a card a round, for all its shards; K2 / K3 once a
+    compressed leaf a shard a round.  -> the launches of the phase."""
     total = {k: 0 for k in SHARDED_ROUTES}
     faults = FAULTY["faults"]
 
@@ -2958,9 +3144,10 @@ def check_sharded_routes(dev, fedavg_agg, stc_topk, quant, smi):
     the whole matrix or its k row blocks.  Each route timed on the row
     blocks, as the round calls it (median of CUDA events, through the
     wrapper; the whole-matrix form adds the gather of the results), beside
-    its plain version and the unsharded kernel, and bounded: K1's flat
-    bytes plus the k (D,) f32 partials; K2 / K3 those of the unsharded
-    call."""
+    its plain version and the unsharded kernel (K1 also by graph ms;
+    ``scripts/bench_kernels.py --kernel fedavg`` gives device ms), and
+    bounded: K1's flat bytes (one launch for the card's k shards: no
+    partial crosses a card); K2 / K3 those of the unsharded call."""
     from repro_torch.core.batched import build_client_mesh
 
     gen = torch.Generator(device=dev).manual_seed(4321)
@@ -2972,6 +3159,8 @@ def check_sharded_routes(dev, fedavg_agg, stc_topk, quant, smi):
     so, sn = stc_topk.stc_compress_batched(x, 0.01)
     qs, qsc = quant.int8_roundtrip_batched(x)
     base_ms = {"fedavg_agg": cuda_ms(lambda: fedavg_agg.fedavg_aggregate(x, w)),
+               "fedavg_agg graph": graph_ms(
+                   lambda: fedavg_agg.fedavg_aggregate(x, w)),
                "stc": cuda_ms(lambda: stc_topk.stc_compress_batched(x, 0.01)),
                "int8": cuda_ms(lambda: quant.int8_roundtrip_batched(x))}
     stc_b = stc_bound(x, stc_topk)
@@ -2991,11 +3180,16 @@ def check_sharded_routes(dev, fedavg_agg, stc_topk, quant, smi):
                    / flat.abs().max().clamp_min(1e-30)).item()
             require(rel <= 1e-6, f"K1 sharded k={k} fanout {fanout}: rel "
                     f"{rel} > 1e-6 from flat K1")
-            b, by = bound(4 * n * d + 4 * n + 4 * d + 4 * k * d, 2 * n * d)
+            # one launch for the card's k shards: flat K1's bytes, no
+            # partial crosses a card
+            b, by = bound(4 * n * d + 4 * n + 4 * d, 2 * n * d)
+
+            def route():
+                return fedavg_agg.fedavg_aggregate_sharded(
+                    blocks, w, mesh, fanout=fanout)
             rows.append(dict(
                 route=f"K1 sharded k={k} fanout {fanout}", rel=rel,
-                ms=cuda_ms(lambda: fedavg_agg.fedavg_aggregate_sharded(
-                    blocks, w, mesh, fanout=fanout)),
+                ms=cuda_ms(route), graph_ms=graph_ms(route),
                 plain_ms=cuda_ms(lambda: fedavg_agg.fedavg_sharded_plain(
                     x, w, k, fanout)),
                 unsharded_ms=base_ms["fedavg_agg"], bound_ms=b, bound_by=by,
@@ -3027,13 +3221,16 @@ def check_sharded_routes(dev, fedavg_agg, stc_topk, quant, smi):
             unsharded_ms=base_ms["int8"], bound_ms=int8_b[0],
             bound_by=int8_b[1], library_ms=None))
     for r in rows:
-        print(f"{r['route']} ({n}, {d}): route {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, unsharded kernel "
+        print(f"{r['route']} ({n}, {d}): route {r['ms']:.4f} ms"
+              + (f" (graph {r['graph_ms']:.4f})" if "graph_ms" in r else "")
+              + f", plain {r['plain_ms']:.4f} ms, unsharded kernel "
               f"{r['unsharded_ms']:.4f} ms, library "
               f"{'-' if r['library_ms'] is None else format(r['library_ms'], '.4f')}"
               f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
               f"{'bitwise' if r['rel'] == 0.0 else format(r['rel'], '.3g') + ' rel'}"
               f" against the unsharded kernel ({smi})")
+    print(f"flat K1 beside the K1 rows: graph {base_ms['fedavg_agg graph']:.4f}"
+          f" ms ({smi})")
     return rows
 
 
@@ -4321,7 +4518,8 @@ def check_embed_row(dev, stc_topk, quant):
     """Phase 3: K2 and K3a / K3b on the federated round's largest row,
     glm4-9b's embedding leaf as one (1, 620,756,992) row, against their
     plain versions (STC masks, signs and nnz bitwise, values within 1 ulp;
-    int8 bitwise), each timed once beside its plain version."""
+    int8 bitwise), each timed beside its plain version; K3a as phase 3's
+    row (``k3a_times``) -> K3a's times."""
     gen = torch.Generator(device=dev).manual_seed(4321)
     x = update_rows(gen, 1, EMBED_ROW)
     what = f"(1, {EMBED_ROW})"
@@ -4331,11 +4529,12 @@ def check_embed_row(dev, stc_topk, quant):
     require(torch.equal(kn.to(pn.dtype), pn), f"stc {what}: nnz differ")
     u = check_stc(ko, po, f"stc {what}")
     del ko, po
-    km = quant.rowmax(x)
+    km, ks = quant.rowmax_scale(x)
     pm = quant.rowmax_plain(x)
-    require(torch.equal(km.view(torch.int32), pm.view(torch.int32)),
-            f"int8 rowmax {what}: not bitwise equal")
     s = quant.int8_scale(pm)
+    require(torch.equal(km.view(torch.int32), pm.view(torch.int32))
+            and torch.equal(ks.view(torch.int32), s.view(torch.int32)),
+            f"int8 rowmax {what}: max or scale not bitwise equal")
     kq, ki = quant.qdq(x, s, with_q=True)
     pq, pi = quant.qdq_plain(x, s, with_q=True)
     torch.cuda.synchronize()
@@ -4346,17 +4545,17 @@ def check_embed_row(dev, stc_topk, quant):
                         reps=5, warmup=1),
           "K2 plain": cuda_ms(lambda: stc_topk.stc_plain(x, 0.01), reps=3,
                               warmup=1),
-          "K3a": cuda_ms(lambda: quant.rowmax(x), reps=5, warmup=1),
-          "K3a plain": cuda_ms(lambda: quant.rowmax_plain(x), reps=3,
-                               warmup=1),
           "K3b": cuda_ms(lambda: quant.qdq(x, s), reps=5, warmup=1),
           "K3b plain": cuda_ms(lambda: quant.qdq_plain(x, s), reps=3,
                                warmup=1)}
+    k3a = k3a_times(quant, x)
     print(f"stc/int8 {what} (glm4-9b's embedding as one row): masks, signs "
           f"and nnz ({int(kn[0])}) bitwise, values <= {u:.3g} ulp; rowmax "
           f"and qdq (with its int8 q) bitwise; ms "
-          + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()))
+          + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+          + f"; K3a {json.dumps(k3a)}")
     del x
+    return k3a
 
 
 def well_conditioned(model, seed):

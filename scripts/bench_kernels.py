@@ -1,7 +1,7 @@
 """Time one source tree's hand-written kernels at their main path's shape,
 and hold its WKV6 kernel (K8) against a float64 run.
 
-    python3 scripts/bench_kernels.py --kernel flash|wkv6|stc|int8 [--root DIR]
+    python3 scripts/bench_kernels.py --kernel flash|wkv6|stc|int8|fedavg [--root DIR]
 
 imports ``repro_torch`` from ``DIR/src`` (default: this checkout), builds
 the kernel's source into ``DIR/build/kernels``, and prints the card
@@ -30,14 +30,19 @@ the kernel's source into ``DIR/build/kernels``, and prints the card
   device_ms``: the profiler's kernel time) and graph ms (``chip_smoke.
   graph_ms``: calls replayed from a CUDA graph, the host out of the way,
   launch gaps in), each beside its bound (``chip_smoke.stc_bound``);
-* ``int8``: K3a (row max) and K3b (quantize/dequantize) at the same six
-  leaves and their sums a round, timed as ``stc``, beside their bounds
-  (phase 3's); K5a (dense quantize) and K5b (dense dequantize) at 2^20,
+* ``int8``: K3a (row max and scale) and K3b (quantize/dequantize) at the
+  same six leaves and their sums a round, K3a also at the (1, 6,422,528)
+  and (1, 620,756,992) rows of the sequential stage, timed as ``stc``,
+  beside their bounds (phase 3's), K3a beside ``vector_norm(inf)``; K5a (dense quantize) and K5b (dense dequantize) at 2^20,
   1,000,003 and 16 (one tile: the latency of a launch's dependent chain),
   timed the same way beside their bounds (phase 3c's) and
   ``torch.mul(q, s)``; the host microseconds a K5 wrapper call takes
   (``time.perf_counter_ns`` over 1,000 calls); and a digest of K5's
-  outputs on ``quant.edge_tiles``.
+  outputs on ``quant.edge_tiles``;
+* ``fedavg``: K1 at (16, 6,603,710) flat, the hierarchical tree (whole,
+  and each tier as the route calls it) and the sharded route on 2 and 4
+  shards of the card at fanout 0 and 2, timed as ``stc``, beside flat
+  K1's bound and ``w @ U``.
 
 Distances are scaled by max(1, max |reference|), as in phase 3c.  The
 timing (``cuda_ms``, ``device_ms``, ``graph_ms``) and the SDPA yardstick
@@ -228,14 +233,16 @@ def bench_stc(smoke):
 
 
 def bench_int8(smoke):
-    """K3a (row max) and K3b (quantize/dequantize) at the six compressed
-    femnist leaves (N = 16 update-like rows; one launch each a round, as
-    K2): CUDA-event, device and graph ms, each beside its bound."""
+    """K3a (row max and scale) and K3b (quantize/dequantize) at the six
+    compressed femnist leaves (N = 16 update-like rows; one launch each a
+    round, as K2), K3a also at the sequential stage's (1, 6,422,528) and
+    (1, 620,756,992) rows: CUDA-event, device and graph ms, each beside its
+    bound, K3a beside ``vector_norm(inf)``'s."""
     from repro_torch.kernels import quant
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
     res = {"repro_torch": os.path.relpath(quant.__file__), "k3a": {},
-           "k3b": {}, **k5_host_us(quant)}
+           "k3a_norm": {}, "k3b": {}, **k5_host_us(quant)}
     for name, d in smoke.femnist_shapes():
         if d < 64:
             continue
@@ -243,13 +250,97 @@ def bench_int8(smoke):
         x = smoke.update_rows(gen, n, d)
         s = quant.int8_scale(quant.rowmax_plain(x))
         res["k3a"][name] = times(smoke, functools.partial(quant.rowmax, x),
-                                 smoke.bound(4 * n * d + 4 * n, 2 * n * d))
+                                 smoke.bound(4 * n * d + 8 * n, 2 * n * d))
+        res["k3a_norm"][name] = times(smoke, functools.partial(
+            torch.linalg.vector_norm, x, float("inf"), dim=1),
+            smoke.bound(4 * n * d + 4 * n, 2 * n * d))
         res["k3b"][name] = times(smoke, functools.partial(quant.qdq, x, s),
                                  smoke.bound(8 * n * d + 4 * n, 5 * n * d))
-    for k in ("k3a", "k3b"):
+    for k in ("k3a", "k3a_norm", "k3b"):
         for key in ("ms", "device_ms", "graph_ms", "bound_ms"):
             res[f"{k}_round_{key}"] = sum(r[key] for r in res[k].values())
+    res["k3a_host_us"] = k3a_host_us(smoke, quant, gen)
+    for d in (6422528, smoke.EMBED_ROW):    # the sequential stage's rows
+        x = smoke.update_rows(gen, 1, d)
+        res["k3a"][f"1x{d}"] = times(smoke, functools.partial(quant.rowmax, x),
+                                     smoke.bound(4 * d + 8, 2 * d))
+        res["k3a_norm"][f"1x{d}"] = times(smoke, functools.partial(
+            torch.linalg.vector_norm, x, float("inf"), dim=1),
+            smoke.bound(4 * d + 4, 2 * d))
+        del x
     res.update(bench_k5(smoke, quant))
+    return res
+
+
+def k3a_host_us(smoke, quant, gen):
+    """Host microseconds of K3a's wrapper call at (16, 6,422,528) and of
+    its parts — the output's ``torch.empty``, ``build.launch`` around a
+    no-op, the ctypes call refused before any launch (N = 0) — beside
+    ``vector_norm(inf)``'s call."""
+    from repro_torch.kernels import build
+
+    dev = torch.device("cuda", 0)
+    x = smoke.update_rows(gen, smoke.N_BUCKET, 6422528)
+    lib = build.load("quant")
+    nargs = len(build.SIGNATURES["quant"]["int8_rowmax_launch"])
+    refused = [0] * (nargs - 1) + [None]
+    return {"rowmax": host_us(functools.partial(quant.rowmax, x)),
+            "vector_norm": host_us(functools.partial(
+                torch.linalg.vector_norm, x, float("inf"), dim=1)),
+            "torch_empty": host_us(lambda: torch.empty(
+                (2, smoke.N_BUCKET), dtype=torch.float32, device=dev)),
+            "build_launch_noop": host_us(lambda: build.launch(
+                dev, "noop", lambda stream: 0)),
+            "ctypes_call": host_us(lambda: lib.int8_rowmax_launch(*refused))}
+
+
+def bench_fedavg(smoke):
+    """K1 at the whole femnist update matrix (16, 6,603,710): flat; the
+    hierarchical tree at fanout 0 whole and tier by tier as the route calls
+    them (the first tier: one grouped launch of 2 groups of 8; the second:
+    the 2 partials at weight 1 as a tree of 2 rows at fanout 1, one group
+    of 8); the sharded route on k = 2 and 4 shards of the card at fanout 0
+    and 2, on the row blocks: CUDA-event, device and graph ms beside the
+    bound (flat K1's bytes: no partial crosses a card) and ``w @ U``'s."""
+    from repro_torch.core.batched import build_client_mesh
+    from repro_torch.kernels import fedavg_agg
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    n, d = smoke.N_BUCKET, sum(s for _, s in smoke.femnist_shapes())
+    u = smoke.update_rows(gen, n, d)
+    w = torch.rand((n,), generator=gen, device=dev)
+    w /= w.sum()
+    flat_b = smoke.bound(4 * n * d + 4 * n + 4 * d, 2 * n * d)
+    parts = fedavg_agg.fedavg_aggregate_grouped(u, w, 2)
+    ones = torch.ones((2,), dtype=torch.float32, device=dev)
+    res = {"repro_torch": os.path.relpath(fedavg_agg.__file__),
+           "shape": [n, d],
+           "flat": times(smoke, functools.partial(
+               fedavg_agg.fedavg_aggregate, u, w), flat_b),
+           "w_at_u": times(smoke, lambda: w @ u, flat_b),
+           "tree": times(smoke, functools.partial(
+               fedavg_agg.fedavg_aggregate_tree, u, w, fanout=0),
+               smoke.bound(4 * n * d + 4 * n + 4 * 5 * d, 2 * n * d)),
+           "tree_tier1": times(smoke, functools.partial(
+               fedavg_agg.fedavg_aggregate_grouped, u, w, 2),
+               smoke.bound(4 * n * d + 4 * n + 4 * 2 * d, 2 * n * d)),
+           "tree_tier2": times(smoke, functools.partial(
+               fedavg_agg.fedavg_aggregate_tree, parts, ones, fanout=1),
+               smoke.bound(4 * 3 * d + 8, 4 * d))}
+    res["host_us"] = {
+        "flat": host_us(functools.partial(fedavg_agg.fedavg_aggregate, u, w)),
+        "w_at_u": host_us(lambda: w @ u),
+        "tree": host_us(functools.partial(fedavg_agg.fedavg_aggregate_tree,
+                                          u, w, fanout=0))}
+    for k in (2, 4):
+        mesh = build_client_mesh([dev] * k)
+        blocks = list(u.chunk(k))
+        for fanout in (0, 2):
+            fn = functools.partial(fedavg_agg.fedavg_aggregate_sharded,
+                                   blocks, w, mesh, fanout=fanout)
+            res[f"sharded_k{k}_fanout{fanout}"] = times(smoke, fn, flat_b)
+            res["host_us"][f"sharded_k{k}_fanout{fanout}"] = host_us(fn)
     return res
 
 
@@ -326,7 +417,8 @@ def here_edge_tiles():
 BENCHES = {"flash": ("flash_attn", bench_flash),
            "wkv6": ("wkv6", bench_wkv6),
            "stc": ("stc_topk", bench_stc),
-           "int8": ("quant", bench_int8)}
+           "int8": ("quant", bench_int8),
+           "fedavg": ("fedavg_agg", bench_fedavg)}
 
 
 def main(argv=None):

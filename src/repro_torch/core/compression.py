@@ -82,7 +82,7 @@ def stc_compress_array(x: torch.Tensor, keep_frac: float) -> CompressedTensor:
 def _int8(x: torch.Tensor) -> Tuple[CompressedTensor, torch.Tensor]:
     """-> (the int8 leaf, its f32 round trip ``q * scale``)."""
     row = x.reshape(1, -1).to(torch.float32).contiguous()
-    scale = quant.int8_scale(quant.rowmax(row))
+    scale = quant.rowmax_scale(row)[1]
     sent, q = quant.qdq(row, scale, with_q=True)
     return (CompressedTensor("int8", q.view(x.shape), scale=scale[0]),
             sent.view(x.shape))

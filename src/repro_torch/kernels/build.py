@@ -25,7 +25,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -41,12 +41,12 @@ _C = ctypes.c_int
 #: C entry points of each library: name -> argtypes (all return an int,
 #: the launch's ``cudaGetLastError()``)
 SIGNATURES = {
-    "fedavg_agg": {"fedavg_agg_launch": (_P, _P, _P, _I64, _I64, _P),
-                   "fedavg_agg_grouped_launch": (_P, _P, _P, _I64, _I64,
-                                                 _I64, _P)},
+    "fedavg_agg": {"fedavg_agg_segments_launch": (_P, _C, _P, _P, _I64,
+                                                  _I64, _C, _P)},
     "stc_topk": {"stc_batched_launch": (_P, _P, _P, _I64, _I64,
                                         ctypes.c_float, _P)},
-    "quant": {"int8_rowmax_launch": (_P, _P, _I64, _I64, _P),
+    "quant": {"int8_rowmax_launch": (_P, _P, _P, _P, _I64, _I64, _C, _C,
+                                     _F, _C, _P),
               "int8_qdq_launch": (_P, _P, _P, _P, _I64, _I64, _P),
               "int8_quantize_launch": (_P, _P, _P, _I64, _C, _C, _P),
               "int8_dequantize_launch": (_P, _P, _P, _I64, _C, _P),
@@ -62,6 +62,9 @@ SIGNATURES = {
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOAD_LOCK = threading.Lock()     # one build and one load a library
+#: (device index, stream) -> its slot (:func:`stream_slot`)
+_SLOTS: Dict[Tuple[int, int], int] = {}
+_SLOT_LOCK = threading.Lock()
 
 
 def build_dir() -> Path:
@@ -152,6 +155,28 @@ def stream(device: torch.device) -> int:
     builds on every call, the costliest step of a launch on the host
     (PERF.md gives both costs)."""
     return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def stream_slot(device: torch.device, slots: int) -> int:
+    """A small number for ``device``'s current stream, the same at every
+    call on that stream and distinct among the streams of one device: the
+    index of state that a kernel keeps in device memory a stream (K3a's
+    arrival counters, ``csrc/quant.cu``), so that launches that may run at
+    once, on two streams, never share it.  Raises past ``slots`` streams
+    of one device."""
+    key = (device.index, stream(device))
+    slot = _SLOTS.get(key)
+    if slot is None:
+        with _SLOT_LOCK:
+            slot = _SLOTS.get(key)
+            if slot is None:
+                slot = sum(1 for k in _SLOTS if k[0] == device.index)
+                if slot >= slots:
+                    raise RuntimeError(
+                        f"more than {slots} streams of {device} launched a "
+                        f"kernel with per-stream state")
+                _SLOTS[key] = slot
+    return slot
 
 
 def launch(device: torch.device, what: str, fn, *args) -> None:

@@ -4,10 +4,11 @@
 //
 // K3 replaces the two TPU kernels of src/repro/kernels/quant.py that
 // int8_roundtrip_batched chains (pallas_calls in _int8_roundtrip_padded):
-//   * _rowmax_kernel: per-row max |x| accumulated across D-tiles;
-//   * _qdq_kernel:    clip(round(x / s), -127, 127) * s with the per-row
-//                     scale s = max(m, 1e-12) * f32(1/127), computed between
-//                     the two launches by the caller.  On request it also
+//   * _rowmax_kernel: per-row max |x| accumulated across D-tiles; K3a also
+//                     writes the per-row scale s = max(m, 1e-12) *
+//                     f32(1/127), which the reference computes between the
+//                     two launches;
+//   * _qdq_kernel:    clip(round(x / s), -127, 127) * s.  On request it also
 //                     writes the int8 q itself (the sequential compression
 //                     stage sends q and s, core/compression.py).
 // K5 replaces _quant_kernel (pallas_call in quantize) and _dequant_kernel
@@ -23,11 +24,30 @@
 // element, dequantize the reverse.  Each is a handful of operations per
 // element, well below the card's ridge.
 //
-// Design.  Row max: a 2-D grid (column chunks x rows); each CTA reduces its
-// chunk with warp shuffles and publishes it with one atomicMax on the
-// float's bit pattern, which orders like the float because |x| >= 0 (NaN,
-// as in the reference, wins).  Max is order-free, so the result equals the
-// reference bit for bit.  Round trip: elementwise over the same grid, with
+// Design.  Row max and scale (K3a), one launch: a grid of C CTAs a row
+// (x) by rows (y), C chosen by the wrapper (kernels/quant.py::
+// rowmax_split) so that every CTA of the launch is resident at once (4 a
+// SM) and each takes whole batches of the row.  A batch is 2048 16-byte
+// vectors: each of the 256 threads issues its 8 loads before it reduces
+// any, so a CTA keeps 32 KB in flight.  A row whose start is not 16-byte
+// aligned (every other row at D % 4 == 2) follows one plan a row, the K5
+// tiles' TilePlan: vectors from the row's first 16-byte-aligned element
+// on, scalar loads for the head before it and the tail after the last
+// whole vector (at most 3 + 3, taken by the row's first CTA).  Each CTA
+// reduces its maximum with warp reductions (redux.sync) over the |x| bit
+// patterns, which order like the floats because |x| >= 0 (NaN, as in the
+// reference, wins); max is order-free, so the result equals the reference
+// bit for bit.  With C = 1 the CTA publishes the row's max and scale
+// itself.  With C > 1 each CTA writes its partial and counts itself in on
+// the row's arrival counter; the last to arrive reduces the C partials,
+// writes m and s = max(m, 1e-12) * f32(1/127) (NaN propagating, as
+// torch.clamp_min and jnp.maximum do; a separately rounded multiply by
+// the same f32 constant) and sets the counter back to 0.  The counters are
+// device memory of this library (zero when the module loads, a row's
+// counter back at 0 when each launch ends), one block of them a stream
+// (the wrapper's slot), so no launch needs a memset and a captured CUDA
+// graph replays the launch as it is.
+// Round trip: elementwise over a grid of column chunks x rows, with
 // an IEEE-rounded division (__fdiv_rn; the build never uses fast math),
 // round-half-even (rintf), a clamp that lets NaN through like the
 // reference's clip, and a separately rounded multiply, so every element
@@ -59,31 +79,99 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
 constexpr int PER_THREAD = 16;  // elements per thread per CTA
 constexpr int64_t CHUNK = (int64_t)THREADS * PER_THREAD;
 
-__global__ void __launch_bounds__(THREADS)
-rowmax_kernel(const float* __restrict__ x, float* __restrict__ m, int64_t D) {
-  __shared__ int scratch[WARPS];
-  const int64_t row = blockIdx.y;
-  const int64_t start = (int64_t)blockIdx.x * CHUNK;
-  const float* xr = x + row * D;
-  int v = 0;  // bit pattern of max |x| (non-negative floats order as ints)
-#pragma unroll 4
-  for (int k = 0; k < PER_THREAD; ++k) {
-    const int64_t d = start + (int64_t)k * THREADS + threadIdx.x;
-    if (d < D) v = max(v, __float_as_int(fabsf(__ldg(xr + d))));
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
-  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
+// K3a's launch shape (kernels/quant.py mirrors these numbers)
+constexpr int RM_THREADS = 256;
+constexpr int RM_WARPS = RM_THREADS / 32;
+constexpr int RM_CTAS_PER_SM = 4;
+constexpr int RM_UNROLL = 8;                        // 16-byte loads a batch
+constexpr int RM_BATCH = RM_THREADS * RM_UNROLL;    // vectors a batch
+constexpr int RM_SLOTS = 32;            // streams a device with counters
+constexpr int RM_SPLIT_ROWS = 1024;     // rows a launch with C > 1
+
+// arrival counters of the rows of a launch with C > 1, RM_SPLIT_ROWS a
+// stream slot; zero at module load, and every launch leaves them zero
+__device__ unsigned int rm_arrivals[RM_SLOTS * RM_SPLIT_ROWS];
+
+__device__ __forceinline__ int absbits(float v) {
+  return __float_as_int(v) & 0x7fffffff;
+}
+
+__device__ __forceinline__ int absbits4(float4 t) {
+  return max(max(absbits(t.x), absbits(t.y)), max(absbits(t.z), absbits(t.w)));
+}
+
+// a row's max |x| (as its bit pattern) and its int8 scale
+__device__ __forceinline__ void publish(int bits, float inv127, float* m,
+                                        float* scale, int64_t row) {
+  const float mf = __int_as_float(bits);
+  m[row] = mf;
+  scale[row] = __fmul_rn((mf >= 1e-12f || mf != mf) ? mf : 1e-12f, inv127);
+}
+
+// the maximum of every thread's v, in thread 0 (wmax: RM_WARPS ints)
+__device__ __forceinline__ int cta_max(int v, int* wmax) {
+  v = __reduce_max_sync(0xffffffffu, v);
+  if ((threadIdx.x & 31) == 0) wmax[threadIdx.x >> 5] = v;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    int r = scratch[0];
+  const int lane = threadIdx.x & 31;
+  return __reduce_max_sync(0xffffffffu, lane < RM_WARPS ? wmax[lane] : 0);
+}
+
+__global__ void __launch_bounds__(RM_THREADS, RM_CTAS_PER_SM)
+rowmax_kernel(const float* __restrict__ x, float* __restrict__ m,
+              float* __restrict__ scale, float* __restrict__ part, int64_t D,
+              int head0, float inv127, int slot) {
+  __shared__ int wmax[RM_WARPS];
+  __shared__ int last;
+  const int64_t row = blockIdx.y;
+  const int c = blockIdx.x;
+  const int C = gridDim.x;
+  const int tid = threadIdx.x;
+  const float* xr = x + row * D;
+  // the row's plan (quant.py::row_plan): vectors over [lead, tail)
+  const int64_t lead = min((int64_t)((head0 - (row * D) % 4 + 4) % 4), D);
+  const int64_t nvec = (D - lead) / 4;
+  const int64_t tail = lead + 4 * nvec;
+  const float4* xv = reinterpret_cast<const float4*>(xr + lead);
+  int v = 0;
+  for (int64_t b = (int64_t)c * RM_BATCH; b < nvec;
+       b += (int64_t)C * RM_BATCH) {
+    float4 t[RM_UNROLL];
 #pragma unroll
-    for (int i = 1; i < WARPS; ++i) r = max(r, scratch[i]);
-    atomicMax(reinterpret_cast<int*>(m + row), r);
+    for (int u = 0; u < RM_UNROLL; ++u) {
+      const int64_t j = b + u * RM_THREADS + tid;
+      t[u] = j < nvec ? __ldg(xv + j) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < RM_UNROLL; ++u) v = max(v, absbits4(t[u]));
+  }
+  if (c == 0 && tid < lead + (D - tail))
+    v = max(v, absbits(__ldg(xr + (tid < lead ? tid : tail + tid - lead))));
+  v = cta_max(v, wmax);
+  if (C == 1) {
+    if (tid == 0) publish(v, inv127, m, scale, row);
+    return;
+  }
+  unsigned int* arrivals = rm_arrivals + slot * RM_SPLIT_ROWS + row;
+  if (tid == 0) {
+    part[row * C + c] = __int_as_float(v);
+    __threadfence();                  // the partial before the arrival
+    last = atomicAdd(arrivals, 1u) == (unsigned int)C - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  // the row's last CTA: every partial is in memory (read past L1)
+  __threadfence();
+  v = 0;
+  for (int i = tid; i < C; i += RM_THREADS)
+    v = max(v, __float_as_int(__ldcg(part + row * C + i)));
+  v = cta_max(v, wmax);     // wmax was last read before the barrier above
+  if (tid == 0) {
+    publish(v, inv127, m, scale, row);
+    *arrivals = 0u;                   // ready for the next launch
   }
 }
 
@@ -340,13 +428,24 @@ dim3 grid_for(int64_t N, int64_t D) {
 
 }  // namespace
 
-extern "C" int int8_rowmax_launch(const float* x, float* m, int64_t N,
-                                  int64_t D, void* stream) {
-  if (N <= 0 || D <= 0 || N > 65535) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(m, 0, sizeof(float) * N, s);  // +0.0f
-  if (err != cudaSuccess) return (int)err;
-  rowmax_kernel<<<grid_for(N, D), THREADS, 0, s>>>(x, m, D);
+// K3a: m (N,) = max |x| of each row of the (N, D) f32 x and scale (N,) =
+// max(m, 1e-12) * inv127, with C CTAs a row.  part: N * C floats of
+// scratch (NULL when C = 1); head0: elements from x to its first
+// 16-byte-aligned element (kernels/quant.py::vector_head); slot: the
+// launching stream's block of arrival counters (kernels/build.py::
+// stream_slot).
+extern "C" int int8_rowmax_launch(const float* x, float* m, float* scale,
+                                  float* part, int64_t N, int64_t D, int C,
+                                  int head0, float inv127, int slot,
+                                  void* stream) {
+  if (N <= 0 || D <= 0 || N > 65535 || C <= 0 || head0 < 0 || head0 > 3 ||
+      ((uintptr_t)x + 4 * head0) % 16 != 0 ||
+      (C > 1 && (part == nullptr || N > RM_SPLIT_ROWS || slot < 0 ||
+                 slot >= RM_SLOTS)))
+    return (int)cudaErrorInvalidValue;
+  rowmax_kernel<<<dim3((unsigned)C, (unsigned)N), RM_THREADS, 0,
+                  static_cast<cudaStream_t>(stream)>>>(x, m, scale, part, D,
+                                                       head0, inv127, slot);
   return (int)cudaGetLastError();
 }
 
@@ -394,12 +493,14 @@ extern "C" int int8_dequantize_launch(const int8_t* q, const float* scale,
 
 // out[4] = registers, local (spill) bytes, static shared memory bytes and
 // resident CTAs per SM, as the runtime reads them, of kernel 0 (quantize,
-// f32) or 1 (dequantize)
+// f32), 1 (dequantize) or 2 (row max and scale)
 extern "C" int int8_kernel_info(int kernel, int* out) {
   const void* fn = kernel == 0 ? (const void*)quantize_kernel<float, Q_THREADS>
                    : kernel == 1 ? (const void*)dequantize_kernel
+                   : kernel == 2 ? (const void*)rowmax_kernel
                                  : nullptr;
-  const int threads = kernel == 0 ? Q_THREADS : DQ_THREADS;
+  const int threads = kernel == 0 ? Q_THREADS
+                      : kernel == 1 ? DQ_THREADS : RM_THREADS;
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, fn);

@@ -5,18 +5,22 @@ The stacked (N, D) f32 cohort update goes through two CUDA kernels
 (``csrc/quant.cu``), the port of the reference's ``quant._rowmax_kernel``
 and ``quant._qdq_kernel``:
 
-1. :func:`rowmax` — per-row ``max |x|``;
-2. the scale ``max(m, 1e-12) * f32(1/127)`` — a host-side PyTorch
-   expression with the reciprocal constant built exactly as the reference
-   builds it (:func:`int8_scale`);
-3. :func:`qdq` — ``clip(round(x / s), -127, 127) * s``, round-half-even
+1. :func:`rowmax_scale` — per-row ``max |x|`` and, in the same launch,
+   the scale ``max(m, 1e-12) * f32(1/127)`` with the reciprocal constant
+   built exactly as the reference builds it (its plain version:
+   :func:`rowmax_plain`, then :func:`int8_scale`); :func:`rowmax` is its
+   ``m`` alone;
+2. :func:`qdq` — ``clip(round(x / s), -127, 127) * s``, round-half-even
    with an IEEE-rounded division; with ``with_q`` the same launch also
    writes the int8 ``q`` (the sequential compression stage sends ``q`` and
    ``s``: ``repro_torch.core.compression.int8_compress_array``).
 
 Every step is order-free, so the kernels and the plain versions
-(:func:`rowmax_plain`, :func:`qdq_plain`) agree bit for bit with each
-other and with the reference.  :func:`int8_roundtrip_batched_sharded` is
+(:func:`rowmax_plain`, :func:`int8_scale`, :func:`qdq_plain`) agree bit
+for bit with each other and with the reference.  K3a splits a long row
+over C CTAs (:func:`rowmax_split`) whose last to arrive publishes the
+row's max and scale; each row's 16-byte vectors start at its first
+aligned element (:func:`row_plan`).  :func:`int8_roundtrip_batched_sharded` is
 the route over a client mesh: each shard's rows through K3a + K3b on that
 shard's device, no collective.
 
@@ -42,6 +46,7 @@ other device raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import List, Tuple, Union
 
@@ -63,6 +68,7 @@ TILE_R, TILE_C = 8, 1024
 TILE = TILE_R * TILE_C          # elements per dense quantization tile
 
 _INV127 = np.float32(1.0 / 127.0)
+_INV127_ARG = ctypes.c_float(_INV127)      # the same f32, as K3a takes it
 
 
 def rowmax_plain(x: torch.Tensor) -> torch.Tensor:
@@ -80,6 +86,40 @@ def int8_scale(m: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(m, 1e-12) * _INV127
 
 
+#: K3a's launch shape (``csrc/quant.cu``'s ``RM_*``): CTAs resident an SM,
+#: 16-byte vectors a CTA's batch (256 threads x 8 loads), the most rows a
+#: launch may split (its arrival counters a stream) and the streams a
+#: device with counters of their own
+RM_CTAS_PER_SM = 4
+RM_BATCH = 256 * 8
+RM_SPLIT_ROWS = 1024
+RM_SLOTS = 32
+
+
+def row_plan(d: int, head0: int, row: int) -> Tuple[int, int, int]:
+    """K3a's accesses in ``row`` of a contiguous (N, d) f32 matrix whose
+    first element lies ``head0`` elements before a 16-byte boundary
+    (:func:`vector_head`): :func:`tile_plan` of the row at its own
+    alignment.  -> ``(lead, number of 16-byte vectors, tail)``."""
+    return tile_plan(d, (head0 - row * d) % 4, 4)
+
+
+def rowmax_split(n: int, d: int, sms: int) -> int:
+    """CTAs a row of K3a on a card of ``sms`` SMs: as many as keep the
+    whole launch resident (``RM_CTAS_PER_SM`` a SM) and no more than the
+    row has batches, then as few as take the same most batches a CTA (so
+    no CTA idles behind a busier one for a whole batch)."""
+    batches = max(1, -(-(d // 4) // RM_BATCH))
+    cap = max(1, sms * RM_CTAS_PER_SM // n) if n <= RM_SPLIT_ROWS else 1
+    per = -(-batches // cap)
+    return -(-batches // per)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _check(name: str, x: torch.Tensor) -> None:
     if x.device.type != "cuda":
         raise RuntimeError(f"{name}: no kernel for device {x.device}")
@@ -89,19 +129,35 @@ def _check(name: str, x: torch.Tensor) -> None:
             f"{tuple(x.shape)} {x.dtype} (contiguous={x.is_contiguous()})")
 
 
-def rowmax(x: torch.Tensor) -> torch.Tensor:
-    """(N, D) -> (N,) f32 per-row max |x|."""
+def rowmax_scale(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(N, D) -> ((N,) f32 per-row max |x|, (N,) f32 scale
+    :func:`int8_scale` of it), both from one K3a launch on a card."""
     if x.device.type == "cpu":
-        return rowmax_plain(x)
+        m = rowmax_plain(x)
+        return m, int8_scale(m)
     _check("int8 rowmax", x)
     global rowmax_launches
+    dev = x.device
     n, d = x.shape
-    m = torch.empty((n,), dtype=torch.float32, device=x.device)
-    lib = build.load("quant")
-    build.launch(x.device, "int8_rowmax", lib.int8_rowmax_launch,
-                 x.data_ptr(), m.data_ptr(), n, d)
+    if n > 65535:
+        raise ValueError(f"int8 rowmax takes at most 65535 rows, got {n}")
+    c = rowmax_split(n, d, _sms(dev.index))
+    # m, scale and (for C > 1) the CTAs' partials in one allocation; the
+    # pointers by arithmetic (a view a pointer costs the host more)
+    buf = torch.empty((2 + (c if c > 1 else 0), n), dtype=torch.float32,
+                      device=dev)
+    ptr, out = x.data_ptr(), buf.data_ptr()
+    build.launch(dev, "int8_rowmax", build.load("quant").int8_rowmax_launch,
+                 ptr, out, out + 4 * n, out + 8 * n if c > 1 else None, n, d,
+                 c, vector_head(ptr, 4), _INV127_ARG,
+                 build.stream_slot(dev, RM_SLOTS))
     rowmax_launches += 1
-    return m
+    return buf[0], buf[1]
+
+
+def rowmax(x: torch.Tensor) -> torch.Tensor:
+    """(N, D) -> (N,) f32 per-row max |x| (:func:`rowmax_scale`'s m)."""
+    return rowmax_scale(x)[0]
 
 
 def qdq(x: torch.Tensor, scale: torch.Tensor, with_q: bool = False):
@@ -131,8 +187,9 @@ def qdq(x: torch.Tensor, scale: torch.Tensor, with_q: bool = False):
 
 def int8_roundtrip_batched(x: torch.Tensor
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Round-trip a stacked (N, D) update; returns ``(sent, scale)``."""
-    scale = int8_scale(rowmax(x))
+    """Round-trip a stacked (N, D) update; returns ``(sent, scale)``: two
+    launches on a card, K3a (max and scale) and K3b."""
+    scale = rowmax_scale(x)[1]
     return qdq(x, scale), scale
 
 
@@ -277,9 +334,11 @@ def dequantize(q: torch.Tensor, s: torch.Tensor, shape,
 
 def kernel_info(kernel: str) -> dict:
     """{"registers", "spill_bytes", "smem_bytes" (static), "ctas_per_sm"}
-    of ``"quantize"`` (f32) or ``"dequantize"`` (needs a card)."""
+    of ``"quantize"`` (f32), ``"dequantize"`` or ``"rowmax"`` (needs a
+    card)."""
     vals = (ctypes.c_int * 4)()
     build.check(build.load("quant").int8_kernel_info(
-        ("quantize", "dequantize").index(kernel), vals), "int8_kernel_info")
+        ("quantize", "dequantize", "rowmax").index(kernel), vals),
+        "int8_kernel_info")
     return dict(zip(("registers", "spill_bytes", "smem_bytes",
                      "ctas_per_sm"), vals))

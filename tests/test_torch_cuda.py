@@ -100,7 +100,7 @@ def test_wrappers_count_only_kernel_launches(cuda_device):
     ops.reset_launch_counts()
     ops.fedavg_aggregate(x, torch.full((4,), 0.25, device=cuda_device))
     ops.fedavg_aggregate_tree(x, torch.full((4,), 0.25, device=cuda_device),
-                              fanout=2)    # 4 rows pad to 8: one tier
+                              fanout=2)    # 4 rows, groups of 8: one tier
     ops.stc_compress_batched(x, 0.01)
     ops.int8_roundtrip_batched(x)
     ops.fedavg_aggregate(x.cpu(), torch.full((4,), 0.25))   # plain: no count
@@ -166,6 +166,64 @@ def test_grouped_fedavg_kernel_matches_plain_version(cuda_device, n, d,
         k = fedavg_agg.fedavg_aggregate_tree(x, w, fanout=0)
         p = fedavg_agg.fedavg_tree_plain(x, w, fanout=0)
     assert torch.equal(k.view(torch.int32), p.view(torch.int32))
+
+
+# K3a: the fused round's leaves (16 rows, each split over CTAs that
+# publish through the row counters), the sequential stage's (1, n) row,
+# ragged and tiny widths, and views whose rows start off a 16-byte
+# boundary; each with the edge rows (NaN, +-inf, -0.0, subnormals, below
+# 1e-12), eagerly and in three replays of a captured launch
+@pytest.mark.parametrize("n,d,offset", [
+    (16, 6422528, 0), (16, 51200, 0), (16, 800, 0), (1, 6422528, 0),
+    (7, 20001, 0), (3, 8193, 0), (1, 63, 0), (1, 2, 0), (6, 20002, 1),
+    (5, 4099, 3), (16, 126976, 2)])
+def test_k3a_max_and_scale_match_plain_eagerly_and_in_replays(
+        cuda_device, n, d, offset):
+    smoke = _chip_smoke()
+    gen = torch.Generator(device=cuda_device).manual_seed(n * d + offset)
+    x = smoke.rowmax_rows(gen, n, d + offset).reshape(-1)[
+        offset:offset + n * d].view(n, d)
+    smoke.check_rowmax(quant, x, f"({n}, {d}) at element {offset}")
+
+
+def test_int8_round_trip_is_two_device_launches(cuda_device):
+    """K3a writes the max and the scale, K3b the round trip: no memset and
+    no elementwise scale launch between them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = _updates(16, 51200, cuda_device)
+    quant.int8_roundtrip_batched(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        quant.int8_roundtrip_batched(x)
+        torch.cuda.synchronize()
+    names = sorted(e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    assert len(names) == 2, names
+    assert any("rowmax_kernel" in n for n in names), names
+    assert any("qdq_kernel" in n for n in names), names
+
+
+# K1's routes of several blocks or tiers (the tree, the sharded route on
+# 2 and 4 shards of the card) at the femnist update matrix and a ragged
+# width: bit for bit their plain versions, eagerly and in graph replays,
+# with no padded (rows, D) copy
+@pytest.mark.parametrize("n,d", [(16, 6603710), (10, 1000003)])
+def test_k1_routes_match_plain_and_pad_nothing(cuda_device, n, d):
+    x = _updates(n, d, cuda_device)
+    w = torch.rand((n,), device=cuda_device)
+    w /= w.sum()
+    _chip_smoke().check_k1_routes(fedavg_agg, x, w, f"({n}, {d})")
+    ops.reset_launch_counts()
+    from repro_torch.core.batched import build_client_mesh
+    for k in (2, 4):
+        for fanout in (0, 2):
+            fedavg_agg.fedavg_aggregate_sharded(
+                x, w, build_client_mesh([cuda_device] * k), fanout=fanout)
+    counts = ops.launch_counts()
+    # one launch a call: flat at fanout 0, the one tier of each shard's
+    # tree at fanout 2
+    assert (counts["fedavg_agg"], counts["fedavg_agg_tree"]) == (2, 2)
 
 
 @pytest.mark.parametrize("extra", [

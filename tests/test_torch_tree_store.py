@@ -87,18 +87,30 @@ def test_grouped_plain_sums_each_group_in_row_order():
 
 
 def _tier_shapes(monkeypatch):
-    """Record (groups, rows a group) of every tier the tree reduces."""
+    """Record every tier the tree reduces: (groups, rows a group) of an
+    einsum tier; (groups, rows) of a kernel tier, whose groups end at the
+    tier's last real row (the last tier is one combining launch)."""
     seen = []
-    grouped, einsum_tier = (fedavg_agg.fedavg_aggregate_grouped,
-                            fedavg_agg._einsum_tier)
+    tier, combine, einsum_tier = (fedavg_agg._tier, fedavg_agg._combine,
+                                  fedavg_agg._einsum_tier)
 
-    def rec(fn):
-        def tier(u, w, g):
-            seen.append((g, u.shape[0] // g))
-            return fn(u, w, g)
-        return tier
-    monkeypatch.setattr(fedavg_agg, "fedavg_aggregate_grouped", rec(grouped))
-    monkeypatch.setattr(fedavg_agg, "_einsum_tier", rec(einsum_tier))
+    def rec_tier(segs, group):
+        (u, _), = segs
+        seen.append((-(-u.shape[0] // group), u.shape[0]))
+        return tier(segs, group)
+
+    def rec_combine(segs, init, tree=False):
+        if tree:
+            (u, _), = segs
+            seen.append((1, u.shape[0]))
+        return combine(segs, init, tree)
+
+    def rec_einsum(u, w, g):
+        seen.append((g, u.shape[0] // g))
+        return einsum_tier(u, w, g)
+    monkeypatch.setattr(fedavg_agg, "_tier", rec_tier)
+    monkeypatch.setattr(fedavg_agg, "_combine", rec_combine)
+    monkeypatch.setattr(fedavg_agg, "_einsum_tier", rec_einsum)
     return seen
 
 
@@ -107,10 +119,12 @@ def _tier_shapes(monkeypatch):
 def test_two_tier_tree_through_both_engines_matches_reference(
         execution, kernel, monkeypatch):
     """10 clients a round: the batched engine's 16 bucketed rows with
-    fanout 0 (4) make 4 groups of 4 with einsum tiers and 2 groups of 8
-    with the kernel's, then one group of the partials; the sequential
-    engine's 10 rows (fanout ceil(sqrt(10)) = 4) pad to 16 and group the
-    same way."""
+    fanout 0 (4) make 4 groups of 4 with einsum tiers, then one group of
+    the partials; the kernel's groups are 8 rows (2 groups), then one of
+    the 2 partials.  The sequential engine's 10 rows (fanout ceil(sqrt(10))
+    = 4) pad to 16 for the einsum tiers and group the same way; the
+    kernel's tiers pad nothing: 2 groups of its 10 rows (8 and 2), then
+    the 2 partials."""
     seen = _tier_shapes(monkeypatch)
     cfg = _merge(LINEAR, {
         "server": {"clients_per_round": 10, "rounds": 2},
@@ -118,7 +132,9 @@ def test_two_tier_tree_through_both_engines_matches_reference(
         "resources": {"execution": execution, "aggregation_kernel": kernel,
                       "aggregation_topology": "hierarchical"}})
     _both(cfg, rounds=2)
-    assert seen == ([(2, 8), (1, 8)] if kernel else [(4, 4), (1, 4)]) * 2
+    rows = 16 if execution == "batched" else 10
+    assert seen == ([(2, rows), (1, 2)] if kernel
+                    else [(4, 4), (1, 4)]) * 2
 
 
 # ---------------------------------------------------------------------------
