@@ -101,7 +101,12 @@ Phases, in order; any failed check raises, so the script exits non-zero:
    recaptures, counts printed) and the async engine (2 aggregations of
    4, uniform speeds: the degenerate case) held against the batched
    flash-on run within max(1e-4, 2 x how far that run moves from a
-   1e-7-perturbed start), and batched LoRA with STC and with int8; round
+   1e-7-perturbed start; the async run's waves train through the
+   cohort program captured (one CUDA graph a bucket, K6/K7 inside), and
+   3 aggregations of it beside an eager twin (``eager_rounds``): wall per
+   aggregation, peak
+   GiB allocated and reserved, cohort captures and replays, adapters
+   within the same bar), and batched LoRA with STC and with int8; round
    walls and peak memory (under 70 GB) of each;
 4c. drive the RWKV6 serving path at full width and depth:
    ``rwkv6-1.6b`` (24 layers, bf16 activations, f32 parameters, 1.6 B
@@ -136,15 +141,22 @@ Phases, in order; any failed check raises, so the script exits non-zero:
    round-0 update
    on the card against the same stage on the CPU, bit for bit
    (``check_sequential_stage``);
-4f. drive the rest of the batched engine on phase 4's configuration: (a)
-   the staged path (``round_fusion="off"``) for none / stc / int8, (b)
+4f. drive the rest of the batched engine on phase 4's configuration,
+   every run under ``deterministic_cudnn``: (a) the staged path
+   (``round_fusion="off"``) for none / stc / int8, its cohort program one
+   CUDA graph a bucket (1 capture, 2 replays in 3 rounds), each beside its
+   eager twin (``eager_rounds``; :func:`staged_ab`: final params and
+   launches bit for bit, round walls, CPU of rounds 1-2, peak), (b)
    hierarchical FedAvg, fused, fanout 0, under stc, (c) the deferred round
    sync (``tracking.round_sync=False``) under int8; launch counts K1 3 a
    run flat and 6 under the tree (one grouped launch a tier, 2 tiers), K2
    or K3 18; dispatches and host syncs a round as the reference counts
    them (staged: 2 / 1 none, 3 / 2 stc, 3 / 1 int8; fused 1 / 1); final
    params against phase 4's run of the same mode, printed against 1e-4
-   and held within max(1e-4, 2 x ``conditioning_gap`` of that mode); then
+   and held within max(1e-4, 2 x ``conditioning_gap`` of that mode), and
+   each path's distance from the fused run of its mode under the same
+   deterministic cuDNN (``SPREAD``: staged and deferred bit for bit, the
+   tree printed); then
    ``compress_stacked`` (two rounds) and ``aggregate_stacked`` (flat and
    tree) on one stacked cohort update on the card against the CPU, bit
    for bit (``check_staged_stages``);
@@ -203,8 +215,12 @@ Phases, in order; any failed check raises, so the script exits non-zero:
    verbatim), ``FedBuffServer`` under int8, stc under ``FAULTS_4G`` with
    retries, and the degenerate case (K = 10 in flight, uniform speeds, 3
    aggregations) against phase 4's fused stc run at phase 5's bar; K1 one
-   launch an aggregation, no fused round program; waves, buckets,
-   staleness and the wall per aggregation printed;
+   launch an aggregation, no fused round program; waves, buckets, the
+   cohort program's captures and replays, staleness and the wall per
+   aggregation printed; the stc run again with the measured wall pinned
+   (``pinned_wall``) under ``deterministic_cudnn``, captured and eager
+   (:func:`async_ab`): params, virtual clocks and staleness bit for bit,
+   1 capture a bucket, walls a wave and CPU of both;
 4j. drive the sharded cohort (``resources.distributed="data"``) on phase
    4's configuration: (a) on the default devices (the one card, 1 shard)
    fused none / stc / int8 (and, in phase 4g's deterministic child, fused
@@ -243,14 +259,19 @@ Phases, in order; any failed check raises, so the script exits non-zero:
    repro_torch.launch.train``'s ``main`` on ``glm4-9b`` at its published
    width (d 4096, 32 q over 2 KV heads, FFN 13696, vocab 151552; bf16
    activations over f32 parameters) cut to 2 layers, 6 steps of 2 x 512
-   tokens, flash on, then off: finite losses, moved params, step walls,
-   tokens/s, peak memory, K6 twice a layer a step (remat recomputes the
-   forward) and K7a / K7b once; the step-1 loss flash on vs off within
+   tokens, flash on, then off, its ``TrainStep`` one CUDA graph (step 1
+   eager, step 2 captured, later steps replayed; the state updated in
+   place): finite losses, moved params, step walls, tokens/s, peak
+   memory, K6 twice a layer a step (remat recomputes the forward) and K7a
+   / K7b once, counted through the replays; the flash-on run beside its
+   eager twin under ``deterministic_cudnn`` (:func:`train_ab`: losses and
+   final params bit for bit, steady s a step, peak GiB allocated and
+   reserved); the step-1 loss flash on vs off within
    max(1e-4, 2 x the flash-on run's reach from a 1e-7-perturbed init);
    (b) ``qwen3-moe-30b-a3b`` (128 experts, top 8, FFN 768 an expert, 2
    layers) 4 steps, with the aux a step and the share of assignments each
-   layer drops at capacity; (c) one step each of ``internlm2-20b`` (G 6)
-   and ``phi3-medium-14b`` (G 4); (d) the cross-pod federated round on
+   layer drops at capacity; (c) three steps each of ``internlm2-20b`` (G
+   6) and ``phi3-medium-14b`` (G 4); (d) the cross-pod federated round on
    (a)'s model, 2 pods x 2 local steps of 2 x 512 tokens, SGD lr 0.05 /
    momentum 0.9 (0 under int8_sync: its per-pod residual), flash on, 2
    rounds each of none / stc (0.01) / int8 / int8_sync: pods bit for bit
@@ -268,7 +289,8 @@ Phases, in order; any failed check raises, so the script exits non-zero:
    ``make_serve_step`` from position S against a zero cache (a ring of
    2048 slots for local attention), the captured step beside its eager
    twin as in phase 4c (:func:`serve_ab`), then 4 train steps of
-   ``launch.train.main`` (its SGD, momentum 0.9; not nemotron) from a
+   ``launch.train.main`` (its SGD, momentum 0.9; its ``TrainStep``
+   captured at step 2; not nemotron) from a
    well-conditioned redraw of the init (``well_conditioned_``: at the
    default init these archs' gradients explode with depth, in the
    reference too: ``tests/test_torch_zoo_init.py``), flash on;
@@ -292,9 +314,10 @@ Phases, in order; any failed check raises, so the script exits non-zero:
 4o. run ``repro_torch.launch.dryrun`` for every arch id at ``train_4k``
    on the (16, 16) mesh (fake tensors: the card's allocated and peak
    memory must not move), print each record's roofline on H100 constants;
-   then time one reduced ``glm4-9b`` train step (bf16 activations, B 8 x
-   1024) on the card beside its counted FLOPs, ``model_flops`` and its
-   one-card roofline;
+   then time a reduced ``glm4-9b`` train step (bf16 activations, B 8 x
+   1024), its ``TrainStep`` captured and an eager twin (6 steps each),
+   on the card beside its counted FLOPs, ``model_flops`` and its one-card
+   roofline;
 5. run the same port for 2 rounds of 4 clients from one set of injected
    parameters on the card and on the CPU and compare them, once per
    engine: train losses within 1e-4; parameters printed against 1e-4 and
@@ -628,7 +651,8 @@ def main():
 
     phase("4f. the rest of the batched engine: femnist_cnn staged "
           "(round_fusion off), hierarchical and deferred (round_sync off)")
-    tree_launches = run_batched_paths(repro_torch, ops, fused, gaps, init)
+    tree_launches = run_batched_paths(repro_torch, ops, fused, gaps, init,
+                                      smi)
     for row in kernels:
         if row.get("counter") == "fedavg_agg_tree":
             row["launches"] = tree_launches
@@ -2245,6 +2269,7 @@ def run_slice(repro_torch, ops, mode, execution="batched", resources=None,
     repro_torch.init(cfg)
     d0, h0 = batched.dispatch_count(), batched.host_sync_count()
     c0, r0 = batched.round_capture_count(), batched.round_replay_count()
+    cc0, cr0 = batched.cohort_capture_count(), batched.cohort_replay_count()
     gc.collect()                                     # earlier runs' cycles
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated() / 2**30    # earlier phases' tensors
@@ -2262,8 +2287,11 @@ def run_slice(repro_torch, ops, mode, execution="batched", resources=None,
     hist = res["history"]
     captures = batched.round_capture_count() - c0
     replays = batched.round_replay_count() - r0
+    cohort = (batched.cohort_capture_count() - cc0,
+              batched.cohort_replay_count() - cr0)
     print(f"[{tag}] launches {used} (counted through {replays} CUDA-graph "
-          f"replays; {captures} capture(s))")
+          f"replays of the round and {cohort[1]} of the cohort program; "
+          f"{captures} and {cohort[0]} capture(s))")
     engine = repro_torch.core.api._ctx.trainer.engine
     mesh = None if engine is None else engine.mesh
     require((None if mesh is None else mesh.size) == shards,
@@ -2310,7 +2338,7 @@ def run_slice(repro_torch, ops, mode, execution="batched", resources=None,
     walls = [h["wall_time"] for h in hist]
     WALLS[tag] = walls[1:]
     RUNS[tag] = {"captures": captures, "replays": replays, "cpu": cpu,
-                 "peak": peak, "launches": used,
+                 "cohort": cohort, "peak": peak, "launches": used,
                  "params": [t.cpu() for t in out]}
     if execution == "sequential":
         trainer = repro_torch.core.api._ctx.trainer
@@ -2422,16 +2450,31 @@ def sequential_ab(repro_torch, ops, smi, model="femnist_cnn"):
     return used, params
 
 
-def run_batched_paths(repro_torch, ops, fused, gaps, init):
-    """Phase 4f: phase 4's configuration (a) on the staged path
-    (``round_fusion="off"``) for none / stc / int8, (b) hierarchical,
-    fused, fanout 0 (stc) and (c) with ``tracking.round_sync=False``
-    (int8).  Launch counts: K1 3 a run flat, 6 under the tree (two tiers,
-    one grouped launch each), K2 or K3 18 (6 leaves x 3 rounds).  Final
-    params against phase 4's run of the same mode (``fused``), printed
-    against 1e-4 and held within max(1e-4, 2 x how far phase 4's run of
-    that mode moves from 1e-7-perturbed inits; ``gaps`` caches it).
-    -> the tree run's grouped K1 launches."""
+#: phase 4f's paths against the fused round of their mode, both under
+#: deterministic cuDNN: tag -> max |param diff| (ROADMAP queue 3's
+#: femnist spread item)
+SPREAD = {}
+
+
+def run_batched_paths(repro_torch, ops, fused, gaps, init, smi):
+    """Phase 4f, every run under :func:`deterministic_cudnn`: phase 4's
+    configuration (a) on the staged path (``round_fusion="off"``) for none
+    / stc / int8, its cohort program captured (one CUDA graph a bucket),
+    each beside its eager twin (``eager_rounds``): final params and
+    launches equal bit for bit, 1 capture and 2 replays of the cohort in 3
+    rounds, none in the twin, round walls and main-thread CPU s of rounds
+    1-2 and peak of both; (b) hierarchical, fused, fanout 0 (stc) and (c)
+    with ``tracking.round_sync=False`` (int8).  Launch counts: K1 3 a run
+    flat, 6 under the tree (two tiers, one grouped launch each), K2 or K3
+    18 (6 leaves x 3 rounds).  Final params against phase 4's run of the
+    same mode (``fused``), printed against 1e-4 and held within max(1e-4,
+    2 x how far phase 4's run of that mode moves from 1e-7-perturbed
+    inits; ``gaps`` caches it); and each path's distance from the fused
+    run of its mode under the same deterministic cuDNN (``SPREAD``): the
+    staged and the deferred runs bit for bit (they run the fused round's
+    arithmetic), the tree printed (its sums run in another order; 2.39e-3
+    after 3 stc rounds, PERF.md).  -> the tree run's grouped K1
+    launches."""
     runs = [("staged none", "none", {"round_fusion": "off"}, "fedavg_agg",
              (2, 1)),
             ("staged stc", "stc", {"round_fusion": "off"}, "fedavg_agg",
@@ -2443,28 +2486,73 @@ def run_batched_paths(repro_torch, ops, fused, gaps, init):
              (1, 1)),
             ("deferred int8", "int8", {}, "fedavg_agg", (1, 1))]
     tree_launches = None
-    for tag, mode, res, k1, per_round in runs:
-        used, params = run_slice(
-            repro_torch, ops, mode, resources=res, tag=tag, k1=k1,
-            per_round=per_round, tracking={"round_sync": False}
-            if tag.startswith("deferred") else None)
-        for k in ("stc_batched", "int8_rowmax", "int8_qdq"):
-            require(used[k] in (0, 18), f"[{tag}] {k} launched {used[k]} "
-                    f"times, expected 18 (6 leaves x 3 rounds) or 0")
-        if k1 == "fedavg_agg_tree":
-            tree_launches = used[k1]
-        if mode not in gaps:
-            gaps[mode] = conditioning_gap(
-                repro_torch, femnist_config(mode, "batched"), init,
-                fused[mode])
-        diff = max_diff(params, fused[mode])
-        bar = max(1e-4, 2 * gaps[mode])
-        print(f"[{tag}] final params vs phase 4's fused {mode}: max |diff| "
-              f"{diff:.4g} ({'within' if diff <= 1e-4 else 'above'} 1e-4); "
-              f"phase 4's {mode} run from 1e-7-perturbed inits moves up to "
-              f"{gaps[mode]:.4g}; bar max(1e-4, 2 x that) = {bar:.4g}")
-        require(diff <= bar, f"[{tag}] vs fused {mode}: {diff} > {bar}")
+    with deterministic_cudnn():
+        for mode in ("none", "stc", "int8"):
+            run_slice(repro_torch, ops, mode,
+                      tag=f"fused {mode} deterministic")
+        for tag, mode, res, k1, per_round in runs:
+            kw = dict(resources=res, k1=k1, per_round=per_round,
+                      tracking={"round_sync": False}
+                      if tag.startswith("deferred") else None)
+            used, params = run_slice(repro_torch, ops, mode, tag=tag, **kw)
+            for k in ("stc_batched", "int8_rowmax", "int8_qdq"):
+                require(used[k] in (0, 18), f"[{tag}] {k} launched "
+                        f"{used[k]} times, expected 18 (6 leaves x 3 "
+                        f"rounds) or 0")
+            if k1 == "fedavg_agg_tree":
+                tree_launches = used[k1]
+            if mode not in gaps:
+                gaps[mode] = conditioning_gap(
+                    repro_torch, femnist_config(mode, "batched"), init,
+                    fused[mode])
+            diff = max_diff(params, fused[mode])
+            bar = max(1e-4, 2 * gaps[mode])
+            print(f"[{tag}] final params vs phase 4's fused {mode}: max "
+                  f"|diff| {diff:.4g} ({'within' if diff <= 1e-4 else 'above'}"
+                  f" 1e-4); phase 4's {mode} run from 1e-7-perturbed inits "
+                  f"moves up to {gaps[mode]:.4g}; bar max(1e-4, 2 x that) = "
+                  f"{bar:.4g}")
+            require(diff <= bar, f"[{tag}] vs fused {mode}: {diff} > {bar}")
+            det = RUNS[f"fused {mode} deterministic"]["params"]
+            SPREAD[tag] = max_diff(params, det)
+            same = same_bits_tree(params, det)
+            print(f"[{tag}] vs the fused {mode} run, both under "
+                  f"deterministic cuDNN: max |diff| {SPREAD[tag]:.4g}, bit "
+                  f"for bit {same} ({smi})")
+            # the staged stages and the deferred sync run the fused
+            # round's arithmetic; the tree sums in another order
+            require(same or tag.startswith("hierarchical"),
+                    f"[{tag}] differs from the fused {mode} run under "
+                    f"deterministic cuDNN by {SPREAD[tag]}")
+            if tag.startswith("staged"):
+                staged_ab(repro_torch, ops, tag, mode, kw, smi)
     return tree_launches
+
+
+def staged_ab(repro_torch, ops, tag, mode, kw, smi):
+    """Phase 4f: the staged run ``tag`` (its cohort program captured)
+    against its eager twin (``eager_rounds``), under the caller's
+    deterministic cuDNN."""
+    eager = f"eager {tag}"
+    with eager_rounds():
+        run_slice(repro_torch, ops, mode, tag=eager, **kw)
+    cap, eag = RUNS[tag], RUNS[eager]
+    same = same_bits_tree(cap["params"], eag["params"])
+    print(f"[captured {tag}] cohort program {cap['cohort'][0]} capture(s), "
+          f"{cap['cohort'][1]} replays in 3 rounds (eager twin "
+          f"{eag['cohort']}); round walls 1-2 "
+          f"{[round(x, 4) for x in WALLS[tag]]} s captured, "
+          f"{[round(x, 4) for x in WALLS[eager]]} s eager; main-thread CPU "
+          f"s of rounds 1-2 {cap['cpu']} / {eag['cpu']}; peak "
+          f"{cap['peak']:.2f} / {eag['peak']:.2f} GiB; final params bit for "
+          f"bit the eager twin's: {same} ({smi})")
+    require(cap["cohort"] == (1, 2) and eag["cohort"] == (0, 0),
+            f"[{tag}] cohort captures, replays {cap['cohort']} (eager "
+            f"{eag['cohort']}), expected (1, 2) and (0, 0)")
+    require(cap["launches"] == eag["launches"],
+            f"[{tag}] launches {cap['launches']} != the eager run's "
+            f"{eag['launches']}")
+    require(same, f"[{tag}] captured and eager final params differ")
 
 
 def check_staged_stages(repro_torch, dev):
@@ -2937,6 +3025,7 @@ def run_async_case(ops, trainer, tag, mode, smi, resume_step=None):
 
     trainer._run_batched = spy
     b0 = batched.round_trace_count()
+    n0 = batched.cohort_capture_count(), batched.cohort_replay_count()
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated() / 2**30
@@ -2968,7 +3057,9 @@ def run_async_case(ops, trainer, tag, mode, smi, resume_step=None):
     buckets = sorted({batched.bucket_pow2(n) for n in waves})
     print(f"[{tag}] {len(hist)} aggregations ({new} in this call); "
           f"{len(waves)} waves of {waves} clients, buckets {buckets}; 0 "
-          f"round programs built (waves train on the staged path); "
+          f"round programs built (waves train on the staged path); cohort "
+          f"program {batched.cohort_capture_count() - n0[0]} capture(s), "
+          f"{batched.cohort_replay_count() - n0[1]} replays; "
           f"staleness mean {[h['staleness_mean'] for h in hist[-new:]]} "
           f"max {[h['staleness_max'] for h in hist[-new:]]}; virtual time "
           f"{hist[-1]['virtual_time']:.4g} s")
@@ -2978,6 +3069,78 @@ def run_async_case(ops, trainer, tag, mode, smi, resume_step=None):
           f"device memory {peak:.2f} GiB above the {held:.2f} GiB held "
           f"before the run ({smi})")
     return used, hist, out
+
+
+@contextlib.contextmanager
+def pinned_wall():
+    """Every cohort's measured training time (``run_cohort_stacked``'s
+    ``st["wall"]``) pinned to 1e-4 s a local step inside, as
+    ``tests/test_torch_async.py::_pin_wall`` pins it: the async engine's
+    virtual clock no longer reads the host's clock, so two runs see the
+    same waves."""
+    from repro_torch.core import batched
+
+    orig = batched.BatchedExecutor.run_cohort_stacked
+
+    def fixed_wall(self, clients, params, round_id):
+        st = orig(self, clients, params, round_id)
+        st["wall"] = float(st["n_steps"].sum()) * 1e-4
+        return st
+
+    batched.BatchedExecutor.run_cohort_stacked = fixed_wall
+    try:
+        yield
+    finally:
+        batched.BatchedExecutor.run_cohort_stacked = orig
+
+
+def async_ab(repro_torch, ops, smi):
+    """Phase 4i: run (a)'s configuration (stc, 1x / 4x speeds) with the
+    wall pinned (:func:`pinned_wall`) and cuDNN deterministic, its waves'
+    cohort programs captured (one CUDA graph a bucket, one pool) and in
+    an eager twin (``eager_rounds``): final params, virtual clocks and
+    staleness bit for bit, 1 capture a bucket and 0 recaptures; wall per
+    aggregation and main-thread CPU s a wave of both."""
+    from repro_torch.core import batched
+
+    out = {}
+    with deterministic_cudnn(), pinned_wall():
+        for captured in (True, False):
+            tag = f"async stc pinned {'captured' if captured else 'eager'}"
+            with (contextlib.nullcontext() if captured else eager_rounds()):
+                trainer = async_trainer(repro_torch, "stc")
+            n0 = (batched.cohort_capture_count(),
+                  batched.cohort_replay_count())
+            cpu0 = time.thread_time()
+            used, hist, params = run_async_case(ops, trainer, tag, "stc",
+                                                smi)
+            cpu = time.thread_time() - cpu0
+            counts = (batched.cohort_capture_count() - n0[0],
+                      batched.cohort_replay_count() - n0[1])
+            out[captured] = (hist, params, counts, cpu, len(
+                trainer.engine._cohorts), len(trainer.engine._warm), used)
+            del trainer
+    (hist, params, counts, cpu, keys, warm, used), \
+        (ehist, eparams, ecounts, ecpu, _, _, eused) = out[True], out[False]
+    same = same_bits_tree(params, eparams)
+    clocks = [h["virtual_time"] for h in hist] == \
+        [h["virtual_time"] for h in ehist]
+    print(f"[async stc pinned] cohort program: {counts[0]} capture(s) over "
+          f"{keys} buckets ({warm} warmed up), {counts[1]} replays (eager "
+          f"twin {ecounts}); wall per aggregation s "
+          f"{[round(h['wall_time'], 4) for h in hist]} captured, "
+          f"{[round(h['wall_time'], 4) for h in ehist]} eager; main-thread "
+          f"CPU s of the run {cpu:.3f} / {ecpu:.3f}; final params bit for "
+          f"bit the eager twin's: {same}; virtual clocks equal: {clocks} "
+          f"({smi})")
+    require(counts[0] == keys and keys >= 1 and ecounts == (0, 0)
+            and counts[1] > 0, f"[async stc pinned] captures, replays "
+                               f"{counts} over {keys} buckets, eager "
+                               f"{ecounts}")
+    require(used == eused, f"[async stc pinned] launches {used} != the "
+            f"eager twin's {eused}")
+    require(same and clocks, "[async stc pinned] captured and eager runs "
+            "differ")
 
 
 def run_async(repro_torch, ops, smi, fused, gaps, init):
@@ -3034,6 +3197,8 @@ def run_async(repro_torch, ops, smi, fused, gaps, init):
     print(f"[async faults stc] over 6 aggregations: {counts}")
     require(counts["retried"] > 0 and counts["dropped"] + counts["crashed"]
             + counts["rejected"] > 0, "[async faults stc] no failure retried")
+
+    async_ab(repro_torch, ops, smi)
 
     used, _, params = run_async_case(
         ops, async_trainer(repro_torch, "stc", rounds=3, speeds=None,
@@ -3992,12 +4157,16 @@ def lora_config(model, rounds=2, execution="batched", compression="none"):
 
 
 def run_lora(repro_torch, ops, flash_on, execution="batched",
-             compression="none", perturb=None):
+             compression="none", perturb=None, eager=False, rounds=2):
     """Phase 4b's configuration through ``init``/``run`` (``perturb``: a
     relative 1e-7-sized perturbation of the adapters' start, from that
-    seed, and ``Trainer.run`` instead of ``run``) -> the final adapters and
-    the launch counts."""
-    from repro_torch.core import api
+    seed, and ``Trainer.run`` instead of ``run``; ``eager``: the batched
+    executor's round and cohort programs eager, ``eager_rounds``;
+    ``rounds``: rounds, or aggregations under async) -> the
+    final adapters, the launch counts, the round walls, the peak GiB
+    allocated and reserved and the cohort program's captures and
+    replays."""
+    from repro_torch.core import api, batched
     from repro_torch.core.rounds import Trainer
     from repro_torch.models import attention as mattn
     from repro_torch.models.lora import adapter_param_count
@@ -4005,10 +4174,11 @@ def run_lora(repro_torch, ops, flash_on, execution="batched",
 
     tag = (f"[lora flash {'on' if flash_on else 'off'}"
            + ("" if execution == "batched" else f" {execution}")
+           + (" eager" if eager else "")
            + ("" if compression == "none" else f" {compression}")
            + ("" if perturb is None else f" perturbed {perturb}") + "]")
     release(repro_torch)
-    cfg = lora_config(glm4_2layer(), execution=execution,
+    cfg = lora_config(glm4_2layer(), rounds, execution=execution,
                       compression=compression)
     repro_torch.init(cfg)
     run = repro_torch.run
@@ -4027,15 +4197,20 @@ def run_lora(repro_torch, ops, flash_on, execution="batched",
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
+    n0 = batched.cohort_capture_count(), batched.cohort_replay_count()
     t0 = time.perf_counter()
     try:
-        res = run()
+        with eager_rounds() if eager else contextlib.nullcontext():
+            res = run()
         torch.cuda.synchronize()
     finally:
         mattn.set_flash_attention(None)
     total = time.perf_counter() - t0
     used = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
+    reserved = torch.cuda.max_memory_reserved() / 2**30
+    cohort = (batched.cohort_capture_count() - n0[0],
+              batched.cohort_replay_count() - n0[1])
     hist = res["history"]
     print(f"{tag} launches {used}")
     if execution == "sequential":
@@ -4075,12 +4250,15 @@ def run_lora(repro_torch, ops, flash_on, execution="batched",
     walls = [h["wall_time"] for h in hist]
     print(f"{tag} round wall s {[round(w, 4) for w in walls]} (round 0 "
           f"includes first use); run total {total:.3f} s (base init "
-          f"included); peak device memory {peak:.2f} GiB")
+          f"included); peak device memory {peak:.2f} GiB allocated, "
+          f"{reserved:.2f} reserved; cohort program {cohort[0]} "
+          f"capture(s), {cohort[1]} replays")
     require(peak < 70, f"{tag} peak device memory {peak:.2f} GiB >= 70")
     print(f"{tag} train_loss {[round(h['train_loss'], 6) for h in hist]} "
           f"comm_up {[h['comm_up_bytes'] for h in hist]}")
     release(repro_torch)
-    return {"params": res["params"], "launches": used}
+    return {"params": res["params"], "launches": used, "walls": walls,
+            "peak": peak, "reserved": reserved, "cohort": cohort}
 
 
 def lora_engines(repro_torch, ops, batched_on, smi):
@@ -4104,6 +4282,24 @@ def lora_engines(repro_torch, ops, batched_on, smi):
               f"{reach:.4g}; bar {bar:.4g} ({smi})")
         require(diff <= bar, f"[lora {execution}] vs batched: {diff} > "
                 f"{bar}")
+    # the async waves' cohort program (K6 / K7 inside) captured against
+    # eager over 3 aggregations (wave 1 the warm-up, wave 2 the capture,
+    # wave 3 a replay): wall per aggregation, peak allocated and reserved
+    out, eager = (run_lora(repro_torch, ops, True, execution="async",
+                           eager=e, rounds=3) for e in (False, True))
+    diff = max_param_diff(out["params"], eager["params"])
+    print(f"[lora flash on async] captured / eager: wall per aggregation s "
+          f"{[round(w, 4) for w in out['walls']]} / "
+          f"{[round(w, 4) for w in eager['walls']]} (the first carries "
+          f"first use); peak GiB allocated {out['peak']:.2f} / "
+          f"{eager['peak']:.2f}, reserved {out['reserved']:.2f} / "
+          f"{eager['reserved']:.2f}; cohort program captures, replays "
+          f"{out['cohort']} / {eager['cohort']}; adapters max |diff| "
+          f"{diff:.4g} (bar {bar:.4g}) ({smi})")
+    require(out["cohort"] == (1, 2) and eager["cohort"] == (0, 0),
+            f"[lora async] cohort captures, replays {out['cohort']}, eager "
+            f"{eager['cohort']}, expected (1, 2) and (0, 0)")
+    require(diff <= bar, f"[lora async] captured vs eager: {diff} > {bar}")
     for compression in ("stc", "int8"):
         run_lora(repro_torch, ops, True, compression=compression)
     lora_step_memory(repro_torch, smi)
@@ -4246,60 +4442,102 @@ def perturbed(params, seed):
 
 
 def run_train(ops, arch, steps, flash_on, perturb=None, keep=False,
-              cut=None, redraw=None):
+              cut=None, redraw=None, capture=True):
     """``repro_torch.launch.train.main`` at ``arch``'s published width cut
-    to 2 layers (``LLM_CUT``, or ``cut``), ``steps`` steps, flash on or off, on the
-    card.  Its train step is wrapped to synchronize and time each step and
-    to read its metrics; ``perturb``: the init times 1 + 1e-7 N(0, 1) from
-    that seed; ``redraw``: ``redraw(model, params)`` redraws the init in
-    place before the first step; ``keep``: keep the final params ->
-    dict(losses, walls, metrics, launches, peak GiB, first / last param
-    samples[, params])."""
+    to 2 layers (``LLM_CUT``, or ``cut``), ``steps`` steps, flash on or
+    off, on the card, its ``TrainStep`` captured (step 1 eager, step 2
+    captured, later steps replayed; ``capture=False``: every step eager).
+    Each step is timed between two ``synchronize()`` and its metrics read;
+    ``perturb``: the init times 1 + 1e-7 N(0, 1) from that seed;
+    ``redraw``: ``redraw(model, params)`` redraws the init in place before
+    the first step; ``keep``: keep the final params -> dict(losses, walls,
+    metrics, launches, peak and reserved GiB, the step's counts, first /
+    last param samples[, params])."""
     from repro_torch.launch import train
     from repro_torch.models import attention as mattn
 
     rec = {"walls": [], "metrics": []}
-    real = train.make_train_step
+    real = train.TrainStep
 
-    def make(model, opt, remat=True):
-        step = real(model, opt, remat)
+    class Timed(real):
+        def __init__(self, model, opt, remat=True):
+            super().__init__(model, opt, remat, capture=capture)
 
-        def timed(state, batch):
+        def __call__(self, state, batch):
             if "first" not in rec:
                 if redraw is not None:
-                    redraw(model, state.params)
+                    redraw(self.model, state.params)
                 if perturb is not None:
                     state = dataclasses.replace(
                         state, params=perturbed(state.params, perturb))
                 rec["first"] = sample(state.params)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            state, metrics = step(state, batch)
+            state, metrics = super().__call__(state, batch)
             torch.cuda.synchronize()
             rec["walls"].append(time.perf_counter() - t0)
             rec["metrics"].append({k: float(v) for k, v in metrics.items()})
             rec["last"] = sample(state.params)
+            rec["counts"] = {k: getattr(self, k) for k in (
+                "eager_steps", "captures", "recaptures", "replays")}
             if keep:
                 rec["params"] = state.params
             return state, metrics
-        return timed
 
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    rec["held"] = torch.cuda.memory_allocated() / 2**30
     ops.reset_launch_counts()
-    train.make_train_step = make
+    train.TrainStep = Timed
     mattn.set_flash_attention(flash_on)
     try:
         rec["losses"] = train.main(["--arch", arch, *(cut or LLM_CUT),
                                     "--steps", str(steps), "--log-every",
                                     "1"])
     finally:
-        train.make_train_step = real
+        train.TrainStep = real
         mattn.set_flash_attention(None)
     rec["launches"] = ops.launch_counts()
     rec["peak"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["reserved"] = torch.cuda.max_memory_reserved() / 2**30
+    want = ({"eager_steps": 1, "captures": 1, "recaptures": 0,
+             "replays": steps - 1} if capture and steps > 1 else
+            {"eager_steps": steps, "captures": 0, "recaptures": 0,
+             "replays": 0})
+    require(rec["counts"] == want, f"[train {arch}] step counts "
+            f"{rec['counts']}, expected {want}")
     return rec
+
+
+def train_ab(cap, eager, smi):
+    """Phase 4l (a): the captured glm4-9b flash-on run against its eager
+    twin (both under deterministic cuDNN): losses and final params bit for
+    bit; steady s a step and peak GiB above what the run found held."""
+    from repro_torch.utils.tree import tree_leaves
+
+    same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(tree_leaves(cap.pop("params")),
+                               tree_leaves(eager.pop("params"))))
+    walls = [float(np.mean(steady_walls(r))) for r in (cap, eager)]
+    print(f"[train glm4-9b flash on] captured / eager: steady "
+          f"{walls[0]:.5f} / {walls[1]:.5f} s a step (x{walls[0] / walls[1]:.3f}"
+          f"); peak GiB allocated above the held "
+          f"{cap['peak'] - cap['held']:.2f} / "
+          f"{eager['peak'] - eager['held']:.2f}, reserved "
+          f"{cap['reserved']:.2f} / {eager['reserved']:.2f}; losses equal "
+          f"{cap['losses'] == eager['losses']}; final params bit for bit "
+          f"{same}; step counts {cap['counts']} / {eager['counts']} ({smi})")
+    require(same and cap["losses"] == eager["losses"],
+            "[train glm4-9b] the captured run differs from its eager twin")
+
+
+def steady_walls(rec):
+    """A train run's steady step walls: after the warm-up and, where the
+    step was captured, after the capturing step."""
+    walls = rec["walls"]
+    skip = 2 if rec["counts"]["captures"] else 1
+    return walls[skip:] or walls[-1:]
 
 
 def report_train(rec, arch, flash_on, smi):
@@ -4310,15 +4548,17 @@ def report_train(rec, arch, flash_on, smi):
     tag = f"[train {arch} flash {'on' if flash_on else 'off'}]"
     steps = len(rec["losses"])
     walls = rec["walls"]
-    steady = walls[1:] or walls
+    steady = steady_walls(rec)
     wall = float(np.mean(steady))
     used = {k: rec["launches"][k] for k in ("flash_fwd", "flash_dq",
                                             "flash_dkv")}
     print(f"{tag} losses {[round(x, 6) for x in rec['losses']]}; step wall "
           f"s {[round(w, 4) for w in walls]} (step 1 includes first use"
-          f"{'' if walls[1:] else '; the only step'}); steady "
-          f"{wall:.4f} s a step, {LLM_TOKENS / wall:.1f} tokens/s; peak "
-          f"device memory {rec['peak']:.2f} GiB; launches {used} ({smi})")
+          f"{'' if walls[1:] else '; the only step'}; step counts "
+          f"{rec['counts']}); steady {wall:.4f} s a step, "
+          f"{LLM_TOKENS / wall:.1f} tokens/s; peak device memory "
+          f"{rec['peak']:.2f} GiB allocated, {rec['reserved']:.2f} reserved; "
+          f"launches {used} ({smi})")
     require(all(math.isfinite(x) for x in rec["losses"]),
             f"{tag} non-finite loss {rec['losses']}")
     require(any(not torch.equal(a, b) for a, b in zip(rec["first"],
@@ -4472,10 +4712,14 @@ def run_llm_training(repro_torch, ops, dev, smi):
         for k in train_launches:
             train_launches[k] += rec["launches"][k]
 
-    # (a) glm4-9b, flash on and off, and the step-1 loss's rounding reach
-    on = run_train(ops, "glm4-9b", 6, True)
-    report_train(on, "glm4-9b", True, smi)
-    count(on)
+    # (a) glm4-9b, flash on (captured, and its eager twin: bit for bit)
+    # and off, and the step-1 loss's rounding reach
+    with deterministic_cudnn():
+        on = run_train(ops, "glm4-9b", 6, True, keep=True)
+        report_train(on, "glm4-9b", True, smi)
+        count(on)
+        eager = run_train(ops, "glm4-9b", 6, True, keep=True, capture=False)
+    train_ab(on, eager, smi)
     off = run_train(ops, "glm4-9b", 6, False)
     report_train(off, "glm4-9b", False, smi)
     probe = run_train(ops, "glm4-9b", 1, True, perturb=1)
@@ -4503,9 +4747,10 @@ def run_llm_training(repro_torch, ops, dev, smi):
     require(all(m["aux"] > 0 for m in moe["metrics"]),
             "[train qwen3] aux is not positive")
     del moe
-    # (c) one step of each other dense arch: G = 6 and G = 4
+    # (c) three steps of each other dense arch (warm-up, capture, replay):
+    # G = 6 and G = 4
     for arch in ("internlm2-20b", "phi3-medium-14b"):
-        rec = run_train(ops, arch, 1, True)
+        rec = run_train(ops, arch, 3, True)
         report_train(rec, arch, True, smi)
         count(rec)
     # (d) the cross-pod federated round
@@ -4800,16 +5045,15 @@ def start_dryruns():
 def run_dryrun_phase(dev, smi, started):
     """Phase 4o: collect the dry runs ``start_dryruns`` started (each
     record must say CUDA stayed uninitialized, and this process's device
-    memory must not move meanwhile); then one reduced glm4-9b train step
-    (bf16 activations) timed on the card beside its counted FLOPs,
+    memory must not move meanwhile); then a reduced glm4-9b train step
+    (bf16 activations), its ``TrainStep`` captured and an eager twin, 6
+    steps each, timed on the card beside its counted FLOPs,
     ``model_flops`` and its roofline on one H100."""
     from repro_torch.configs import get_arch
     from repro_torch.configs.shapes import InputShape
     from repro_torch.launch import dryrun, roofline
     from repro_torch.launch.train import synthetic_lm_batches
-    from repro_torch.models.model import (
-        Model, init_train_state, make_train_step,
-    )
+    from repro_torch.models.model import Model, TrainStep, init_train_state
     from repro_torch.optim import sgd
 
     procs, out, t0 = started
@@ -4871,31 +5115,57 @@ def run_dryrun_phase(dev, smi, started):
                            hbm_bytes=counts["hbm_bytes"],
                            collective_bytes=0.0, chips=1, model_flops=mf)
     opt = sgd(0.01, momentum=0.9)
-    state = init_train_state(model, opt, torch.Generator(
-        device=dev).manual_seed(0), dev)
-    step = make_train_step(model, opt, remat=True)
-    data = synthetic_lm_batches(cfg.vocab, 8, 1024, 0, dev)
-    walls = []
-    for _ in range(6):
-        batch = next(data)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        state, metrics = step(state, batch)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t1)
-    steady = float(np.median(walls[1:]))
+    runs = {}
+    for captured in (True, False):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = init_train_state(model, opt, torch.Generator(
+            device=dev).manual_seed(0), dev)
+        held = torch.cuda.memory_allocated()
+        step = TrainStep(model, opt, remat=True, capture=captured)
+        data = synthetic_lm_batches(cfg.vocab, 8, 1024, 0, dev)
+        walls, losses = [], []
+        for _ in range(6):
+            batch = next(data)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+            losses.append(float(metrics["loss"]))
+        runs[captured] = {
+            "walls": walls, "losses": losses,
+            "steady": float(np.median(walls[3 if captured else 2:])),
+            "peak": (torch.cuda.max_memory_allocated() - held) / 2**30,
+            "reserved": torch.cuda.max_memory_reserved() / 2**30,
+            "counts": (step.eager_steps, step.captures, step.recaptures,
+                       step.replays)}
+        del state, step
+    cap, eag = runs[True], runs[False]
+    steady = cap["steady"]
     print(f"[4o step] reduced glm4-9b (d_model {cfg.d_model}, "
-          f"{cfg.n_layers} layers, bf16 activations), B 8 x 1024, remat: "
-          f"step wall s {[round(w, 5) for w in walls]} (step 1 includes "
-          f"first use), median of 2-6 {steady:.5f} s; counted "
+          f"{cfg.n_layers} layers, bf16 activations), B 8 x 1024, remat, "
+          f"TrainStep captured (warm-up, capture, 4 replays: counts "
+          f"{cap['counts']}): step wall s {[round(w, 5) for w in cap['walls']]}"
+          f", median of 4-6 {steady:.5f} s; its eager twin "
+          f"{[round(w, 5) for w in eag['walls']]}, median of 3-6 "
+          f"{eag['steady']:.5f} s (captured / eager x"
+          f"{steady / eag['steady']:.3f}); peak GiB above the state "
+          f"{cap['peak']:.3f} / {eag['peak']:.3f}, reserved "
+          f"{cap['reserved']:.3f} / {eag['reserved']:.3f}; losses equal "
+          f"{cap['losses'] == eag['losses']}; counted "
           f"{counts['flops']:.4g} FLOPs and {counts['hbm_bytes']:.4g} HBM "
           f"bytes (fake-tensor trace, {counts['ops']} ops), model_flops "
           f"{mf:.4g}; roofline on one {roofline.CARD}: compute "
           f"{rl.compute_s * 1e3:.4f} ms, memory {rl.memory_s * 1e3:.4f} ms "
           f"({rl.dominant}-bound), {rl.bound_s * 1e3:.4f} ms = "
-          f"{100 * rl.bound_s / steady:.2f}% of the measured step ({smi})")
-    require(math.isfinite(float(metrics["loss"])), "[4o step] loss")
-    del state, step
+          f"{100 * rl.bound_s / steady:.2f}% of the captured step, "
+          f"{100 * rl.bound_s / eag['steady']:.2f}% of the eager ({smi})")
+    require(all(math.isfinite(x) for x in cap["losses"] + eag["losses"]),
+            "[4o step] loss")
+    require(cap["counts"] == (1, 1, 0, 5) and eag["counts"] == (6, 0, 0, 0),
+            f"[4o step] counts {cap['counts']} / {eag['counts']}")
     return wall
 
 
@@ -5082,7 +5352,7 @@ def train_zoo(ops, arch, smi, steps=4):
                     cut=cut, redraw=well_conditioned_)
     positions = B * (S + (cfg.n_frames if cfg.family == "vlm" else 0))
     walls = rec["walls"]
-    wall = float(np.mean(walls[1:]))
+    wall = float(np.mean(steady_walls(rec)))
     used = {k: rec["launches"][k] for k in ("flash_fwd", "flash_dq",
                                             "flash_dkv")}
     n = flash_layers(cfg)
@@ -5090,7 +5360,8 @@ def train_zoo(ops, arch, smi, steps=4):
             "flash_dkv": n * steps}
     tag = f"[4m {arch} train]"
     print(f"{tag} losses {[round(x, 6) for x in rec['losses']]}; step wall "
-          f"s {[round(w, 4) for w in walls]} (step 1 includes first use); "
+          f"s {[round(w, 4) for w in walls]} (step 1 includes first use, "
+          f"step 2 the capture; counts {rec['counts']}); "
           f"steady {wall:.4f} s a step, {positions / wall:.1f} positions/s "
           f"(B {B} x {positions // B}); peak {rec['peak']:.2f} GiB; launches "
           f"{used} ({smi})")
@@ -5387,26 +5658,25 @@ def profile_zoo(arch):
     params = model.init(gen, dev)
     batch = zoo_inputs(cfg, B, S, gen, dev)
     prefill = make_prefill_step(model)
-    real = train.make_train_step
+    real = train.TrainStep
+    done = []
 
-    def make(model, opt, remat=True):
-        step, done = real(model, opt, remat), []
-
-        def profiled(state, batch):
+    class Profiled(real):
+        def __call__(self, state, batch):
             if not done:
-                well_conditioned_(model, state.params)
+                well_conditioned_(self.model, state.params)
             done.append(1)
-            if len(done) < 3:                 # warm-up steps
-                return step(state, batch)
+            if len(done) < 3:      # the warm-up step and the capture
+                return super().__call__(state, batch)
             out = []
-            profile_window(lambda: out.append(step(state, batch)),
-                           f"{arch}] train step B {tb} x {ts} tokens")
+            profile_window(lambda: out.append(
+                super(Profiled, self).__call__(state, batch)),
+                f"{arch}] train step (replayed) B {tb} x {ts} tokens")
             return out[0]
-        return profiled
 
     positions = S + (cfg.n_frames if cfg.family == "vlm" else 0)
     mattn.set_flash_attention(True)
-    train.make_train_step = make
+    train.TrainStep = Profiled
     try:
         for _ in range(2):
             prefill(params, batch)
@@ -5421,7 +5691,7 @@ def profile_zoo(arch):
         train.main(["--arch", arch, *cut, "--steps", "3", "--log-every",
                     "1"])
     finally:
-        train.make_train_step = real
+        train.TrainStep = real
         mattn.set_flash_attention(None)
 
 

@@ -31,7 +31,10 @@ production program factories and checks four properties:
 * **executor** — a fused round through ``BatchedExecutor.
   run_round_fused`` is one dispatch and one host sync; on a CUDA device
   the bucket is captured once (in the round after its eager warm-up),
-  never recaptured, and each later round is one replay.
+  never recaptured, and each later round is one replay.  The staged
+  path's cohort through ``BatchedExecutor.run_cohort_stacked`` likewise:
+  one dispatch and one host sync a call; on a CUDA device an eager call
+  0, then one capture, no recapture and one replay a call.
 """
 from __future__ import annotations
 
@@ -92,6 +95,11 @@ class ContractReport:
     fused_captures: Optional[int] = None        # CUDA only
     fused_recaptures: Optional[int] = None
     fused_replays_per_round: Optional[int] = None
+    cohort_dispatches_per_call: int = 0
+    cohort_host_syncs_per_call: int = 0
+    cohort_captures: Optional[int] = None       # CUDA only
+    cohort_recaptures: Optional[int] = None
+    cohort_replays_per_call: Optional[int] = None
     fused_flops: float = 0.0
     fused_hbm_bytes: float = 0.0
     flops: float = 0.0
@@ -132,6 +140,16 @@ class ContractReport:
                 f"contracts: fused round CUDA graph captures="
                 f"{self.fused_captures}, recaptures={self.fused_recaptures}, "
                 f"replays/round={self.fused_replays_per_round}")
+        lines.append(
+            f"contracts: staged cohort dispatches/call="
+            f"{self.cohort_dispatches_per_call}, host syncs/call="
+            f"{self.cohort_host_syncs_per_call}")
+        if self.cohort_captures is not None:
+            lines.append(
+                f"contracts: staged cohort CUDA graph captures="
+                f"{self.cohort_captures}, recaptures="
+                f"{self.cohort_recaptures}, replays/call="
+                f"{self.cohort_replays_per_call}")
         lines += [
             f"contracts: fused round program flops={self.fused_flops:.3e} "
             f"hbm_bytes={self.fused_hbm_bytes:.3e}",
@@ -433,7 +451,7 @@ def check_contracts(baseline_path: Optional[str] = None,
             f"fused round host-sync count: "
             f"{report.fused_host_syncs_per_round} (expected exactly 1 "
             f"batched device->host fetch)")
-    if device.type == "cuda":
+    if executor.capture:          # a CUDA device: the rounds are graphs
         report.fused_captures = sum(c[2] for c in counts)
         report.fused_recaptures = counts[2][2]
         report.fused_replays_per_round = counts[2][3]
@@ -447,6 +465,40 @@ def check_contracts(baseline_path: Optional[str] = None,
                 f"round 0 captured or replayed {counts[0][2:]} (expected "
                 f"an eager round 0, then 1 capture, 0 recaptures and 1 "
                 f"replay a round)")
+
+    # the staged path's cohort (the program of every async wave too): one
+    # dispatch and one host sync a call; on a CUDA device the bucket
+    # captured once, in the call after its eager warm-up, then one replay
+    # a call
+    counts = []
+    for r in range(3):
+        n0 = (batched.dispatch_count(), batched.host_sync_count(),
+              batched.cohort_capture_count(), batched.cohort_replay_count())
+        executor.run_cohort_stacked(ex_clients, model.init(gen, device), r)
+        counts.append([b - a for a, b in zip(n0, (
+            batched.dispatch_count(), batched.host_sync_count(),
+            batched.cohort_capture_count(), batched.cohort_replay_count()))])
+    report.cohort_dispatches_per_call = counts[1][0]
+    report.cohort_host_syncs_per_call = counts[1][1]
+    if (report.cohort_dispatches_per_call,
+            report.cohort_host_syncs_per_call) != (1, 1):
+        report.violations.append(
+            f"staged cohort: {report.cohort_dispatches_per_call} "
+            f"dispatch(es), {report.cohort_host_syncs_per_call} host "
+            f"sync(s) a call (expected exactly 1 and 1)")
+    if executor.capture:
+        report.cohort_captures = sum(c[2] for c in counts)
+        report.cohort_recaptures = counts[2][2]
+        report.cohort_replays_per_call = counts[2][3]
+        if (report.cohort_captures, report.cohort_recaptures,
+                report.cohort_replays_per_call,
+                counts[0][2] + counts[0][3]) != (1, 0, 1, 0):
+            report.violations.append(
+                f"staged cohort CUDA graph: {report.cohort_captures} "
+                f"capture(s), {report.cohort_recaptures} recapture(s), "
+                f"{report.cohort_replays_per_call} replay(s) a call, call 0 "
+                f"captured or replayed {counts[0][2:]} (expected an eager "
+                f"call 0, then 1 capture, 0 recaptures and 1 replay a call)")
 
     # (c): the cost model, on CPU tensors
     cpu = torch.device("cpu")

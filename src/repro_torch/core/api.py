@@ -307,7 +307,9 @@ def reset() -> None:
     """Clear global state: the context and the cached round programs and
     sequential client and eval steps (each closes over its model, and a
     LoRA model over its frozen base — gigabytes on the card for a large
-    LM; a step's CUDA graphs and their pools go with it)."""
+    LM; a step's CUDA graphs and their pools go with it).  The context's
+    trainer goes with the context, and with it its batched executor's
+    round and cohort graphs and their pools."""
     from repro_torch.core.batched import (
         make_cohort_program, make_round_program,
     )

@@ -28,7 +28,10 @@ cannot take) runs the same arithmetic in three stages —
 :meth:`~BatchedExecutor.run_cohort_stacked`,
 :meth:`~BatchedExecutor.compress_stacked`,
 :meth:`~BatchedExecutor.aggregate_stacked` — through the helpers the fused
-program uses, so the two agree bit for bit.  The gathering path
+program uses, so the two agree bit for bit.  Its first stage, the cohort
+program (:func:`make_cohort_program`, which every async wave runs too), is
+captured the same way: one CUDA graph a bucket, all of an executor's
+cohort graphs in one memory pool.  The gathering path
 (:meth:`~BatchedExecutor.run_cohort`) hands back per-client
 ``Client.train``-shaped results for the clients' own post-train stages.
 
@@ -121,6 +124,7 @@ _round_builds = 0
 _dispatches = 0
 _host_syncs = 0
 _round_graphs = CaptureCounts()
+_cohort_graphs = CaptureCounts()
 
 
 def cohort_trace_count() -> int:
@@ -164,6 +168,18 @@ def round_replay_count() -> int:
     """CUDA-graph replays of a fused round this process: one a captured
     round (the capturing round included)."""
     return _round_graphs.replays
+
+
+def cohort_capture_count() -> int:
+    """CUDA-graph captures of a cohort program this process
+    (:meth:`BatchedExecutor.run_cohort_stacked`): one a bucket."""
+    return _cohort_graphs.captures
+
+
+def cohort_replay_count() -> int:
+    """CUDA-graph replays of a cohort program this process: one a captured
+    cohort (the capturing call included)."""
+    return _cohort_graphs.replays
 
 
 def _note_dispatch(n: int = 1) -> None:
@@ -518,7 +534,9 @@ def make_round_program(model: FLModel, optimizer: TracedOptimizer,
 
 def capture_key(program, inputs, ef_leaves) -> Tuple[Any, Any, Any]:
     """``(program, shapes, storage)``: what a captured round is valid for.
-    ``program`` is the :func:`make_round_program` instance (its cache key),
+    ``program`` is the :func:`make_round_program` instance (its cache key;
+    the cohort graphs key on the :func:`make_cohort_program` instance and
+    the shapes alone),
     ``shapes`` the structure and (shape, dtype) of every input copied into
     the graph's static buffers (``inputs``: the bucketed tensors of one
     round) and the flags the program reads as it runs
@@ -603,8 +621,21 @@ class BatchedExecutor:
     replays, every later one replays; a change of the EF store's storage
     recaptures at once.  Rounds run eagerly on the CPU (no graph exists
     there), under ``distributed="data"`` (a round spans the mesh's
-    devices) and with ``capture=False`` (the eager side of an A/B)."""
+    devices) and with ``capture=False`` (the eager side of an A/B).
 
+    :meth:`run_cohort_stacked` follows the same rules for the cohort
+    program (:meth:`_train_cohort`): one graph a (program, shapes) key
+    after an eager warm-up, eager wherever the fused round is.  The
+    reference donates the stacked params to it; here they are made inside
+    the graph from the global params, so the graph writes nothing the
+    caller holds and its key has no storage part.  Async waves come in
+    several buckets, so the cohort graphs share one memory pool (they
+    replay one at a time and their outputs are copied out at once); they
+    live as long as the executor."""
+
+    #: device types whose rounds and cohorts run as graphs (the CPU tests
+    #: stand a recording graph in for the CUDA one on "cpu")
+    graph_device_types = ("cuda",)
     #: bound on the *device-resident* tier of the per-client data pool
     #: (rows); evicted rows are recomputed from ``c.data``
     DATA_POOL_MAX_CLIENTS = 1024
@@ -631,10 +662,13 @@ class BatchedExecutor:
         self._ef = None                # lazily-built TieredRowStore
         # CUDA graphs of the fused round: one a (program, shapes) key,
         # after one eager round at that key (``_warm``)
-        self.capture = (capture and torch.device(device).type == "cuda"
-                        and self.mesh is None)
+        self.capture = (capture and self.mesh is None and
+                        torch.device(device).type in self.graph_device_types)
         self._graphs: Dict[Any, Tuple[Any, CapturedRound]] = {}
         self._warm = set()
+        # CUDA graphs of the cohort program, in one pool
+        self._cohorts: Dict[Any, CapturedGraph] = {}
+        self._cohort_pool = None
 
     # ------------------------------------------------------------------
     def _batch_indices(self, client, round_id: int) -> np.ndarray:
@@ -840,7 +874,9 @@ class BatchedExecutor:
         per-shard trees on the shards' devices, with ``sharded`` True),
         host ``loss`` / ``acc`` / ``n_steps`` (N_b,), ``num_samples`` (N,)
         and ``wall``, the blocking training time, which ends with the one
-        fetch of loss and accuracy (one dispatch, one host sync)."""
+        fetch of loss and accuracy (one dispatch, one host sync).  On a
+        CUDA device without a mesh the training runs as its bucket's CUDA
+        graph (see the class docstring)."""
         Nb, S, vec, optimizer, xd, yd, idx, n_steps = self._cohort_inputs(
             clients, round_id)
         # the fused program's own training body
@@ -848,9 +884,9 @@ class BatchedExecutor:
                                      use_prox=bool((vec.mu > 0).any()),
                                      use_clip=bool((vec.max_norm > 0).any()))
         t0 = time.perf_counter()
-        parts = _train_blocks(cohort, _row_blocks(self.mesh, Nb, self.device),
-                              global_params, xd, yd, self._put(idx),
-                              self._put(n_steps), self._vec(vec))
+        parts = self._train_cohort(cohort, Nb, (
+            global_params, xd, yd, self._put(idx), self._put(n_steps),
+            self._vec(vec)))
         _note_dispatch()
         # the timing boundary: ``wall`` feeds the virtual clock
         stacked = torch.stack([gather_rows([p[i] for p in parts],
@@ -869,6 +905,31 @@ class BatchedExecutor:
                                       dtype=np.int64),
             "wall": wall,
         }
+
+    # ------------------------------------------------------------------
+    def _train_cohort(self, cohort, nb: int, inputs):
+        """``_train_blocks`` of the cohort program on ``inputs`` (its
+        arguments after the blocks): eagerly, or as the bucket's CUDA
+        graph, whose static buffers take every input and which makes the
+        stacked params from the global ones inside."""
+        def run(a):
+            return _train_blocks(cohort, _row_blocks(self.mesh, nb,
+                                                     self.device), *a)
+
+        if not self.capture:
+            return run(inputs)
+        key = capture_key(cohort, inputs, ())[:2]
+        graph = self._cohorts.get(key)
+        if graph is not None:
+            return graph(inputs)
+        if key not in self._warm:
+            self._warm.add(key)
+            return run(inputs)             # the bucket's warm-up
+        graph = self._cohorts[key] = CapturedGraph(
+            run, inputs, self.device, _cohort_graphs, pool=self._cohort_pool)
+        if self._cohort_pool is None:
+            self._cohort_pool = graph.pool()
+        return graph(inputs)
 
     # ------------------------------------------------------------------
     def run_round_fused(self, clients: Sequence, global_params: PyTree,

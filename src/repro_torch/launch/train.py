@@ -1,8 +1,12 @@
 """End-to-end training driver for the ported architectures.
 
-Trains a (reduced or full) arch config with ``make_train_step`` on the
-run's device — the card (:func:`repro_torch.get_device`; without one it
-raises unless ``repro_torch.set_device("cpu")`` was called).  The flags are
+Trains a (reduced or full) arch config on the run's device — the card
+(:func:`repro_torch.get_device`; without one it raises unless
+``repro_torch.set_device("cpu")`` was called) — with
+``models.model.TrainStep``, the reference's ``jax.jit(make_train_step(...),
+donate_argnums=(0,))``: the state is updated in place and, on the card,
+the step is one CUDA graph (step 1 eager, step 2 captured, later steps
+replayed).  The flags are
 the reference's (``repro.launch.train``):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch glm4-9b \\
@@ -27,9 +31,7 @@ import torch
 from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs import get_arch, list_archs
 from repro_torch.convert import params_to_numpy
-from repro_torch.models.model import (
-    Model, init_train_state, make_train_step,
-)
+from repro_torch.models.model import Model, TrainStep, init_train_state
 from repro_torch.optim import get_optimizer
 from repro_torch.tracking import Tracker
 from repro_torch.utils.tree import tree_leaves
@@ -104,7 +106,7 @@ def main(argv=None):
     print(f"arch={cfg.name} params={n_params/1e6:.1f}M devices=1 "
           f"device={device} ({name})")
 
-    step_fn = make_train_step(model, opt)
+    step_fn = TrainStep(model, opt)
     data = synthetic_lm_batches(cfg.vocab, args.batch, args.seq, args.seed,
                                 device)
     tracker = Tracker()

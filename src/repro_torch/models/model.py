@@ -2,7 +2,7 @@
 decode steps, input specs and the train step.
 
 The layer the drivers program against: ``repro_torch.launch.train``
-(``make_train_step`` over ``Model.loss``), ``repro_torch.core.federated``
+(:class:`TrainStep` over ``Model.loss``), ``repro_torch.core.federated``
 (the cross-pod round) and ``repro_torch.launch.serve`` (``make_prefill_step``
 and ``make_serve_step``, both under ``torch.no_grad()``, so an RWKV6 model's
 prefill and decode take the WKV6 kernel: ``models/transformer``).  On a
@@ -14,8 +14,12 @@ run.
 A train step is ``(state, batch) -> (state, metrics)`` as in the reference:
 autograd takes the gradients of ``Model.loss`` with respect to every
 parameter leaf, then the ported optimizer's ``update`` and
-``apply_updates`` make a new :class:`TrainState` (the input state is not
-modified).
+``apply_updates``.  :func:`make_train_step` makes a new :class:`TrainState`
+(the input state is not modified): the federated round (per-pod views of
+its pod-stacked state) and the dry run (fake tensors) call it.
+:class:`TrainStep`, which ``launch.train`` drives, is the reference's
+``jax.jit(make_train_step(...), donate_argnums=(0,))``: it writes the new
+state into the old state's storage and, on a card, is one CUDA graph.
 """
 from __future__ import annotations
 
@@ -143,11 +147,68 @@ class TrainState:
     step: Any        # 0-d int32 tensor
 
 
-def make_train_step(model: Model, optimizer: Optimizer, remat: bool = True):
-    """(state, batch) -> (state, metrics), ``metrics`` = the loss's
-    ``{"nll", "aux"}`` plus ``"loss"``, all detached 0-d tensors."""
+class _OneGraphStep:
+    """What :class:`ServeStep` and :class:`TrainStep` share: one CUDA graph
+    a step object (:class:`repro_torch.utils.capture.CapturedGraph`,
+    counted by the class's ``_counts``), valid for a ``(shapes, storage)``
+    key.  The first call at a ``shapes`` key runs eagerly (the warm-up:
+    cuBLAS's, cuDNN's and the allocator's first use), the next one
+    captures and replays, every later one replays; a call whose
+    ``storage`` moved captures again at once, after the old graph and its
+    private pool are freed.  A capture or replay that fails raises;
+    nothing falls back to an eager step.  Steps run eagerly on devices not
+    in ``graph_device_types`` (the CPU, where no graph exists) and with
+    ``capture=False`` (the eager side of an A/B).
 
-    def step(state: TrainState, batch):
+    ``captures``, ``recaptures`` (captures after the first), ``replays``
+    and ``eager_steps`` count this object's calls."""
+
+    #: device types whose steps run as a graph (the CPU tests stand a
+    #: recording graph in for the CUDA one on "cpu")
+    graph_device_types = ("cuda",)
+    _counts: CaptureCounts
+
+    def __init__(self, capture: bool):
+        self.capture = capture
+        self._graph = None          # (shapes, storage, CapturedGraph)
+        self._warm = set()          # shapes keys that ran their warm-up
+        self.captures = self.recaptures = self.replays = 0
+        self.eager_steps = 0
+
+    def graphed(self, device: torch.device) -> bool:
+        """Whether this step runs as a graph on ``device``."""
+        return self.capture and device.type in self.graph_device_types
+
+    def _graph_step(self, key, run, inputs, device, static=None):
+        """``run(inputs)`` at ``key`` = ``(shapes, storage)``: eagerly (the
+        key's warm-up), or by the graph of ``run`` (captured from
+        ``static``, default ``inputs``: its static buffers' first values)
+        with ``inputs`` copied into its static buffers."""
+        held = self._graph
+        if held is not None and held[:2] == key:
+            self.replays += 1
+            return held[2](inputs)
+        if key[0] not in self._warm:
+            self._warm.add(key[0])
+            self.eager_steps += 1
+            return run(inputs)                          # the warm-up
+        if held is not None:
+            self.recaptures += 1
+        # the old graph and its private pool go first
+        self._graph = held = None
+        graph = CapturedGraph(run, inputs if static is None else static,
+                              device, self._counts)
+        self.captures += 1
+        self._graph = (*key, graph)
+        self.replays += 1
+        return graph(inputs)
+
+
+def _step_updates(model: Model, optimizer: Optimizer, remat: bool):
+    """(state, batch) -> (updates, new optimizer state, metrics): one
+    step's gradients and optimizer update, what both train steps share."""
+
+    def updates_of(state: TrainState, batch):
         leaves, treedef = tree_flatten(state.params)
         live = [t.detach().requires_grad_() for t in leaves]
         loss, metrics = model.loss(tree_unflatten(treedef, live), batch,
@@ -160,13 +221,110 @@ def make_train_step(model: Model, optimizer: Optimizer, remat: bool = True):
         with torch.no_grad():
             updates, opt_state = optimizer.update(grads, state.opt_state,
                                                   state.params)
-            del grads
-            params = apply_updates(state.params, updates)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss.detach()
+        return updates, opt_state, metrics
+
+    return updates_of
+
+
+def make_train_step(model: Model, optimizer: Optimizer, remat: bool = True):
+    """(state, batch) -> (state, metrics), ``metrics`` = the loss's
+    ``{"nll", "aux"}`` plus ``"loss"``, all detached 0-d tensors; a new
+    :class:`TrainState`, eager (:class:`TrainStep` is the donating,
+    captured form)."""
+    updates_of = _step_updates(model, optimizer, remat)
+
+    def step(state: TrainState, batch):
+        updates, opt_state, metrics = updates_of(state, batch)
+        with torch.no_grad():
+            params = apply_updates(state.params, updates)
         return TrainState(params, opt_state, state.step + 1), metrics
 
     return step
+
+
+_train_graphs = CaptureCounts()
+
+
+def train_capture_count() -> int:
+    """CUDA-graph captures of a train step this process (every
+    :class:`TrainStep`'s, recaptures included)."""
+    return _train_graphs.captures
+
+
+def train_replay_count() -> int:
+    """CUDA-graph replays of a train step this process: one a captured
+    step (the capturing call included)."""
+    return _train_graphs.replays
+
+
+def train_key(state: TrainState, batch, remat: bool):
+    """``(shapes, storage)``: what a captured train step is valid for.
+    ``shapes``: ``remat``, the tree structure, shape and dtype of every
+    state leaf and batch leaf, and the flags the step reads as it runs
+    (:func:`~repro_torch.utils.capture.traced_flags`); ``storage``: the
+    address and strides of every state leaf, which the graph reads and
+    writes in place."""
+    s, stree = tree_flatten((state.params, state.opt_state, state.step))
+    b, btree = tree_flatten(batch)
+    shapes = (remat, repr(stree), repr(btree),
+              tuple((tuple(t.shape), t.dtype) for t in s + b),
+              traced_flags())
+    storage = tuple((t.data_ptr(), t.stride()) for t in s)
+    return shapes, storage
+
+
+class TrainStep(_OneGraphStep):
+    """``(state, batch) -> (state, metrics)``: :func:`make_train_step`'s
+    step with the state donated, the port's ``jax.jit(make_train_step(
+    model, opt), donate_argnums=(0,))``.  The new params, optimizer state
+    and step count are written into the input state's own tensors — the
+    params by adding the optimizer's updates in place (``p + u`` as
+    ``apply_updates`` computes it), the optimizer state and the step by
+    one ``torch._foreach_copy_`` — and the same :class:`TrainState` comes
+    back: the same values as :func:`make_train_step`'s, bit for bit, in
+    the same storage every step.
+
+    On a CUDA device (the tokens') with ``capture`` on, the step is one
+    CUDA graph (:class:`_OneGraphStep`, keyed by :func:`train_key`).  Only
+    the batch is copied into the graph's static buffers; the graph reads
+    and writes the state in its storage, so a state in other storage
+    captures again at once.  The metrics come back as copies.
+    Process-wide counts: :func:`train_capture_count`,
+    :func:`train_replay_count`."""
+
+    _counts = _train_graphs
+
+    def __init__(self, model: Model, optimizer: Optimizer,
+                 remat: bool = True, capture: bool = True):
+        super().__init__(capture)
+        self.model = model
+        self.remat = remat
+        self._updates = _step_updates(model, optimizer, remat)
+
+    def _donated(self, state: TrainState, batch):
+        """One step written into ``state``'s tensors -> metrics."""
+        updates, opt_state, metrics = self._updates(state, batch)
+        with torch.no_grad():
+            params = tree_flatten(state.params)[0]
+            torch._foreach_add_(params, [
+                u.to(p.dtype) for p, u in zip(params,
+                                              tree_flatten(updates)[0])])
+            del updates
+            torch._foreach_copy_(
+                tree_flatten((state.opt_state, state.step))[0],
+                tree_flatten((opt_state, state.step + 1))[0])
+        return metrics
+
+    def __call__(self, state: TrainState, batch):
+        device = batch["tokens"].device
+        if not self.graphed(device):
+            self.eager_steps += 1
+            return state, self._donated(state, batch)
+        return state, self._graph_step(
+            train_key(state, batch, self.remat),
+            lambda b: self._donated(state, b), batch, device)
 
 
 def make_prefill_step(model: Model):
@@ -213,45 +371,30 @@ def serve_key(params, cache, tokens, ring: bool):
     return shapes, storage
 
 
-class ServeStep:
+class ServeStep(_OneGraphStep):
     """``(params, cache, tokens, pos) -> (logits, cache)``: one decode step
     without autograd, the cache updated in place and returned as the same
     object; the port's ``jax.jit(make_serve_step(model, ring=...),
     donate_argnums=(1,))``.
 
     On a CUDA device (``tokens``' device) with ``capture`` on, the step is
-    one CUDA graph (:class:`repro_torch.utils.capture.CapturedGraph`) that
-    serves every position: the first call at a ``shapes`` key of
-    :func:`serve_key` runs eagerly (the warm-up: cuBLAS's and the
-    allocator's first use), the next one captures and replays, every later
-    one replays.  Only ``tokens`` and ``pos`` are copied into the graph's
-    static buffers (a Python ``pos`` by a device ``fill_``, a tensor by a
-    device copy: no host sync either way); the graph reads the caller's
-    params and writes the caller's cache in their own storage — the
-    counterpart of donating the cache — so a new cache or new params
-    (another ``storage`` key) recapture at once, after the old graph and
-    its pool are freed: one graph a step object.  The logits come back as
-    a copy.  A capture or replay that fails raises; nothing falls back to
-    an eager step.  The step runs eagerly on the CPU (no graph exists
-    there) and with ``capture=False`` (the eager side of an A/B).
+    one CUDA graph that serves every position (:class:`_OneGraphStep`,
+    keyed by :func:`serve_key`).  Only ``tokens`` and ``pos`` are copied
+    into the graph's static buffers (a Python ``pos`` by a device
+    ``fill_``, a tensor by a device copy: no host sync either way); the
+    graph reads the caller's params and writes the caller's cache in their
+    own storage — the counterpart of donating the cache — so a new cache
+    or new params (another ``storage`` key) recapture at once.  The logits
+    come back as a copy.  Process-wide counts: :func:`serve_capture_count`,
+    :func:`serve_replay_count`."""
 
-    ``captures``, ``recaptures`` (captures after the first), ``replays``
-    and ``eager_steps`` count this object's calls; process-wide counts:
-    :func:`serve_capture_count`, :func:`serve_replay_count`."""
-
-    #: device types whose steps run as a graph (the CPU tests stand a
-    #: recording graph in for the CUDA one on "cpu")
-    graph_device_types = ("cuda",)
+    _counts = _serve_graphs
 
     def __init__(self, model: Model, ring: bool = False,
                  capture: bool = True):
+        super().__init__(capture)
         self.model = model
         self.ring = ring
-        self.capture = capture
-        self._graph = None          # (shapes, storage, CapturedGraph)
-        self._warm = set()          # shapes keys that ran their warm-up
-        self.captures = self.recaptures = self.replays = 0
-        self.eager_steps = 0
 
     def _decode(self, params, cache, tokens, pos):
         with torch.no_grad():
@@ -260,33 +403,15 @@ class ServeStep:
 
     def __call__(self, params, cache, tokens, pos):
         device = tokens.device
-        if not (self.capture and device.type in self.graph_device_types):
+        if not self.graphed(device):
             self.eager_steps += 1
             return self._decode(params, cache, tokens, pos)
         if isinstance(pos, torch.Tensor) and pos.device != device:
             pos = int(pos)              # a host value: filled, not copied
-        shapes, storage = serve_key(params, cache, tokens, self.ring)
-        held = self._graph
-        if held is not None and held[:2] == (shapes, storage):
-            logits = held[2]((tokens, pos))
-            self.replays += 1
-            return logits, cache
-        if shapes not in self._warm:
-            self._warm.add(shapes)
-            self.eager_steps += 1
-            return self._decode(params, cache, tokens, pos)  # the warm-up
-        if held is not None:
-            self.recaptures += 1
-        # the old graph and its private pool go first
-        self._graph = held = None
-        static = (tokens, kvc.as_pos(pos, device))
-        graph = CapturedGraph(
-            lambda s: self._decode(params, cache, s[0], s[1])[0], static,
-            device, _serve_graphs)
-        self.captures += 1
-        self._graph = (shapes, storage, graph)
-        logits = graph((tokens, pos))
-        self.replays += 1
+        logits = self._graph_step(
+            serve_key(params, cache, tokens, self.ring),
+            lambda s: self._decode(params, cache, s[0], s[1])[0],
+            (tokens, pos), device, static=(tokens, kvc.as_pos(pos, device)))
         return logits, cache
 
 

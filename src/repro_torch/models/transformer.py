@@ -201,6 +201,16 @@ def _encoder_layer(cfg: ArchConfig, p, x, positions):
     return x + mlp_mod.mlp(cfg, p["mlp"], h)
 
 
+def _remat(fn, p, x):
+    """``fn(p, x)`` under non-reentrant ``torch.utils.checkpoint``.  No
+    op of a layer draws from a generator, so the recompute needs no saved
+    RNG state (``preserve_rng_state=False``: the same values, bit for bit,
+    and no save or restore of the CUDA generator's state inside a
+    CUDA-graph capture of the train step)."""
+    return checkpoint(fn, p, x, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 def _encoder_forward(cfg: ArchConfig, params, frames, remat: bool):
     enc = params["encoder"]
     x = frames + enc["pos_embed"][None, :frames.shape[1]].to(frames.dtype)
@@ -210,8 +220,7 @@ def _encoder_forward(cfg: ArchConfig, params, frames, remat: bool):
         return _encoder_layer(cfg, p, xx, positions)
     for li in range(cfg.encoder_layers):
         p = _layer(enc["layers"], li)
-        x = (checkpoint(fn, p, x, use_reentrant=False) if remat
-             else fn(p, x))
+        x = (_remat(fn, p, x) if remat else fn(p, x))
     return apply_norm(cfg, enc["final_norm"], x)
 
 
@@ -247,7 +256,7 @@ def forward(cfg: ArchConfig, params, tokens, frames=None,
         for li in range(seg.count):
             p = _layer(seg_params, li)
             if remat:
-                x, layer_aux = checkpoint(fn, p, x, use_reentrant=False)
+                x, layer_aux = _remat(fn, p, x)
             else:
                 x, layer_aux = fn(p, x)
             if layer_aux is not None:

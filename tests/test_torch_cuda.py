@@ -1023,3 +1023,155 @@ def test_remote_services_on_one_card_give_the_serial_params(deterministic):
                                  step.cfg.proximal_mu, step.cfg.max_grad_norm)
     assert (shared.captures, shared.recaptures) == (1, 0)
     repro_torch.reset()
+
+
+# ---------------------------------------------------------------------------
+# the cohort program and the train step as CUDA graphs
+# (core/batched.py::BatchedExecutor._train_cohort, models/model.py::TrainStep)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("compression", ["none", "stc", "int8"])
+def test_captured_staged_rounds_equal_eager_rounds_bitwise(deterministic,
+                                                           compression):
+    """femnist_cnn at published width on the staged path, 4 rounds of 3
+    clients, the cohort program captured and eager: final params and
+    train losses bit for bit; each bucket warmed up once and captured
+    once, a replay for every later round, the bucket's graphs in one
+    pool."""
+    from repro_torch.core import batched
+    from repro_torch.core.batched import BatchedExecutor
+
+    cfg = Config.make({
+        "model": "femnist_cnn",
+        "data": {"dataset": "femnist", "num_clients": 6,
+                 "data_amount": 0.06, "batch_size": 32},
+        "server": {"rounds": 4, "clients_per_round": 3},
+        "client": {"local_epochs": 1, "lr": 0.01,
+                   "compression": compression},
+        "resources": {"execution": "batched", "round_fusion": "off",
+                      "aggregation_kernel": True}})
+    repro_torch.set_device(deterministic)
+    p0 = get_model("femnist_cnn").init(torch.Generator().manual_seed(0),
+                                       deterministic)
+    out = {}
+    for capture in (True, False):
+        trainer = Trainer(cfg, get_model("femnist_cnn"),
+                          build_federated_data(cfg.data))
+        trainer.engine = BatchedExecutor(trainer.engine.model,
+                                         trainer.device, capture=capture)
+        trainer.server.params = p0
+        n0 = (batched.cohort_capture_count(), batched.cohort_replay_count())
+        res = trainer.run()
+        out[capture] = (res, batched.cohort_capture_count() - n0[0],
+                        batched.cohort_replay_count() - n0[1],
+                        trainer.engine)
+    (got, caps, reps, ex), (want, ecaps, ereps, _) = out[True], out[False]
+    assert _bits_equal(got["params"], want["params"])
+    assert [h["train_loss"] for h in got["history"]] == \
+        [h["train_loss"] for h in want["history"]]
+    assert (ecaps, ereps) == (0, 0)
+    assert caps == len(ex._cohorts) >= 1 and reps == 4 - len(ex._warm)
+    repro_torch.reset()
+
+
+def test_captured_async_waves_equal_eager_bitwise(deterministic,
+                                                  monkeypatch):
+    """The async engine (K 3 of 8 in flight, 1x / 4x speeds, stc) with the
+    measured wall pinned: waves of several buckets, each captured once;
+    params, virtual clocks and staleness bit for bit the eager run's."""
+    from repro_torch.core import batched
+    from repro_torch.core.batched import BatchedExecutor
+
+    orig = BatchedExecutor.run_cohort_stacked
+
+    def fixed_wall(self, clients, params, round_id):
+        st = orig(self, clients, params, round_id)
+        st["wall"] = float(st["n_steps"].sum()) * 1e-4
+        return st
+
+    monkeypatch.setattr(BatchedExecutor, "run_cohort_stacked", fixed_wall)
+    cfg = Config.make({
+        "model": "linear",
+        "data": {"dataset": "synthetic", "num_clients": 8,
+                 "batch_size": 32},
+        "server": {"rounds": 5, "clients_per_round": 4, "test_every": 0},
+        "client": {"local_epochs": 2, "lr": 0.1, "compression": "stc"},
+        "system_heterogeneity": {"enabled": True},
+        "resources": {"execution": "async", "buffer_size": 3,
+                      "max_concurrency": 8, "aggregation_kernel": True}})
+    repro_torch.set_device(deterministic)
+    p0 = get_model("linear").init(torch.Generator().manual_seed(0),
+                                  deterministic)
+    out = {}
+    for capture in (True, False):
+        fed = build_federated_data(cfg.data)
+        trainer = Trainer(cfg, get_model("linear"), fed)
+        trainer.engine = BatchedExecutor(trainer.engine.model,
+                                         trainer.device, capture=capture)
+        trainer.server.params = p0
+        for i, cid in enumerate(sorted(fed.client_ids)):
+            trainer.het.assignment[cid] = (1.0, 4.0)[i % 2]
+        n0 = batched.cohort_capture_count()
+        out[capture] = (trainer.run(), batched.cohort_capture_count() - n0,
+                        len(trainer.engine._cohorts))
+    (got, caps, keys), (want, ecaps, _) = out[True], out[False]
+    assert _bits_equal(got["params"], want["params"])
+    for key in ("virtual_time", "staleness_mean", "staleness_max",
+                "train_loss"):
+        assert [h[key] for h in got["history"]] == \
+            [h[key] for h in want["history"]], key
+    assert caps == keys >= 1 and ecaps == 0
+    assert max(h["staleness_max"] for h in got["history"]) > 0
+    repro_torch.reset()
+
+
+@pytest.mark.parametrize("arch", ["glm4-9b", "qwen3-moe-30b-a3b"])
+def test_captured_train_step_equals_eager_bitwise_in_place(deterministic,
+                                                           arch):
+    """The reduced arch, flash on, 5 steps through ``TrainStep`` captured
+    (warm-up, capture, replays) and eagerly: losses, metrics and the
+    final state bit for bit, the state in the same storage every step,
+    K6 / K7a / K7b counted through the replays as the eager run counts
+    them."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import synthetic_lm_batches
+    from repro_torch.models import attention as mattn
+    from repro_torch.models.model import Model, TrainStep, init_train_state
+    from repro_torch.optim import sgd
+
+    model = Model(get_arch(arch, reduced=True))
+    opt = sgd(0.01, momentum=0.9)
+    out = {}
+    mattn.set_flash_attention(True)
+    try:
+        for capture in (True, False):
+            state = init_train_state(model, opt, torch.Generator(
+                device=deterministic).manual_seed(0), deterministic)
+            ptrs = [t.data_ptr() for t in tree_leaves(
+                (state.params, state.opt_state, state.step))]
+            step = TrainStep(model, opt, capture=capture)
+            data = synthetic_lm_batches(model.cfg.vocab, 2, 64, 0,
+                                        deterministic)
+            ops.reset_launch_counts()
+            metrics = []
+            for _ in range(5):
+                same, m = step(state, next(data))
+                assert same is state
+                metrics.append({k: v.cpu() for k, v in m.items()})
+            assert [t.data_ptr() for t in tree_leaves(
+                (state.params, state.opt_state, state.step))] == ptrs
+            out[capture] = (state, metrics, ops.launch_counts(),
+                            (step.eager_steps, step.captures,
+                             step.recaptures, step.replays))
+    finally:
+        mattn.set_flash_attention(None)
+    (got, gm, launches, counts), (want, wm, elaunches, ecounts) = \
+        out[True], out[False]
+    assert counts == (1, 1, 0, 4) and ecounts == (5, 0, 0, 0)
+    assert launches == elaunches and launches["flash_dkv"] > 0
+    for a, b in zip(gm, wm):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    params = [tree_leaves(s.params) for s in (got, want)]
+    assert all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip(*params))
+    assert int(got.step) == int(want.step) == 5
